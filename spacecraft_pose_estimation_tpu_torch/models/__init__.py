@@ -1,0 +1,1 @@
+"""Models of the port: HRNet and the Faster R-CNN detector (eval mode)."""

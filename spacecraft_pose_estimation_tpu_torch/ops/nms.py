@@ -1,0 +1,98 @@
+"""Greedy NMS as a keep-mask in input order, many problems per call.
+
+Port of ``spacecraft_pose_estimation_tpu/ops/nms.py`` (``nms_mask``,
+``batched_nms_mask``) with the sorted core done by kernel K4
+(``csrc/nms_mask_sorted.cu``, the counterpart of ``ops/pallas_nms.py``).
+Leading dims are independent problems: the RPN hands over every
+(image, level) at once, the box head every image.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _cuda
+from .boxes import pairwise_iou
+
+Tensor = torch.Tensor
+
+MAX_BOXES = 1024
+
+KERNEL = _cuda.Kernel(
+    "nms_mask_sorted", "nms_mask_sorted.cu",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p],
+)
+
+
+def nms_mask_sorted_plain(boxes: Tensor, valid: Tensor, iou_threshold: float) -> Tensor:
+    """Plain PyTorch K4: (P, N, 4) score-sorted boxes, (P, N) bool -> (P, N) keep."""
+    n = boxes.shape[-2]
+    over = pairwise_iou(boxes, boxes) > iou_threshold
+    suppressed = torch.zeros_like(valid)
+    for i in range(n):
+        keep_i = valid[:, i] & ~suppressed[:, i]
+        row = over[:, i] & keep_i[:, None]
+        row[:, i] = False
+        suppressed |= row
+    return valid & ~suppressed
+
+
+def nms_mask_sorted(boxes: Tensor, valid: Tensor, iou_threshold: float) -> Tensor:
+    """Keep-mask (P, N) bool over (P, N, 4) score-sorted boxes.
+
+    CPU tensors take the plain version; CUDA tensors launch K4.
+    """
+    if boxes.device.type == "cpu":
+        return nms_mask_sorted_plain(boxes, valid, iou_threshold)
+    _cuda.check_cuda_tensor("boxes", boxes, torch.float32, 3)
+    _cuda.check_cuda_tensor("valid", valid, torch.bool, 2)
+    p, n, four = boxes.shape
+    if four != 4 or tuple(valid.shape) != (p, n):
+        raise ValueError(f"boxes {tuple(boxes.shape)} and valid {tuple(valid.shape)} disagree")
+    if n > MAX_BOXES:
+        raise ValueError(f"nms_mask_sorted takes at most {MAX_BOXES} boxes per problem, got {n}")
+    keep = torch.empty((p, n), dtype=torch.uint8, device=boxes.device)
+    KERNEL.launch(
+        _cuda.ptr(boxes), _cuda.ptr(valid), _cuda.ptr(keep), p, n, float(iou_threshold)
+    )
+    return keep.bool()
+
+
+def nms_mask(
+    boxes: Tensor, scores: Tensor, iou_threshold: float, valid: Tensor | None = None
+) -> Tensor:
+    """Exact greedy NMS keep-mask (..., N) in input order.
+
+    Boxes (..., N, 4) are visited in descending score order (stable: ties
+    keep input order, as ``jnp.argsort(descending=True)``); a box is kept
+    iff no higher-scoring kept box overlaps it above ``iou_threshold``.
+    """
+    lead, n = scores.shape[:-1], scores.shape[-1]
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    b = boxes.reshape(-1, n, 4).to(torch.float32)
+    v = valid.reshape(-1, n)
+    s = torch.where(v, scores.reshape(-1, n), torch.full_like(scores.reshape(-1, n), -torch.inf))
+    order = torch.sort(s, dim=-1, descending=True, stable=True).indices
+    b_sorted = torch.gather(b, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    v_sorted = torch.gather(v, 1, order).contiguous()
+    keep_sorted = nms_mask_sorted(b_sorted, v_sorted, iou_threshold)
+    keep = torch.zeros_like(v).scatter_(1, order, keep_sorted)
+    return keep.reshape(*lead, n)
+
+
+def batched_nms_mask(
+    boxes: Tensor, scores: Tensor, class_ids: Tensor, iou_threshold: float,
+    valid: Tensor | None = None,
+) -> Tensor:
+    """Class-aware NMS by the coordinate-offset trick (detectron2 batched_nms).
+
+    Boxes of different classes are moved apart by twice the problem's
+    largest coordinate so they never overlap.
+    """
+    n = boxes.shape[-2]
+    max_coord = torch.abs(boxes).reshape(*boxes.shape[:-2], n * 4).amax(-1) + 1.0
+    offsets = class_ids.to(boxes.dtype) * (2.0 * max_coord[..., None])
+    return nms_mask(boxes + offsets[..., None], scores, iou_threshold, valid)

@@ -1,0 +1,165 @@
+"""FPN ROIAlign with per-box level assignment, one pass over all images.
+
+Port of ``spacecraft_pose_estimation_tpu/ops/pallas_pooler.py``
+(``multilevel_roi_align_pallas``) with its semantics (``level_mats`` /
+``window_matrices``): aligned ROIAlign whose taps are limited to a
+(window, window + 8) read window per box. The work is done by kernel K2
+(``csrc/roi_align_multilevel.cu``); :func:`roi_align_multilevel_plain` is
+the same function in eager PyTorch, taken for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import warnings
+
+import torch
+
+from .. import _cuda
+from .boxes import box_area
+
+Tensor = torch.Tensor
+
+KERNEL = _cuda.Kernel(
+    "roi_align_multilevel", "roi_align_multilevel.cu",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+)
+MAX_LEVELS = 4
+MAX_SAMPLES = 64  # output_size * sampling_ratio, per axis
+
+
+def assign_levels(boxes: Tensor, num_levels: int, lvl_min: int,
+                  canonical_size: float = 224.0, canonical_level: int = 4) -> Tensor:
+    """Pyramid level index in [0, num_levels) per box (pallas_pooler.py:165-171)."""
+    areas = box_area(boxes)
+    target = torch.floor(canonical_level + torch.log2(torch.sqrt(areas) / canonical_size + 1e-8))
+    target = torch.clamp(target, lvl_min, lvl_min + num_levels - 1)
+    return target.to(torch.int64) - lvl_min
+
+
+def check_window_covers(level_hw, canonical_size, canonical_level, window):
+    """Warn when ``window`` cannot hold the largest box a level can get
+    (roi_align._check_window_covers): such boxes lose their outer taps."""
+    mid_extent = int(math.ceil(2.0 * canonical_size / (2 ** canonical_level))) + 2
+    coarse_extent = max(level_hw[-1]) + 2
+    worst = max(mid_extent, coarse_extent)
+    if window < worst:
+        warnings.warn(
+            f"windowed ROI pooler: window={window} cannot cover the worst-case box "
+            f"extent ({worst} cells at the coarsest level {tuple(level_hw[-1])}); "
+            "oversized boxes will lose outer bilinear taps",
+            stacklevel=3,
+        )
+
+
+def _axis_taps(coord: Tensor, limit: int, origin: Tensor, win: int):
+    """Two taps (index, weight) per sample coordinate, window-masked.
+
+    coord (R, M), origin (R,) -> k (R, M, 2) int64, w (R, M, 2) float32.
+    """
+    inb = (coord > -1.0) & (coord < limit)
+    cc = torch.clamp(coord, 0.0, limit - 1)
+    k0 = torch.floor(cc)
+    rel = cc - origin[:, None].to(torch.float32)
+    kk = k0[..., None] + torch.tensor([0.0, 1.0], device=coord.device)
+    local = kk - origin[:, None, None].to(torch.float32)
+    w = torch.clamp(1.0 - torch.abs(rel[..., None] - local), min=0.0)
+    ok = inb[..., None] & (local >= 0) & (local < win) & (kk < limit)
+    return torch.where(ok, kk, 0.0).to(torch.int64), torch.where(ok, w, 0.0)
+
+
+def level_taps(boxes: Tensor, h: int, w: int, stride: int, output_size: int,
+               sampling_ratio: int, window: int):
+    """Taps of boxes (n, 4) on one (h, w) level: ((ky, wy), (kx, wx)), each
+    (n, P*S, 2), with K2's (window, window + 8) read window per box."""
+    p, s = output_size, sampling_ratio
+    grid = (torch.arange(p, device=boxes.device)[:, None]
+            + (torch.arange(s, device=boxes.device)[None, :] + 0.5) / s).reshape(-1)
+    x0, y0, x1, y1 = (boxes * (1.0 / stride) - 0.5).unbind(-1)
+    sy = y0[:, None] + grid[None, :] * (y1 - y0)[:, None] / p
+    sx = x0[:, None] + grid[None, :] * (x1 - x0)[:, None] / p
+    win_h, win_w = window, window + 8
+    oy = torch.clamp(torch.floor(y0).to(torch.int64) - 1, 0, max(h, win_h) - win_h)
+    ox = torch.clamp(torch.floor(x0).to(torch.int64) - 1, 0, max(w, win_w) - win_w)
+    ox = (ox // 8) * 8
+    return _axis_taps(sy, h, oy, win_h), _axis_taps(sx, w, ox, win_w)
+
+
+def roi_align_multilevel_plain(
+    feats: list[Tensor], boxes: Tensor, batch_idx: Tensor, output_size: int,
+    strides: tuple[int, ...], sampling_ratio: int = 2, window: int = 48,
+    canonical_size: float = 224.0, canonical_level: int = 4,
+) -> Tensor:
+    """Plain PyTorch K2. feats: per level (B, H_l, W_l, C); boxes (R, 4);
+    batch_idx (R,) -> (R, P, P, C) float32."""
+    p, s = output_size, sampling_ratio
+    r, c = boxes.shape[0], feats[0].shape[-1]
+    lvl_min = int(math.log2(strides[0]))
+    levels = assign_levels(boxes, len(feats), lvl_min, canonical_size, canonical_level)
+    out = torch.zeros((r, p, p, c), dtype=torch.float32, device=boxes.device)
+    for li, (f, stride) in enumerate(zip(feats, strides)):
+        sel = torch.nonzero(levels == li).flatten()
+        if sel.numel() == 0:
+            continue
+        h, w = f.shape[1], f.shape[2]
+        (ky, wy), (kx, wx) = level_taps(boxes[sel], h, w, stride, p, s, window)  # (n, P*S, 2)
+        base = batch_idx[sel].to(torch.int64) * (h * w)
+        idx = (base[:, None, None, None, None] + ky[:, :, :, None, None] * w
+               + kx[:, None, None, :, :])  # (n, PSy, 2, PSx, 2)
+        vals = f.reshape(-1, c)[idx].to(torch.float32)  # (n, PSy, 2, PSx, 2, C)
+        # x taps first, then y taps, then the S x S mean, as the kernel sums
+        xsum = (vals * wx[:, None, None, :, :, None]).sum(-2)  # (n, PSy, 2, PSx, C)
+        ysum = (xsum * wy[:, :, :, None, None]).sum(2)  # (n, PSy, PSx, C)
+        n = sel.numel()
+        out[sel] = ysum.reshape(n, p, s, p, s, c).sum((2, 4)) * (1.0 / (s * s))
+    return out
+
+
+def roi_align_multilevel(
+    feats: list[Tensor], boxes: Tensor, batch_idx: Tensor, output_size: int,
+    strides: tuple[int, ...], sampling_ratio: int = 2, window: int = 48,
+    canonical_size: float = 224.0, canonical_level: int = 4,
+) -> Tensor:
+    """FPN ROIAlign: (R, P, P, C) float32 from per-level NHWC features.
+
+    feats: fine-to-coarse list of (B, H_l, W_l, C), float32 or bfloat16,
+    strides consecutive powers of two; boxes (R, 4) XYXY image pixels;
+    batch_idx (R,) image of each box. CPU tensors take the plain version;
+    CUDA tensors launch K2.
+    """
+    check_window_covers([tuple(f.shape[1:3]) for f in feats], canonical_size, canonical_level, window)
+    if boxes.device.type == "cpu":
+        return roi_align_multilevel_plain(
+            feats, boxes, batch_idx, output_size, strides, sampling_ratio, window,
+            canonical_size, canonical_level,
+        )
+    num_levels = len(feats)
+    lvl_min = int(math.log2(strides[0]))
+    if not 1 <= num_levels <= MAX_LEVELS:
+        raise ValueError(f"roi_align_multilevel takes 1..{MAX_LEVELS} levels, got {num_levels}")
+    if tuple(strides) != tuple(2 ** (lvl_min + i) for i in range(num_levels)):
+        raise ValueError(f"strides must be consecutive powers of two, got {strides}")
+    if output_size * sampling_ratio > MAX_SAMPLES:
+        raise ValueError(f"output_size * sampling_ratio must be <= {MAX_SAMPLES}")
+    dtype = feats[0].dtype
+    b, c = feats[0].shape[0], feats[0].shape[-1]
+    for i, f in enumerate(feats):
+        _cuda.check_cuda_tensor(f"feats[{i}]", f, (torch.float32, torch.bfloat16), 4)
+        if f.dtype != dtype or f.shape[0] != b or f.shape[-1] != c:
+            raise ValueError("all levels need the same dtype, batch and channels")
+    _cuda.check_cuda_tensor("boxes", boxes, torch.float32, 2)
+    _cuda.check_cuda_tensor("batch_idx", batch_idx, torch.int32, 1)
+    r = boxes.shape[0]
+    if boxes.shape[1] != 4 or batch_idx.shape[0] != r:
+        raise ValueError(f"boxes {tuple(boxes.shape)} and batch_idx {tuple(batch_idx.shape)} disagree")
+    out = torch.empty((r, output_size, output_size, c), dtype=torch.float32, device=boxes.device)
+    padded = list(feats) + [feats[-1]] * (MAX_LEVELS - num_levels)
+    hw = [d for f in padded for d in (f.shape[1], f.shape[2])]
+    KERNEL.launch(
+        *[_cuda.ptr(f) for f in padded], *hw, num_levels, lvl_min,
+        int(dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(batch_idx), _cuda.ptr(out),
+        r, c, output_size, sampling_ratio, window, float(canonical_size), canonical_level,
+    )
+    return out
