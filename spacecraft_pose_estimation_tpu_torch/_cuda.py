@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
 into ``_build/<name>-<hash>.so`` (``.gitignore`` lists ``_build/``) the
 first time one of its kernels is launched, or all together through
-:func:`build_all`. The hash covers the source, the shared header and the
-flags, so an edited source is rebuilt. Nothing here runs at import time:
-the CPU-only test host has no nvcc.
+:func:`build_all`. The hash covers the source, the shared ``*.cuh``
+headers and the flags, so an edited source or header is rebuilt. Nothing
+here runs at import time: the CPU-only test host has no nvcc.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def _nvcc() -> str:
 def _target(source: str) -> Path:
     src = CSRC / source
     h = hashlib.sha256()
-    for part in (src, CSRC / "common.cuh"):
+    for part in (src, *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
@@ -149,3 +149,10 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype, shape_len: int | None =
         raise ValueError(f"{name}: expected {shape_len} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_word_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` starts on a 4-byte boundary: the int8 kernels load
+    4 channels of an activation as one 32-bit word."""
+    if t.data_ptr() % 4:
+        raise ValueError(f"{name}: expected a tensor starting on a 4-byte boundary")

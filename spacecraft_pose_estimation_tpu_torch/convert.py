@@ -1,4 +1,4 @@
-"""Weight bridge: a JAX package variable tree -> the port's ``state_dict``.
+"""Weight bridges from the JAX package: variable trees and quantized trees.
 
 The port's module names mirror the Flax trees of ``HRNet`` and
 ``GeneralizedRCNN`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
@@ -6,6 +6,10 @@ The port's module names mirror the Flax trees of ``HRNet`` and
 is by name: conv kernels go from HWIO to OIHW, dense kernels are
 transposed, and everything else (biases, BN scale/bias, and the
 ``batch_stats`` or frozen ``mean``/``var``) is copied as it is.
+
+:func:`quantized_to_torch` carries an int8 quantized tree
+(``quantize_hrnet`` or ``quantize_backbone`` output) over key for key: the
+port's quantizers return the same keys and layouts.
 
 The input is nested dicts of numpy arrays, e.g. what
 ``jax.tree_util.tree_map(np.asarray, variables)`` gives; this module
@@ -49,3 +53,20 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
                 np.ascontiguousarray(arr, dtype=np.float32)
             )
     return out
+
+
+def quantized_to_torch(q: Mapping):
+    """A JAX quantized tree -> the same tree of CPU tensors.
+
+    Arrays keep their dtype (int8 weights, f32 requant vectors, bf16 stem
+    weights, 0-d ``in_scale``) and layout (HWIO); Python numbers (the
+    backbone's ``feature_scales``) stay numbers.
+    """
+    if isinstance(q, Mapping):
+        return {str(k): quantized_to_torch(v) for k, v in q.items()}
+    if isinstance(q, (float, int)):
+        return q
+    arr = np.asarray(q)
+    if arr.dtype.name == "bfloat16":  # numpy has no bf16 of its own; the cast is exact
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))

@@ -1,1 +1,1 @@
-"""Models of the port: HRNet and the Faster R-CNN detector (eval mode)."""
+"""Models of the port: HRNet and the Faster R-CNN detector (eval mode), and their int8 forms."""

@@ -101,16 +101,27 @@ class GeneralizedRCNN(nn.Module):
             )
         return self._anchors[key]
 
-    def pyramid(self, images: Tensor) -> dict[str, Tensor]:
-        """Raw (B, H, W, 3) images -> {p2..p6: NCHW views of NHWC memory}."""
-        x = (images.to(torch.float32) - self.pixel_mean) / self.pixel_std
-        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
-        return self.fpn(self.backbone(x))
+    def normalize(self, images: Tensor) -> Tensor:
+        """Raw (B, H, W, 3) images -> (x - pixel_mean) / pixel_std, float32 NHWC."""
+        return (images.to(torch.float32) - self.pixel_mean) / self.pixel_std
 
-    def forward(self, images: Tensor) -> dict[str, Tensor]:
+    def pyramid(self, images: Tensor, precomputed_feats: dict[str, Tensor] | None = None) -> dict[str, Tensor]:
+        """Raw (B, H, W, 3) images -> {p2..p6: NCHW views of NHWC memory}.
+
+        ``precomputed_feats`` ({res2..res5: (B, h, w, C) NHWC}, e.g. from
+        ``backbone_int8.backbone_int8_apply``) replace the backbone's.
+        """
+        if precomputed_feats is not None:
+            feats = {k: v.permute(0, 3, 1, 2).to(self.dtype) for k, v in precomputed_feats.items()}
+        else:
+            x = self.normalize(images).permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+            feats = self.backbone(x)
+        return self.fpn(feats)
+
+    def forward(self, images: Tensor, precomputed_feats: dict[str, Tensor] | None = None) -> dict[str, Tensor]:
         cfg = self.config
         h, w = images.shape[1], images.shape[2]
-        pyramid = self.pyramid(images)
+        pyramid = self.pyramid(images, precomputed_feats)
         shapes = {lvl: (p.shape[2], p.shape[3]) for lvl, p in pyramid.items()}
         proposals, _, prop_valid = find_top_proposals(
             self.rpn_head(pyramid), self.anchors(shapes, images.device), (h, w), cfg.rpn

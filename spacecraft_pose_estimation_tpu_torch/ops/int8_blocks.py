@@ -1,0 +1,287 @@
+"""Fused int8 block chains of HRNet (kernels K5, K6/K6s, K7).
+
+Port of ``spacecraft_pose_estimation_tpu/ops/pallas_blocks.py``:
+
+* :func:`basic_block_chain` (K5, ``csrc/basic_block_chain.cu``): a module
+  branch's chain of BasicBlocks, counterpart of ``fused_basic_block_chain``;
+* :func:`bottleneck_chain` (K6/K6s, ``csrc/bottleneck_chain.cu``): layer1's
+  Bottlenecks, counterpart of ``fused_bottleneck_chain`` and
+  ``fused_bottleneck_chain_strips``, which compute one function; ``strip``
+  picks the row tiling of the one kernel;
+* :func:`up_exchange` (K7, ``csrc/up_exchange.cu``): one fuse-exchange
+  output, counterpart of ``fused_up_exchange``;
+
+and the packers that gather their operands from a quantized tree
+(``chain_params_from_q``, ``bottleneck_params_from_q``,
+``up_exchange_operands``). Each ``*_plain`` function is the per-op int8 walk
+of the same sites through :func:`..int8_conv.int8_conv_plain`, and is what
+the wrappers run for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _cuda
+from .int8_conv import int8_conv_plain, requant
+
+Tensor = torch.Tensor
+
+CHAIN = _cuda.Kernel(
+    "basic_block_chain", "basic_block_chain.cu",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+BOTTLENECK = _cuda.Kernel(
+    "bottleneck_chain", "bottleneck_chain.cu",
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+)
+EXCHANGE = _cuda.Kernel(
+    "up_exchange", "up_exchange.cu",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    + ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3) * 3 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+)
+MAX_EXCHANGE_OPERANDS = 3  # finer or coarser branches of one output (4 branches)
+
+
+def _residual_add(x: Tensor, r: Tensor, c0: Tensor, c1: Tensor) -> Tensor:
+    """The walk's add site: rq(relu(x * c0 + r * c1))."""
+    return requant(torch.clamp_min(x.to(torch.float32) * c0 + r.to(torch.float32) * c1, 0.0))
+
+
+def _check_int8_channels(name: str, *channels: int) -> None:
+    if any(c % 4 for c in channels):
+        raise ValueError(f"{name}: the kernel needs channel counts that are multiples of 4, got {channels}")
+
+
+def _default_strip(h: int) -> int:
+    """Two strips per image: twice the clusters of one strip, for ~1.1-1.7x
+    of recomputed halo rows at the serving shapes."""
+    return max(1, math.ceil(h / 2))
+
+
+# --------------------------------------------------------------------------- K5
+
+
+def basic_block_chain_plain(x: Tensor, w: Tensor, m: Tensor, b: Tensor, coeffs: Tensor,
+                            nblocks: int) -> Tensor:
+    """Plain PyTorch K5: ``nblocks`` BasicBlocks, the per-op walk."""
+    for blk in range(nblocks):
+        x1 = int8_conv_plain(x, w[blk, 0], m[blk, 0], b[blk, 0], relu=True)
+        x2 = int8_conv_plain(x1, w[blk, 1], m[blk, 1], b[blk, 1])
+        x = _residual_add(x2, x, coeffs[blk, 0], coeffs[blk, 1])
+    return x
+
+
+def basic_block_chain(x: Tensor, w: Tensor, m: Tensor, b: Tensor, coeffs: Tensor, nblocks: int) -> Tensor:
+    """``nblocks`` int8 BasicBlocks over x (B, H, W, C).
+
+    w (nblocks, 2, 3, 3, C, C) int8; m, b (nblocks, 2, C) f32; coeffs
+    (nblocks, 2) f32, the add sites' [conv, residual] coefficients. CPU
+    tensors take the plain version; CUDA tensors launch K5, two strips of
+    rows per image.
+    """
+    if x.device.type == "cpu":
+        return basic_block_chain_plain(x, w, m, b, coeffs, nblocks)
+    return _launch_chain(x, w, m, b, coeffs, nblocks)
+
+
+def _launch_chain(x, w, m, b, coeffs, nblocks):
+    for name, t, dtype, nd in (("x", x, torch.int8, 4), ("w", w, torch.int8, 6), ("m", m, torch.float32, 3),
+                               ("b", b, torch.float32, 3), ("coeffs", coeffs, torch.float32, 2)):
+        _cuda.check_cuda_tensor(name, t, dtype, nd)
+    _cuda.check_word_aligned("x", x)
+    bsz, h, wd, c = x.shape
+    if tuple(w.shape) != (nblocks, 2, 3, 3, c, c) or tuple(m.shape) != (nblocks, 2, c) \
+            or tuple(b.shape) != (nblocks, 2, c) or tuple(coeffs.shape) != (nblocks, 2):
+        raise ValueError(f"basic_block_chain: operands disagree with x {tuple(x.shape)} and nblocks {nblocks}")
+    _check_int8_channels("basic_block_chain", c)
+    strip = _default_strip(h)
+    band = min(h, strip + 4 * nblocks)
+    out = torch.empty_like(x)
+    work = torch.empty(bsz * math.ceil(h / strip) * 2 * band * wd * c, dtype=torch.int8, device=x.device)
+    CHAIN.launch(_cuda.ptr(x), _cuda.ptr(w), _cuda.ptr(m), _cuda.ptr(b), _cuda.ptr(coeffs), _cuda.ptr(out),
+                 _cuda.ptr(work), bsz, h, wd, c, nblocks, strip)
+    return out
+
+
+def chain_params_from_q(q: dict, prefix: str, branch: int, nblocks: int):
+    """One module branch's BasicBlock sites stacked for K5:
+    (w, m, b, coeffs), or None when a block has a projection ('down')."""
+    ws, ms, bs, cs = [], [], [], []
+    for k in range(nblocks):
+        bn = f"{prefix}/branch{branch}/block{k}"
+        if f"{bn}/down" in q["convs"]:
+            return None
+        c1, c2 = q["convs"][f"{bn}/conv1"], q["convs"][f"{bn}/conv2"]
+        ws.append(torch.stack([c1["w8"], c2["w8"]]))
+        ms.append(torch.stack([c1["m"], c2["m"]]))
+        bs.append(torch.stack([c1["b"], c2["b"]]))
+        cs.append(torch.as_tensor(q["adds"][bn]["coeffs"], dtype=torch.float32))
+    return torch.stack(ws), torch.stack(ms), torch.stack(bs), torch.stack(cs)
+
+
+# --------------------------------------------------------------------------- K6
+
+
+def bottleneck_chain_plain(x: Tensor, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs,
+                           nblocks: int) -> Tensor:
+    """Plain PyTorch K6: layer1's Bottlenecks, the per-op walk."""
+    for blk in range(nblocks):
+        t1 = int8_conv_plain(x, w1[blk, :x.shape[-1]][None, None], m1[blk], b1[blk], relu=True)
+        t2 = int8_conv_plain(t1, w2[blk], m2[blk], b2[blk], relu=True)
+        t3 = int8_conv_plain(t2, w3[blk][None, None], m3[blk], b3[blk])
+        r = int8_conv_plain(x, wd[None, None], md, bd) if blk == 0 else x
+        x = _residual_add(t3, r, coeffs[blk, 0], coeffs[blk, 1])
+    return x
+
+
+def bottleneck_chain(x: Tensor, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs,
+                     nblocks: int, strip: int | None = None) -> Tensor:
+    """HRNet layer1: ``nblocks`` int8 Bottlenecks over x (B, H, W, Cin0).
+
+    w1 (n, Cin_max, Cm) (each block reads its first Cin rows: Cin0 for
+    block 0, Cout after), w2 (n, 3, 3, Cm, Cm), w3 (n, Cm, Cout) int8;
+    wd (Cin0, Cout) block 0's projection; m*, b* f32 per output channel;
+    coeffs (n, 2). CPU tensors take the plain version; CUDA tensors launch
+    K6 with ``strip`` output rows per strip (the strips kernel K6s uses 32;
+    default: two strips per image).
+    """
+    if x.device.type == "cpu":
+        return bottleneck_chain_plain(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs, nblocks)
+    return _launch_bottleneck(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs, nblocks, strip)
+
+
+def _launch_bottleneck(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs, nblocks, strip):
+    _cuda.check_cuda_tensor("x", x, torch.int8, 4)
+    _cuda.check_word_aligned("x", x)
+    for name, t, nd in (("w1", w1, 3), ("w2", w2, 5), ("w3", w3, 3), ("wd", wd, 2)):
+        _cuda.check_cuda_tensor(name, t, torch.int8, nd)
+    for name, t in (("m1", m1), ("b1", b1), ("m2", m2), ("b2", b2), ("m3", m3), ("b3", b3),
+                    ("md", md), ("bd", bd), ("coeffs", coeffs)):
+        _cuda.check_cuda_tensor(name, t, torch.float32)
+    bsz, h, wdt, cin0 = x.shape
+    cin_max, cm = w1.shape[1], w1.shape[2]
+    cout = w3.shape[-1]
+    if (w1.shape[0] != nblocks or tuple(w2.shape) != (nblocks, 3, 3, cm, cm) or tuple(w3.shape) != (nblocks, cm, cout)
+            or tuple(wd.shape) != (cin0, cout) or cin_max < cin0 or (nblocks > 1 and cin_max < cout)
+            or tuple(coeffs.shape) != (nblocks, 2)):
+        raise ValueError(f"bottleneck_chain: operands disagree with x {tuple(x.shape)} and nblocks {nblocks}")
+    _check_int8_channels("bottleneck_chain", cin0, cm, cout)
+    strip = strip or _default_strip(h)
+    band = min(h, strip + 2 * nblocks)
+    out = torch.empty((bsz, h, wdt, cout), dtype=torch.int8, device=x.device)
+    work = torch.empty(bsz * math.ceil(h / strip) * band * wdt * (cout + 2 * cm), dtype=torch.int8,
+                       device=x.device)
+    BOTTLENECK.launch(*[_cuda.ptr(t) for t in (x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs,
+                                               out, work)],
+                      bsz, h, wdt, cin0, cin_max, cm, cout, nblocks, strip)
+    return out
+
+
+def bottleneck_params_from_q(q: dict, nblocks: int):
+    """layer1's sites packed for K6 (w1 zero-padded to the widest input:
+    zero rows add nothing to the int32 sums), or None without block 0's
+    projection."""
+    convs = q["convs"]
+    if "layer1/block0/down" not in convs:
+        return None
+    blocks = [(convs[f"layer1/block{k}/conv1"], convs[f"layer1/block{k}/conv2"], convs[f"layer1/block{k}/conv3"])
+              for k in range(nblocks)]
+    cin_max = max(c1["w8"].shape[-2] for c1, _, _ in blocks)
+    w1s = []
+    for c1, _, _ in blocks:
+        w1 = c1["w8"][0, 0]
+        w1s.append(torch.nn.functional.pad(w1, (0, 0, 0, cin_max - w1.shape[0])))
+    d = convs["layer1/block0/down"]
+    return dict(
+        w1=torch.stack(w1s), m1=torch.stack([c1["m"] for c1, _, _ in blocks]),
+        b1=torch.stack([c1["b"] for c1, _, _ in blocks]),
+        w2=torch.stack([c2["w8"] for _, c2, _ in blocks]), m2=torch.stack([c2["m"] for _, c2, _ in blocks]),
+        b2=torch.stack([c2["b"] for _, c2, _ in blocks]),
+        w3=torch.stack([c3["w8"][0, 0] for _, _, c3 in blocks]), m3=torch.stack([c3["m"] for _, _, c3 in blocks]),
+        b3=torch.stack([c3["b"] for _, _, c3 in blocks]),
+        wd=d["w8"][0, 0].contiguous(), md=d["m"], bd=d["b"],
+        coeffs=torch.stack([torch.as_tensor(q["adds"][f"layer1/block{k}"]["coeffs"], dtype=torch.float32)
+                            for k in range(nblocks)]),
+    )
+
+
+# --------------------------------------------------------------------------- K7
+
+
+def up_exchange_plain(yi: Tensor, downs: list, ups: list, coeffs: Tensor) -> Tensor:
+    """Plain PyTorch K7: the walk's exchange output, operands in the order
+    [yi, downs..., ups...]; each up is requant(1x1 conv) then a nearest
+    upsample to yi's resolution."""
+    acc = yi.to(torch.float32) * coeffs[0]
+    ci = 1
+    for d in downs:
+        acc = acc + d.to(torch.float32) * coeffs[ci]
+        ci += 1
+    for u, w, m, b in ups:
+        f = yi.shape[1] // u.shape[1]
+        y = int8_conv_plain(u, w[None, None], m, b)
+        y = y.repeat_interleave(f, dim=1).repeat_interleave(f, dim=2)
+        acc = acc + y.to(torch.float32) * coeffs[ci]
+        ci += 1
+    return requant(torch.clamp_min(acc, 0.0))
+
+
+def up_exchange(yi: Tensor, downs: list, ups: list, coeffs: Tensor) -> Tensor:
+    """Fuse-exchange output i: ``yi`` (B, H, W, C) int8, ``downs`` int8 at
+    yi's shape, ``ups`` [(u_j (B, H / f, W / f, C_j) int8, w_j (C_j, C) int8,
+    m_j, b_j (C,) f32)], ``coeffs`` (1 + len(downs) + len(ups),) f32.
+    CPU tensors take the plain version; CUDA tensors launch K7."""
+    if yi.device.type == "cpu":
+        return up_exchange_plain(yi, downs, ups, coeffs)
+    return _launch_exchange(yi, downs, ups, coeffs)
+
+
+def _launch_exchange(yi, downs, ups, coeffs):
+    _cuda.check_cuda_tensor("yi", yi, torch.int8, 4)
+    _cuda.check_cuda_tensor("coeffs", coeffs, torch.float32, 1)
+    bsz, h, wdt, c = yi.shape
+    if len(downs) > MAX_EXCHANGE_OPERANDS or len(ups) > MAX_EXCHANGE_OPERANDS \
+            or coeffs.shape[0] != 1 + len(downs) + len(ups):
+        raise ValueError(f"up_exchange: {len(downs)} downs, {len(ups)} ups, {coeffs.shape[0]} coefficients")
+    for i, d in enumerate(downs):
+        _cuda.check_cuda_tensor(f"downs[{i}]", d, torch.int8, 4)
+        if d.shape != yi.shape:
+            raise ValueError(f"up_exchange: downs[{i}] {tuple(d.shape)} is not at yi's shape {tuple(yi.shape)}")
+    up_args = []
+    for j, (u, w, m, b) in enumerate(ups):
+        _cuda.check_cuda_tensor(f"ups[{j}].u", u, torch.int8, 4)
+        _cuda.check_word_aligned(f"ups[{j}].u", u)
+        _cuda.check_cuda_tensor(f"ups[{j}].w", w, torch.int8, 2)
+        _cuda.check_cuda_tensor(f"ups[{j}].m", m, torch.float32, 1)
+        _cuda.check_cuda_tensor(f"ups[{j}].b", b, torch.float32, 1)
+        if u.shape[0] != bsz or h % u.shape[1] or wdt % u.shape[2] or h // u.shape[1] != wdt // u.shape[2] \
+                or tuple(w.shape) != (u.shape[3], c):
+            raise ValueError(f"up_exchange: ups[{j}] u {tuple(u.shape)}, w {tuple(w.shape)} vs yi {tuple(yi.shape)}")
+        _check_int8_channels("up_exchange", u.shape[3])
+        up_args += [_cuda.ptr(u), _cuda.ptr(w), _cuda.ptr(m), _cuda.ptr(b), u.shape[1], u.shape[2], u.shape[3]]
+    _check_int8_channels("up_exchange", c)
+    null = ctypes.c_void_p(None)
+    down_ptrs = [_cuda.ptr(d) for d in downs] + [null] * (MAX_EXCHANGE_OPERANDS - len(downs))
+    for _ in range(MAX_EXCHANGE_OPERANDS - len(ups)):
+        up_args += [null] * 4 + [0, 0, 0]
+    out = torch.empty_like(yi)
+    EXCHANGE.launch(_cuda.ptr(yi), *down_ptrs, len(downs), *up_args, len(ups), _cuda.ptr(coeffs), _cuda.ptr(out),
+                    bsz, h, wdt, c)
+    return out
+
+
+def up_exchange_operands(q: dict, prefix: str, i: int, ys: list):
+    """The coarser operands of exchange output i, [(y_j, w (C_j, C), m, b)]
+    for j > i, and its add coefficients; None when a 1x1 site is missing."""
+    ups = []
+    for j in range(i + 1, len(ys)):
+        c = q["convs"].get(f"{prefix}/fuse/up{i}_{j}")
+        if c is None:
+            return None
+        ups.append((ys[j], c["w8"][0, 0], c["m"], c["b"]))
+    return ups, torch.as_tensor(q["adds"][f"{prefix}/fuse/out{i}"]["coeffs"], dtype=torch.float32)

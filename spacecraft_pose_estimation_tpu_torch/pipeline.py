@@ -113,12 +113,14 @@ def make_pose_pipeline(
     """Returns fn(frames, boxes) -> the landmark outputs plus R, t, quat.
 
     ``landmarks_3d`` (J, 3), ``K`` (3, 3) and ``dist`` (5,) are moved to
-    the model's device as float32.
+    the model's device (its ``device`` attribute, else its parameters') as
+    float32.
     """
     if config.solver not in ("gn", "none"):
         raise NotImplementedError(f"solver {config.solver!r} is not ported yet ('gn', 'none')")
     landmark_stage = make_landmark_stage(model, config)
-    device = next(model.parameters()).device
+    # a quantized model holds no parameters and names its device itself
+    device = getattr(model, "device", None) or next(model.parameters()).device
     lm3d, K, dist = (torch.as_tensor(a, dtype=torch.float32).to(device) for a in (landmarks_3d, K, dist))
 
     @torch.inference_mode()
