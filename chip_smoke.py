@@ -7,7 +7,8 @@ from the repository root, on a machine with an NVIDIA H100 and the CUDA
 toolkit. It
 
 1. builds the CUDA kernels of ``spacecraft_pose_estimation_tpu_torch/csrc``
-   (one nvcc per source, in parallel);
+   (one nvcc per source, in parallel) and reads the SASS of K5a and K5:
+   integer tensor-core instructions (IGMMA), no dp4a;
 2. checks the tiny detector + HRNet serving path on the card against the
    same path on the CPU (plain PyTorch versions of the kernels), in the
    bf16 form and in the int8 form with every fused route on, and the PnP
@@ -22,11 +23,15 @@ toolkit. It
    serving run and read just after;
 4. holds each kernel to its plain version on the inputs the serving runs
    gave it, and times both (and one PyTorch library call where one
-   computes the same function); the fused int8 HRNet is held to the
-   per-op one on the served crops;
-5. times each serving stage on one clip of each form (CUDA events) and
+   computes the same function), the kernel also replayed from a CUDA
+   graph (its device time without the host's launch cost); the fused
+   int8 HRNet is held to the per-op one on the served crops;
+5. runs K3, the single-level ROIAlign that no serving path calls, on the
+   P2 map of one served keyframe and that image's box-head proposals, with
+   its launch counter reset just before and read just after;
+6. times each serving stage on one clip of each form (CUDA events) and
    runs torch.profiler over one more;
-6. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+7. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -56,6 +61,7 @@ NUM_JOINTS = 11
 # the int8 form with every fused route of the JAX package switched on
 FUSED = dict(fused_blocks=True, layer1_strips=True, fuse_exchange=True)
 INT8_IDS = ("K5a", "K5", "K6", "K7")
+TENSOR_CORE_SOURCES = ("int8_conv_requant.cu", "basic_block_chain.cu")  # K5a, K5
 
 
 def log(msg: str) -> None:
@@ -89,6 +95,27 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 5) -> float | None:
+    """Device time of ``fn`` replayed from a CUDA graph: its kernels without
+    the host's launch cost, which ``time_ms`` of a short kernel measures
+    instead. None when ``fn`` cannot be captured."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return time_ms(graph.replay, reps)
+    except RuntimeError as e:
+        log(f"graph capture failed: {e}")
+        return None
 
 
 def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -214,6 +241,40 @@ def crop_numbers(torch, args):
     return nbytes, 12.0 * b * oh * ow * 3
 
 
+def check_tensor_core_sass(cuda) -> None:
+    """K5a and K5 multiply on the int8 tensor cores: their SASS holds IGMMA
+    (wgmma) and no IDP4A."""
+    import os
+
+    cuobjdump = os.path.join(os.path.dirname(cuda._nvcc()), "cuobjdump")
+    for source in TENSOR_CORE_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", str(cuda._target(source))], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        counts = {op: sass.count(op) for op in ("IGMMA", "IMMA", "IDP4A")}
+        log(f"SASS of {source}: {json.dumps(counts)}")
+        if counts["IGMMA"] + counts["IMMA"] == 0 or counts["IDP4A"]:
+            raise RuntimeError(f"{source} does not run on the int8 tensor cores: {counts}")
+
+
+def touched_cells(torch, taps, h, w) -> int:
+    """Cells of an (h, w) map that some box's nonzero taps read."""
+    (ky, wy), (kx, wx) = taps
+    touched = torch.zeros((h, w), dtype=torch.bool, device=ky.device)
+    for i in range(ky.shape[0]):
+        ys, xs = ky[i][wy[i] > 0].unique(), kx[i][wx[i] > 0].unique()
+        touched[ys[:, None], xs[None, :]] = True
+    return int(touched.sum())
+
+
+def single_numbers(torch, roi_align, feat, boxes, p, scale, s, window):
+    """Bytes K3 must move (the cells its taps touch, the boxes, the pooled
+    output) and its FLOPs (53 per output value at sampling ratio 2)."""
+    h, w, c = feat.shape
+    cells = touched_cells(torch, roi_align.single_taps(boxes, h, w, scale, p, s, window), h, w)
+    r = boxes.shape[0]
+    return cells * c * feat.element_size() + r * p * p * c * 4 + r * 16, 53.0 * r * p * p * c
+
+
 def pooler_numbers(torch, roi_align, args, kwargs):
     """Bytes K2 must move (the feature cells its taps touch, read once per
     image and level; boxes, indices; the pooled output) and its FLOPs
@@ -225,15 +286,11 @@ def pooler_numbers(torch, roi_align, args, kwargs):
     levels = roi_align.assign_levels(boxes, len(feats), int(math.log2(strides[0])))
     cells = 0
     for li, (f, stride) in enumerate(zip(feats, strides)):
-        sel = torch.nonzero(levels == li).flatten()
-        if sel.numel() == 0:
-            continue
-        (ky, wy), (kx, wx) = roi_align.level_taps(boxes[sel], f.shape[1], f.shape[2], stride, p, s, window)
-        touched = torch.zeros(f.shape[:3], dtype=torch.bool, device=boxes.device)
-        for i, roi in enumerate(sel.tolist()):
-            ys, xs = ky[i][wy[i] > 0].unique(), kx[i][wx[i] > 0].unique()
-            touched[batch_idx[roi].long(), ys[:, None], xs[None, :]] = True
-        cells += int(touched.sum())
+        for img in range(f.shape[0]):
+            sel = torch.nonzero((levels == li) & (batch_idx == img)).flatten()
+            if sel.numel():
+                taps = roi_align.level_taps(boxes[sel], f.shape[1], f.shape[2], stride, p, s, window)
+                cells += touched_cells(torch, taps, f.shape[1], f.shape[2])
     nbytes = cells * c * feats[0].element_size() + r * p * p * c * 4 + r * (16 + 4)
     return nbytes, 53.0 * r * p * p * c
 
@@ -277,6 +334,32 @@ def exchange_numbers(a):
     ups = a["ups"]
     ops = sum(2.0 * u.shape[0] * u.shape[1] * u.shape[2] * u.shape[3] * yi.shape[3] for u, *_ in ups)
     return nbytes(yi, *a["downs"], *(t for up in ups for t in up), a["coeffs"]) + yi.numel(), ops
+
+
+def single_level_row(torch, m, captures):
+    """K3 on the served detector's own inputs: the P2 map of the first
+    keyframe of the int8 serving run (bf16 NHWC) and that image's box-head
+    proposals, as K2 was handed them; launched once with its counter reset
+    just before and read just after."""
+    feats, boxes, batch_idx = captures["K2"].calls[0][0][:3]
+    feat = feats[0][0]
+    boxes0 = boxes[batch_idx == 0].contiguous()
+    args = (feat, boxes0, 7, 0.25, 2, 48)  # output_size, spatial_scale (P2's 1 / 4), sampling, window
+    m.roi_align.SINGLE.launches = 0
+    out = m.roi_align.roi_align_single(*args)
+    sync()
+    launches = m.roi_align.SINGLE.launches
+    log(f"K3 phase: roi_align_single on P2 {tuple(feat.shape)} {feat.dtype}, {boxes0.shape[0]} proposals -> "
+        f"{tuple(out.shape)}; launches {launches}")
+    if launches == 0 or not torch.isfinite(out).all():
+        raise RuntimeError(f"K3 phase: {launches} launches, finite output {bool(torch.isfinite(out).all())}")
+    row = dict(id="K3", name=f"roi_align_single (P2 of one served keyframe, its {boxes0.shape[0]} proposals)",
+               source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel.cu",
+               replaces="spacecraft_pose_estimation_tpu/ops/pallas_pooler.py:262",
+               run_k=lambda: m.roi_align.roi_align_single(*args),
+               run_p=lambda: m.roi_align.roi_align_single_plain(*args), run_lib=None, tol=None, peak=FP32_FLOPS,
+               numbers=single_numbers(torch, m.roi_align, *args[:3], args[3], args[4], args[5]))
+    return row, {"K3": launches}
 
 
 def int_mm_call(torch, a):
@@ -513,7 +596,7 @@ def int8_rows(torch, m, captures):
         cap = captures[key]
         calls = [cap.bound(i) for i in range(len(cap.calls))]
         kernel = cap.orig
-        drop = ("strip",) if key == "K6" else ()
+        drop = ("strip", "wk")  # the plain versions take the HWIO weights alone
         plain = plains[key]
         run_k = [lambda a=a, f=kernel: f(**a) for a in calls]
         run_p = [lambda a={k: v for k, v in a.items() if k not in drop}, f=plain: f(**a) for a in calls]
@@ -577,14 +660,15 @@ def kernel_report(rows, launches):
         entry = {
             "name": name, "id": key, "route": "cuda", "source": row["source"], "replaces": row["replaces"],
             "launches": launches[key], "max_abs_err": err, "share_off": share,
-            "ms": time_ms(row["run_k"], 10), "plain_ms": time_ms(row["run_p"], 2), "bound_ms": bound,
+            "ms": time_ms(row["run_k"], 10), "device_ms": graph_ms(row["run_k"]),
+            "plain_ms": time_ms(row["run_p"], 2), "bound_ms": bound,
             "bound_by": bound_by, "bytes": nb, "ops": ops, "peak_ops_per_s": row["peak"],
             "library_ms": time_ms(row["run_lib"], 10) if row["run_lib"] is not None else None,
         }
         if "calls" in row:
             entry["calls_timed"] = row["calls"]
-        log(f"{key} {name}: {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f} ms, bound {bound:.5f} ms "
-            f"by {bound_by}, library {entry['library_ms']})")
+        log(f"{key} {name}: {entry['ms']:.4f} ms ({entry['device_ms']} ms replayed from a CUDA graph; plain "
+            f"{entry['plain_ms']:.4f} ms, bound {bound:.5f} ms by {bound_by}, library {entry['library_ms']})")
         report.append(entry)
     return report
 
@@ -607,6 +691,7 @@ def main() -> int:
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
+        "K3": (roi_align, "roi_align_single", roi_align.SINGLE),
         "K4": (nms, "nms_mask_sorted", nms.KERNEL), "K5a": (int8_conv, "int8_conv", int8_conv.KERNEL),
         "K5": (int8_blocks, "basic_block_chain", int8_blocks.CHAIN),
         "K6": (int8_blocks, "bottleneck_chain", int8_blocks.BOTTLENECK),
@@ -622,6 +707,7 @@ def main() -> int:
 
     build_s = _cuda.build_all()
     log("build (s): " + json.dumps({k: round(v, 2) for k, v in build_s.items()}))
+    check_tensor_core_sass(_cuda)
     check_tiny_against_cpu(torch, m)
 
     dev = torch.device("cuda")
@@ -638,6 +724,10 @@ def main() -> int:
     stage_times(torch, m, run)
     profile_clip(torch, run)
     report += kernel_report(int8_rows(torch, m, captures), launches)
+    k3_row, k3_launches = single_level_row(torch, m, captures)
+    k3 = kernel_report([k3_row], k3_launches)[0]
+    k3["serving_launches"] = launches["K3"]  # no serving path calls it: nor does any in the JAX package
+    report.append(k3)
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

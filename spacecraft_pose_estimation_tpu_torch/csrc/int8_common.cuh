@@ -1,6 +1,6 @@
-// The int8 convolution body shared by K5a (int8_conv_requant.cu) and the
-// fused chains K5 (basic_block_chain.cu), K6 (bottleneck_chain.cu) and K7
-// (up_exchange.cu).
+// The int8 pieces shared by every int8 kernel, and the __dp4a conv body of
+// K6 (bottleneck_chain.cu) and K7 (up_exchange.cu). K5a and K5 run the
+// tensor-core body of int8_mma.cuh on the same operands and epilogues.
 //
 // One call of conv_tile computes a tile of TM output pixels x TN output
 // channels of an int8 x int8 -> int32 convolution (NHWC activations, HWIO
@@ -50,8 +50,9 @@ struct Dst {
   }
 };
 
-// One conv's weights (HWIO: k, k, cin, cout; cin is per group) and its
-// per-output-channel requant vectors.
+// One conv's weights and its per-output-channel requant vectors. The
+// weights are HWIO (k, k, cin, cout) for conv_tile and K-major
+// (cout, k, k, cin) for int8_mma.cuh's conv_tile_mma; cin is per group.
 struct ConvW {
   const int8_t* w;
   const float* m;
@@ -84,39 +85,74 @@ struct __align__(16) Smem {
   int b[kKWords][TN];
 };
 
-// Epilogue: requantize (optional relu) into an int8 destination.
+// Epilogues. operator() computes the output element of the int32 sum
+// `acc` at (row, col, ch) and stores it to dst (conv_tile).
+// conv_tile_mma computes the same in two steps: stage() of every sum of a
+// tile (it depends on the channel alone) into shared memory, then finish()
+// of each run v of N = 16 / sizeof(Out) consecutive channels of one pixel
+// (its first n valid), in place, before storing the run to dst.
+
+// Requantize (optional relu) into an int8 destination.
 struct StoreRq {
+  using Out = int8_t;
   ConvW cw;
   Dst<int8_t> dst;
   bool relu;
+  __device__ __forceinline__ int8_t stage(int ch, int acc) const { return requant(epilogue(cw, ch, acc, relu)); }
+  template <int N>
+  __device__ __forceinline__ void finish(int, int, int, int8_t (&)[N], int) const {}
   __device__ __forceinline__ void operator()(int row, int col, int ch, int acc) const {
-    dst.p[dst.at(row, col, ch)] = requant(epilogue(cw, ch, acc, relu));
+    dst.p[dst.at(row, col, ch)] = stage(ch, acc);
   }
 };
 
-// Epilogue: f32 output (optional relu), no rounding.
+// f32 output (optional relu), no rounding (K5a's head).
 struct StoreF32 {
+  using Out = float;
   ConvW cw;
   Dst<float> dst;
   bool relu;
-  __device__ __forceinline__ void operator()(int row, int col, int ch, int acc) const {
-    dst.p[dst.at(row, col, ch)] = epilogue(cw, ch, acc, relu);
-  }
+  __device__ __forceinline__ float stage(int ch, int acc) const { return epilogue(cw, ch, acc, relu); }
+  template <int N>
+  __device__ __forceinline__ void finish(int, int, int, float (&)[N], int) const {}
 };
 
-// Epilogue of a residual block's last conv: requantize the conv (no relu),
-// then out = requant(relu(x * c0 + residual * c1)), the walk's add site.
-// The residual may be the destination itself (same element, same thread).
+// A residual block's last conv: requantize the conv (no relu), then
+// out = requant(relu(x * c0 + residual * c1)), the walk's add site. The
+// residual may be the destination itself: each element is read before it
+// is written, by the thread that writes it.
 struct StoreResidualAdd {
+  using Out = int8_t;
   ConvW cw;
   Src res;
   Dst<int8_t> dst;
   float c0, c1;
+  __device__ __forceinline__ const int8_t* residual(int row, int col, int ch) const {
+    return res.p + (static_cast<int64_t>(row - res.row0) * res.W + col) * res.C + ch;
+  }
+  __device__ __forceinline__ int8_t add(int8_t x, int8_t r) const {
+    return requant(fmaxf(static_cast<float>(x) * c0 + static_cast<float>(r) * c1, 0.f));
+  }
+  __device__ __forceinline__ int8_t stage(int ch, int acc) const {
+    return requant(epilogue(cw, ch, acc, false));
+  }
+  template <int N>
+  __device__ __forceinline__ void finish(int row, int col, int ch, int8_t (&v)[N], int n) const {
+    static_assert(N == 16, "runs of 16 int8 channels");
+    const int8_t* r = residual(row, col, ch);
+    if (n == N && (reinterpret_cast<uintptr_t>(r) & 15) == 0) {
+      const int4 t = __ldcg(reinterpret_cast<const int4*>(r));
+      const int w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int e = 0; e < N; ++e) v[e] = add(v[e], static_cast<int8_t>(w[e >> 2] >> (8 * (e & 3))));
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        if (e < n) v[e] = add(v[e], ld_i8(r + e));
+    }
+  }
   __device__ __forceinline__ void operator()(int row, int col, int ch, int acc) const {
-    const float x = static_cast<float>(requant(epilogue(cw, ch, acc, false)));
-    const float r = static_cast<float>(
-        ld_i8(res.p + (static_cast<int64_t>(row - res.row0) * res.W + col) * res.C + ch));
-    dst.p[dst.at(row, col, ch)] = requant(fmaxf(x * c0 + r * c1, 0.f));
+    dst.p[dst.at(row, col, ch)] = add(stage(ch, acc), ld_i8(residual(row, col, ch)));
   }
 };
 
@@ -211,13 +247,16 @@ __device__ __forceinline__ void cluster_barrier() {
 }
 
 // Launch `kernel(args)` with 256-thread blocks in clusters of `cluster`
-// consecutive blocks along x (grid.x must be a multiple of it).
+// consecutive blocks along x (grid.x must be a multiple of it), each with
+// `smem_bytes` of dynamic shared memory (above 48 KB the caller has
+// raised the kernel's cudaFuncAttributeMaxDynamicSharedMemorySize).
 template <class Kernel, class Args>
-int launch_clustered(Kernel kernel, dim3 grid, int cluster, cudaStream_t stream, const Args& args) {
+int launch_clustered(Kernel kernel, dim3 grid, int cluster, cudaStream_t stream, const Args& args,
+                     int smem_bytes = 0) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

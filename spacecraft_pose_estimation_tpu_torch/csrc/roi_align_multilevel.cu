@@ -1,6 +1,7 @@
-// K2: FPN ROIAlign over up to four pyramid levels in one pass.
+// K2: FPN ROIAlign over up to four pyramid levels in one pass, and K3:
+// ROIAlign over one map.
 //
-// Replaces spacecraft_pose_estimation_tpu/ops/pallas_pooler.py,
+// K2 replaces spacecraft_pose_estimation_tpu/ops/pallas_pooler.py,
 // multilevel_roi_align_pallas / _ml_pooler_kernel. Semantics are those of
 // its level_mats / window_matrices: each box picks its level
 // floor(canonical_level + log2(sqrt(area) / canonical_size + 1e-8)) clipped
@@ -20,6 +21,14 @@
 // Bound: memory. Per ROI it writes P*P*C f32 (50 KB at 7x7x256) and reads
 // at most (P*S*2)^2 cells of C channels of one level, ~16 reads and ~50
 // FLOP per output value.
+//
+// K3 replaces pallas_pooler.py roi_align_pallas / _pooler_kernel: the same
+// taps on one (h, w, C) map at any spatial_scale, no level assignment, the
+// window min(window, h) x min(window + 8, w) with its origin clamped to
+// max(w - win_w, 0) and rounded down to a multiple of 8 (window_matrices).
+// Bound: memory, as K2. K2's 64 ROIs make 64 blocks for 132 SMs (2.5% of
+// its bound), so K3's block is one ROI x one 64-channel slice: 256 blocks
+// at 64 ROIs of 256 channels.
 #include "common.cuh"
 
 namespace {
@@ -50,19 +59,67 @@ __device__ void axis_taps(float coord, int limit, int origin, int win, int* k, f
   }
 }
 
+// The two taps of every sample row and column of one box, in shared memory.
+struct Taps {
+  int ky[2][kMaxSamples], kx[2][kMaxSamples];
+  float wy[2][kMaxSamples], wx[2][kMaxSamples];
+};
+
+// Fill `t` for the box (x0, y0)-(x1, y1) in map coordinates (the -0.5
+// offset applied) on an (h, w) map read through the window (oy, ox,
+// win_h, win_w); the block's threads share the work.
+__device__ void fill_taps(Taps& t, float x0, float y0, float x1, float y1, int h, int w, int oy,
+                          int ox, int win_h, int win_w, int P, int S) {
+  for (int i = threadIdx.x; i < P * S; i += blockDim.x) {
+    const float grid = static_cast<float>(i / S) +
+                       (static_cast<float>(i % S) + 0.5f) / static_cast<float>(S);
+    const float sy = y0 + grid * (y1 - y0) / static_cast<float>(P);
+    const float sx = x0 + grid * (x1 - x0) / static_cast<float>(P);
+    int k[2];
+    float wt[2];
+    axis_taps(sy, h, oy, win_h, k, wt);
+    t.ky[0][i] = k[0]; t.ky[1][i] = k[1]; t.wy[0][i] = wt[0]; t.wy[1][i] = wt[1];
+    axis_taps(sx, w, ox, win_w, k, wt);
+    t.kx[0][i] = k[0]; t.kx[1][i] = k[1]; t.wx[0][i] = wt[0]; t.wx[1][i] = wt[1];
+  }
+}
+
+// Bin (py, px), channel c: the mean of its S * S samples, x taps first,
+// then y taps, then the mean, as the plain version sums.
+template <typename T>
+__device__ float pool_bin(const Taps& t, const T* feat, int w, int C, int c, int py, int px, int S) {
+  float acc = 0.f;
+  for (int iy = 0; iy < S; ++iy) {
+    const int sy = py * S + iy;
+    for (int ix = 0; ix < S; ++ix) {
+      const int sx = px * S + ix;
+      float v = 0.f;
+      for (int ty = 0; ty < 2; ++ty) {
+        float rowv = 0.f;
+        for (int tx = 0; tx < 2; ++tx) {
+          const float wgt = t.wx[tx][sx];
+          if (wgt != 0.f && t.wy[ty][sy] != 0.f)
+            rowv += wgt * spe_load(feat, (static_cast<int64_t>(t.ky[ty][sy]) * w + t.kx[tx][sx]) * C + c);
+        }
+        v += t.wy[ty][sy] * rowv;
+      }
+      acc += v;
+    }
+  }
+  return acc * (1.f / static_cast<float>(S * S));
+}
+
 template <typename T>
 __global__ void roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min,
                                     const float* __restrict__ boxes,
                                     const int* __restrict__ batch_idx,
                                     float* __restrict__ out, int C, int P, int S, int window,
                                     float canonical_size, int canonical_level) {
-  __shared__ int ky[2][kMaxSamples], kx[2][kMaxSamples];
-  __shared__ float wy[2][kMaxSamples], wx[2][kMaxSamples];
+  __shared__ Taps taps;
 
   const int r = blockIdx.x;
   const float* box = boxes + 4 * r;
   const int win_h = window, win_w = window + 8;
-  const int ps = P * S;
 
   // level assignment (pallas_pooler.py:165-171)
   const float bw = fmaxf(box[2] - box[0], 0.f);
@@ -82,49 +139,47 @@ __global__ void roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min,
   const int oy = min(max(static_cast<int>(floorf(y0)) - 1, 0), hp - win_h);
   int ox = min(max(static_cast<int>(floorf(x0)) - 1, 0), wp - win_w);
   ox = (ox / 8) * 8;
-
-  for (int i = threadIdx.x; i < ps; i += blockDim.x) {
-    const float grid = static_cast<float>(i / S) +
-                       (static_cast<float>(i % S) + 0.5f) / static_cast<float>(S);
-    const float sy = y0 + grid * (y1 - y0) / static_cast<float>(P);
-    const float sx = x0 + grid * (x1 - x0) / static_cast<float>(P);
-    int k[2];
-    float wt[2];
-    axis_taps(sy, h, oy, win_h, k, wt);
-    ky[0][i] = k[0]; ky[1][i] = k[1]; wy[0][i] = wt[0]; wy[1][i] = wt[1];
-    axis_taps(sx, w, ox, win_w, k, wt);
-    kx[0][i] = k[0]; kx[1][i] = k[1]; wx[0][i] = wt[0]; wx[1][i] = wt[1];
-  }
+  fill_taps(taps, x0, y0, x1, y1, h, w, oy, ox, win_h, win_w, P, S);
   __syncthreads();
 
   const T* feat = static_cast<const T*>(pyr.feat[lvl]) +
                   static_cast<int64_t>(batch_idx[r]) * h * w * C;
-  const float inv = 1.f / static_cast<float>(S * S);
   const int n_out = P * P * C;
   float* o = out + static_cast<int64_t>(r) * n_out;
   for (int e = threadIdx.x; e < n_out; e += blockDim.x) {
-    const int c = e % C;
     const int bin = e / C;
-    const int px = bin % P, py = bin / P;
-    float acc = 0.f;
-    for (int iy = 0; iy < S; ++iy) {
-      const int sy = py * S + iy;
-      for (int ix = 0; ix < S; ++ix) {
-        const int sx = px * S + ix;
-        float v = 0.f;
-        for (int ty = 0; ty < 2; ++ty) {
-          float rowv = 0.f;
-          for (int tx = 0; tx < 2; ++tx) {
-            const float wgt = wx[tx][sx];
-            if (wgt != 0.f && wy[ty][sy] != 0.f)
-              rowv += wgt * spe_load(feat, (static_cast<int64_t>(ky[ty][sy]) * w + kx[tx][sx]) * C + c);
-          }
-          v += wy[ty][sy] * rowv;
-        }
-        acc += v;
-      }
-    }
-    o[e] = acc * inv;
+    o[e] = pool_bin(taps, feat, w, C, e % C, bin / P, bin % P, S);
+  }
+}
+
+// K3: one ROI x one kSliceC-channel slice per block (grid R x ceil(C /
+// kSliceC)), so that 64 ROIs of 256 channels fill 256 blocks, not 64.
+constexpr int kSliceC = 64;
+
+template <typename T>
+__global__ void roi_align_single_kernel(const T* __restrict__ feat, int h, int w, int C,
+                                        const float* __restrict__ boxes, float* __restrict__ out,
+                                        int P, float spatial_scale, int S, int window) {
+  __shared__ Taps taps;
+  const int r = blockIdx.x;
+  const int c0 = blockIdx.y * kSliceC;
+  const float* box = boxes + 4 * r;
+  // window_matrices (pallas_pooler.py:55-62): the window shrinks to a
+  // smaller map instead of the map being padded
+  const int win_h = min(window, h), win_w = min(window + 8, w);
+  const float x0 = box[0] * spatial_scale - 0.5f, y0 = box[1] * spatial_scale - 0.5f;
+  const float x1 = box[2] * spatial_scale - 0.5f, y1 = box[3] * spatial_scale - 0.5f;
+  const int oy = min(max(static_cast<int>(floorf(y0)) - 1, 0), max(h - win_h, 0));
+  int ox = min(max(static_cast<int>(floorf(x0)) - 1, 0), max(w - win_w, 0));
+  ox = (ox / 8) * 8;
+  fill_taps(taps, x0, y0, x1, y1, h, w, oy, ox, win_h, win_w, P, S);
+  __syncthreads();
+
+  const int nc = min(kSliceC, C - c0);
+  float* o = out + static_cast<int64_t>(r) * P * P * C;
+  for (int e = threadIdx.x; e < P * P * nc; e += blockDim.x) {
+    const int bin = e / nc, c = c0 + e % nc;
+    o[static_cast<int64_t>(bin) * C + c] = pool_bin(taps, feat, w, C, c, bin / P, bin % P, S);
   }
 }
 
@@ -156,6 +211,28 @@ extern "C" int roi_align_multilevel(const void* f0, const void* f1, const void* 
         pyr, num_levels, lvl_min, static_cast<const float*>(boxes),
         static_cast<const int*>(batch_idx), static_cast<float*>(out), C, P, S, window,
         canonical_size, canonical_level);
+  }
+  SPE_RETURN_LAUNCH_STATUS();
+}
+
+// feat: (h, w, C) NHWC, float32 or bfloat16; boxes: (R, 4) f32 XYXY in
+// image pixels, scaled by spatial_scale; out: (R, P, P, C) f32.
+extern "C" int roi_align_single(const void* feat, int h, int w, int C, int is_bf16,
+                                const void* boxes, void* out, int R, int P, float spatial_scale,
+                                int S, int window, void* stream) {
+  if (R == 0 || C == 0) return 0;
+  if (P * S > kMaxSamples || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(R, (C + kSliceC - 1) / kSliceC);
+  const int threads = 256;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* bx = static_cast<const float*>(boxes);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16) {
+    roi_align_single_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(feat), h, w, C, bx, o, P, spatial_scale, S, window);
+  } else {
+    roi_align_single_kernel<float><<<grid, threads, 0, s>>>(
+        static_cast<const float*>(feat), h, w, C, bx, o, P, spatial_scale, S, window);
   }
   SPE_RETURN_LAUNCH_STATUS();
 }

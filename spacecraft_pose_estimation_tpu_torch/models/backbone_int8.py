@@ -9,7 +9,9 @@ bf16 and its output is requantized; the res2..res5 outputs dequantize to
 bf16 for the FPN, which ``GeneralizedRCNN.forward(precomputed_feats=...)``
 takes in place of the bf16 backbone's.
 
-Every int8 conv is kernel K5a (``ops/int8_conv.py``). The port's backbone
+Every int8 conv is kernel K5a (``ops/int8_conv.py``), which reads each
+site's K-major ``w8k``: the holder of the tree packs it once
+(``int8_conv.with_kmajor``, as ``serving.PoseServer`` does). The port's backbone
 is the dense Caffe2 trunk (``groups=1``, stride in the 1x1), so the JAX
 package's merged-group expansion has nothing to do here.
 """
@@ -131,14 +133,15 @@ def backbone_int8_apply(cfg: ResNetConfig, q: dict, x_norm: Tensor) -> dict[str,
     feats = {}
     for stage, blk, stride, has_sc in _structure(cfg):
         c1, c2, c3 = (convs[f"{blk}/conv{i}"] for i in (1, 2, 3))
-        h1 = int8_conv.int8_conv(x, c1["w8"], c1["m"], c1["b"], stride=stride, relu=True)  # stride in the 1x1
-        h2 = int8_conv.int8_conv(h1, c2["w8"], c2["m"], c2["b"], relu=True)
+        h1 = int8_conv.int8_conv(x, c1["w8"], c1["m"], c1["b"], stride=stride, relu=True,  # stride in the 1x1
+                                 wk=c1.get("w8k"))
+        h2 = int8_conv.int8_conv(h1, c2["w8"], c2["m"], c2["b"], relu=True, wk=c2.get("w8k"))
         # conv3 and the shortcut are requantized before the add, as the
         # JAX walk's _requant(f) does without fold_residual
-        r3 = int8_conv.int8_conv(h2, c3["w8"], c3["m"], c3["b"])
+        r3 = int8_conv.int8_conv(h2, c3["w8"], c3["m"], c3["b"], wk=c3.get("w8k"))
         if has_sc:
             sc = convs[f"{blk}/shortcut"]
-            r = int8_conv.int8_conv(x, sc["w8"], sc["m"], sc["b"], stride=stride)
+            r = int8_conv.int8_conv(x, sc["w8"], sc["m"], sc["b"], stride=stride, wk=sc.get("w8k"))
         else:
             r = x
         coeffs = q["blocks"][blk]["coeffs"]

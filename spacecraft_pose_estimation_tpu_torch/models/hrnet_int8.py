@@ -174,7 +174,8 @@ class _Int8Ops:
 
     def convbn(self, name, h, stride, relu):
         c = self.q["convs"][name]
-        return _Handle(int8_conv.int8_conv(h.value, c["w8"], c["m"], c["b"], stride=stride, relu=relu), None)
+        return _Handle(int8_conv.int8_conv(h.value, c["w8"], c["m"], c["b"], stride=stride, relu=relu,
+                                           wk=c.get("w8k")), None)
 
     def add(self, name, hs, relu):
         coeffs = self.q["adds"][name]["coeffs"]
@@ -193,7 +194,7 @@ class _Int8Ops:
         c = self.q["final"]
         if c["w8"].shape[0] != 1:
             raise NotImplementedError("the int8 head is a 1x1 conv (final_conv_kernel=1)")
-        return int8_conv.int8_conv(h.value, c["w8"], c["m"], c["b"], out_f32=True)
+        return int8_conv.int8_conv(h.value, c["w8"], c["m"], c["b"], out_f32=True, wk=c.get("w8k"))
 
     def branch_chain(self, prefix, branch, nblocks, h):
         """A module branch's BasicBlock chain as one K5 launch."""
@@ -204,7 +205,8 @@ class _Int8Ops:
                                lambda: int8_blocks.chain_params_from_q(self.q, prefix, branch, nblocks))
         if packed is None:
             return None
-        out = int8_blocks.basic_block_chain(h.value, *packed, nblocks)
+        w, m, b, coeffs, wk = packed
+        out = int8_blocks.basic_block_chain(h.value, w, m, b, coeffs, nblocks, wk=wk)
         return _Handle(out, None)
 
     def layer1_chain(self, nblocks, h):
@@ -369,7 +371,8 @@ class HRNetInt8(nn.Module):
     ``fused_min_width`` fuses only branches at least that wide;
     ``fuse_exchange`` (with ``fused_blocks``) runs the fuse exchanges as K7.
     ``q`` is moved to ``device`` (CUDA unless given), which the module keeps
-    as ``self.device``: it holds no parameters.
+    as ``self.device``: it holds no parameters. Every int8 site gets its
+    K-major weights ``w8k`` beside ``w8`` here, once (``int8_conv.with_kmajor``).
     """
 
     def __init__(self, config: HRNetConfig, q: dict, fused_blocks: bool = False,
@@ -387,7 +390,7 @@ class HRNetInt8(nn.Module):
         self.fused_min_width, self.fold_normalize = fused_min_width, fold_normalize
         self.fuse_exchange = fuse_exchange
         self.device = resolve_device(device)
-        self.q = tree_map(lambda t: t.to(self.device), q)
+        self.q = int8_conv.with_kmajor(tree_map(lambda t: t.to(self.device), q))
         self._packed: dict = {}
 
     @property

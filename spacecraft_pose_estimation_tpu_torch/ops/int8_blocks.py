@@ -26,7 +26,7 @@ import math
 import torch
 
 from .. import _cuda
-from .int8_conv import int8_conv_plain, requant
+from .int8_conv import int8_conv_plain, pack_kmajor, requant
 
 Tensor = torch.Tensor
 
@@ -76,26 +76,31 @@ def basic_block_chain_plain(x: Tensor, w: Tensor, m: Tensor, b: Tensor, coeffs: 
     return x
 
 
-def basic_block_chain(x: Tensor, w: Tensor, m: Tensor, b: Tensor, coeffs: Tensor, nblocks: int) -> Tensor:
+def basic_block_chain(x: Tensor, w: Tensor, m: Tensor, b: Tensor, coeffs: Tensor, nblocks: int,
+                      wk: Tensor | None = None) -> Tensor:
     """``nblocks`` int8 BasicBlocks over x (B, H, W, C).
 
-    w (nblocks, 2, 3, 3, C, C) int8; m, b (nblocks, 2, C) f32; coeffs
-    (nblocks, 2) f32, the add sites' [conv, residual] coefficients. CPU
-    tensors take the plain version; CUDA tensors launch K5, two strips of
-    rows per image.
+    w (nblocks, 2, 3, 3, C, C) int8 HWIO; m, b (nblocks, 2, C) f32; coeffs
+    (nblocks, 2) f32, the add sites' [conv, residual] coefficients; wk
+    ``pack_kmajor(w)``, (nblocks, 2, C, 3, 3, C). CPU tensors take the plain
+    version on ``w``; CUDA tensors launch K5 on ``wk``, which they require,
+    two strips of rows per image.
     """
     if x.device.type == "cpu":
         return basic_block_chain_plain(x, w, m, b, coeffs, nblocks)
-    return _launch_chain(x, w, m, b, coeffs, nblocks)
+    return _launch_chain(x, wk, m, b, coeffs, nblocks)
 
 
-def _launch_chain(x, w, m, b, coeffs, nblocks):
-    for name, t, dtype, nd in (("x", x, torch.int8, 4), ("w", w, torch.int8, 6), ("m", m, torch.float32, 3),
+def _launch_chain(x, wk, m, b, coeffs, nblocks):
+    if wk is None:
+        raise ValueError("basic_block_chain: the CUDA kernel needs the K-major weights wk = pack_kmajor(w), "
+                         "packed once by chain_params_from_q")
+    for name, t, dtype, nd in (("x", x, torch.int8, 4), ("wk", wk, torch.int8, 6), ("m", m, torch.float32, 3),
                                ("b", b, torch.float32, 3), ("coeffs", coeffs, torch.float32, 2)):
         _cuda.check_cuda_tensor(name, t, dtype, nd)
     _cuda.check_word_aligned("x", x)
     bsz, h, wd, c = x.shape
-    if tuple(w.shape) != (nblocks, 2, 3, 3, c, c) or tuple(m.shape) != (nblocks, 2, c) \
+    if tuple(wk.shape) != (nblocks, 2, c, 3, 3, c) or tuple(m.shape) != (nblocks, 2, c) \
             or tuple(b.shape) != (nblocks, 2, c) or tuple(coeffs.shape) != (nblocks, 2):
         raise ValueError(f"basic_block_chain: operands disagree with x {tuple(x.shape)} and nblocks {nblocks}")
     _check_int8_channels("basic_block_chain", c)
@@ -103,14 +108,15 @@ def _launch_chain(x, w, m, b, coeffs, nblocks):
     band = min(h, strip + 4 * nblocks)
     out = torch.empty_like(x)
     work = torch.empty(bsz * math.ceil(h / strip) * 2 * band * wd * c, dtype=torch.int8, device=x.device)
-    CHAIN.launch(_cuda.ptr(x), _cuda.ptr(w), _cuda.ptr(m), _cuda.ptr(b), _cuda.ptr(coeffs), _cuda.ptr(out),
+    CHAIN.launch(_cuda.ptr(x), _cuda.ptr(wk), _cuda.ptr(m), _cuda.ptr(b), _cuda.ptr(coeffs), _cuda.ptr(out),
                  _cuda.ptr(work), bsz, h, wd, c, nblocks, strip)
     return out
 
 
 def chain_params_from_q(q: dict, prefix: str, branch: int, nblocks: int):
-    """One module branch's BasicBlock sites stacked for K5:
-    (w, m, b, coeffs), or None when a block has a projection ('down')."""
+    """One module branch's BasicBlock sites stacked for K5: (w, m, b, coeffs,
+    wk), wk the kernel's K-major copy of w, or None when a block has a
+    projection ('down')."""
     ws, ms, bs, cs = [], [], [], []
     for k in range(nblocks):
         bn = f"{prefix}/branch{branch}/block{k}"
@@ -121,7 +127,8 @@ def chain_params_from_q(q: dict, prefix: str, branch: int, nblocks: int):
         ms.append(torch.stack([c1["m"], c2["m"]]))
         bs.append(torch.stack([c1["b"], c2["b"]]))
         cs.append(torch.as_tensor(q["adds"][bn]["coeffs"], dtype=torch.float32))
-    return torch.stack(ws), torch.stack(ms), torch.stack(bs), torch.stack(cs)
+    w = torch.stack(ws)
+    return w, torch.stack(ms), torch.stack(bs), torch.stack(cs), pack_kmajor(w)
 
 
 # --------------------------------------------------------------------------- K6

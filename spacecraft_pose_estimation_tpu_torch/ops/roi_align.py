@@ -1,11 +1,17 @@
-"""FPN ROIAlign with per-box level assignment, one pass over all images.
+"""Windowed ROIAlign: the FPN pooler (K2) and the single-level op (K3).
 
-Port of ``spacecraft_pose_estimation_tpu/ops/pallas_pooler.py``
-(``multilevel_roi_align_pallas``) with its semantics (``level_mats`` /
-``window_matrices``): aligned ROIAlign whose taps are limited to a
-(window, window + 8) read window per box. The work is done by kernel K2
-(``csrc/roi_align_multilevel.cu``); :func:`roi_align_multilevel_plain` is
-the same function in eager PyTorch, taken for CPU tensors.
+Port of ``spacecraft_pose_estimation_tpu/ops/pallas_pooler.py`` with its
+semantics (``level_mats`` / ``window_matrices``): aligned ROIAlign whose
+taps are limited to a (window, window + 8) read window per box.
+
+* :func:`roi_align_multilevel` (``multilevel_roi_align_pallas``): per-box
+  level assignment, one pass over all images, kernel K2;
+* :func:`roi_align_single` (``roi_align_pallas``): one (H, W, C) map, any
+  spatial scale, kernel K3. Nothing in the JAX package calls it; it is
+  held to ``roi_align_windowed``.
+
+Both kernels are in ``csrc/roi_align_multilevel.cu``; the ``*_plain``
+functions compute the same in eager PyTorch and are taken for CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +31,11 @@ KERNEL = _cuda.Kernel(
     "roi_align_multilevel", "roi_align_multilevel.cu",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+)
+SINGLE = _cuda.Kernel(
+    "roi_align_single", "roi_align_multilevel.cu",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
 MAX_LEVELS = 4
 MAX_SAMPLES = 64  # output_size * sampling_ratio, per axis
@@ -70,21 +81,55 @@ def _axis_taps(coord: Tensor, limit: int, origin: Tensor, win: int):
     return torch.where(ok, kk, 0.0).to(torch.int64), torch.where(ok, w, 0.0)
 
 
-def level_taps(boxes: Tensor, h: int, w: int, stride: int, output_size: int,
-               sampling_ratio: int, window: int):
-    """Taps of boxes (n, 4) on one (h, w) level: ((ky, wy), (kx, wx)), each
-    (n, P*S, 2), with K2's (window, window + 8) read window per box."""
+def window_taps(boxes: Tensor, h: int, w: int, spatial_scale: float, output_size: int,
+                sampling_ratio: int, win_h: int, win_w: int):
+    """Taps of boxes (n, 4) on one (h, w) map at ``spatial_scale``:
+    ((ky, wy), (kx, wx)), each (n, P*S, 2), limited to a (win_h, win_w)
+    read window per box whose origin is clamped to the map (to 0 where the
+    map is smaller) and, along x, rounded down to a multiple of 8."""
     p, s = output_size, sampling_ratio
+    # divisors as device tensors: PyTorch's CUDA division by a Python
+    # number multiplies by its reciprocal, which rounds other than a / p
+    p_t, s_t = (torch.tensor(float(v), device=boxes.device) for v in (p, s))
     grid = (torch.arange(p, device=boxes.device)[:, None]
-            + (torch.arange(s, device=boxes.device)[None, :] + 0.5) / s).reshape(-1)
-    x0, y0, x1, y1 = (boxes * (1.0 / stride) - 0.5).unbind(-1)
-    sy = y0[:, None] + grid[None, :] * (y1 - y0)[:, None] / p
-    sx = x0[:, None] + grid[None, :] * (x1 - x0)[:, None] / p
-    win_h, win_w = window, window + 8
-    oy = torch.clamp(torch.floor(y0).to(torch.int64) - 1, 0, max(h, win_h) - win_h)
-    ox = torch.clamp(torch.floor(x0).to(torch.int64) - 1, 0, max(w, win_w) - win_w)
+            + (torch.arange(s, device=boxes.device)[None, :] + 0.5) / s_t).reshape(-1)
+    x0, y0, x1, y1 = (boxes * spatial_scale - 0.5).unbind(-1)
+    sy = y0[:, None] + grid[None, :] * (y1 - y0)[:, None] / p_t
+    sx = x0[:, None] + grid[None, :] * (x1 - x0)[:, None] / p_t
+    oy = torch.clamp(torch.floor(y0).to(torch.int64) - 1, 0, max(h - win_h, 0))
+    ox = torch.clamp(torch.floor(x0).to(torch.int64) - 1, 0, max(w - win_w, 0))
     ox = (ox // 8) * 8
     return _axis_taps(sy, h, oy, win_h), _axis_taps(sx, w, ox, win_w)
+
+
+def level_taps(boxes: Tensor, h: int, w: int, stride: int, output_size: int,
+               sampling_ratio: int, window: int):
+    """K2's taps of boxes (n, 4) on one (h, w) level: the (window, window + 8)
+    read window of the level padded up to it (pallas_pooler.py:213-218)."""
+    return window_taps(boxes, h, w, 1.0 / stride, output_size, sampling_ratio, window, window + 8)
+
+
+def single_taps(boxes: Tensor, h: int, w: int, spatial_scale: float, output_size: int,
+                sampling_ratio: int, window: int):
+    """K3's taps of boxes (n, 4) on an (h, w) map: the (min(window, h),
+    min(window + 8, w)) read window of ``window_matrices``
+    (pallas_pooler.py:55-62)."""
+    return window_taps(boxes, h, w, spatial_scale, output_size, sampling_ratio,
+                       min(window, h), min(window + 8, w))
+
+
+def _pool(flat: Tensor, base: Tensor, w: int, taps, p: int, s: int) -> Tensor:
+    """(n, P, P, C) f32 bins from the (rows, C) cells of ``flat`` under the
+    taps of n boxes whose map starts at row ``base`` (n,) of ``flat``."""
+    (ky, wy), (kx, wx) = taps  # (n, P*S, 2)
+    c = flat.shape[-1]
+    idx = (base[:, None, None, None, None] + ky[:, :, :, None, None] * w
+           + kx[:, None, None, :, :])  # (n, PSy, 2, PSx, 2)
+    vals = flat[idx].to(torch.float32)  # (n, PSy, 2, PSx, 2, C)
+    # x taps first, then y taps, then the S x S mean, as the kernels sum
+    xsum = (vals * wx[:, None, None, :, :, None]).sum(-2)  # (n, PSy, 2, PSx, C)
+    ysum = (xsum * wy[:, :, :, None, None]).sum(2)  # (n, PSy, PSx, C)
+    return ysum.reshape(-1, p, s, p, s, c).sum((2, 4)) * (1.0 / (s * s))
 
 
 def roi_align_multilevel_plain(
@@ -104,16 +149,8 @@ def roi_align_multilevel_plain(
         if sel.numel() == 0:
             continue
         h, w = f.shape[1], f.shape[2]
-        (ky, wy), (kx, wx) = level_taps(boxes[sel], h, w, stride, p, s, window)  # (n, P*S, 2)
-        base = batch_idx[sel].to(torch.int64) * (h * w)
-        idx = (base[:, None, None, None, None] + ky[:, :, :, None, None] * w
-               + kx[:, None, None, :, :])  # (n, PSy, 2, PSx, 2)
-        vals = f.reshape(-1, c)[idx].to(torch.float32)  # (n, PSy, 2, PSx, 2, C)
-        # x taps first, then y taps, then the S x S mean, as the kernel sums
-        xsum = (vals * wx[:, None, None, :, :, None]).sum(-2)  # (n, PSy, 2, PSx, C)
-        ysum = (xsum * wy[:, :, :, None, None]).sum(2)  # (n, PSy, PSx, C)
-        n = sel.numel()
-        out[sel] = ysum.reshape(n, p, s, p, s, c).sum((2, 4)) * (1.0 / (s * s))
+        taps = level_taps(boxes[sel], h, w, stride, p, s, window)
+        out[sel] = _pool(f.reshape(-1, c), batch_idx[sel].to(torch.int64) * (h * w), w, taps, p, s)
     return out
 
 
@@ -162,4 +199,42 @@ def roi_align_multilevel(
         int(dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(batch_idx), _cuda.ptr(out),
         r, c, output_size, sampling_ratio, window, float(canonical_size), canonical_level,
     )
+    return out
+
+
+# --------------------------------------------------------------------------- K3
+
+
+def roi_align_single_plain(feat: Tensor, boxes: Tensor, output_size: int, spatial_scale: float,
+                           sampling_ratio: int = 2, window: int = 48) -> Tensor:
+    """Plain PyTorch K3. feat (H, W, C); boxes (R, 4) -> (R, P, P, C) float32."""
+    h, w, c = feat.shape
+    taps = single_taps(boxes, h, w, spatial_scale, output_size, sampling_ratio, window)
+    base = torch.zeros(boxes.shape[0], dtype=torch.int64, device=boxes.device)
+    return _pool(feat.reshape(-1, c), base, w, taps, output_size, sampling_ratio)
+
+
+def roi_align_single(feat: Tensor, boxes: Tensor, output_size: int, spatial_scale: float,
+                     sampling_ratio: int = 2, window: int = 48) -> Tensor:
+    """Single-level windowed ROIAlign (K3): (R, P, P, C) float32.
+
+    feat (H, W, C) NHWC float32 or bfloat16, one image; boxes (R, 4) XYXY
+    image pixels, mapped by ``spatial_scale`` (any float, not only
+    1 / stride); each box reads its (min(window, H), min(window + 8, W))
+    window, as ``roi_align_pallas`` does. CPU tensors take the plain
+    version; CUDA tensors launch K3, one block per ROI and 64-channel slice.
+    """
+    if boxes.device.type == "cpu":
+        return roi_align_single_plain(feat, boxes, output_size, spatial_scale, sampling_ratio, window)
+    if output_size * sampling_ratio > MAX_SAMPLES:
+        raise ValueError(f"output_size * sampling_ratio must be <= {MAX_SAMPLES}")
+    _cuda.check_cuda_tensor("feat", feat, (torch.float32, torch.bfloat16), 3)
+    _cuda.check_cuda_tensor("boxes", boxes, torch.float32, 2)
+    if boxes.shape[1] != 4:
+        raise ValueError(f"boxes must be (R, 4), got {tuple(boxes.shape)}")
+    h, w, c = feat.shape
+    r = boxes.shape[0]
+    out = torch.empty((r, output_size, output_size, c), dtype=torch.float32, device=boxes.device)
+    SINGLE.launch(_cuda.ptr(feat), h, w, c, int(feat.dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(out),
+                  r, output_size, float(spatial_scale), sampling_ratio, window)
     return out

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from .models.backbone_int8 import backbone_int8_apply, quantize_backbone
 from .models.hrnet_int8 import HRNetInt8, quantize_hrnet, tree_map
 from .models.rcnn import select_best_box
+from .ops.int8_conv import with_kmajor
 from .pipeline import PipelineConfig, make_pose_pipeline, normalize_crops
 
 Tensor = torch.Tensor
@@ -58,7 +59,8 @@ class PoseServer:
                  det_size: int = 768, backbone_q: dict | None = None):
         self.detector = detector
         self.det_every, self.det_size = det_every, det_size
-        self.backbone_q = backbone_q  # int8 backbone tree, on the detector's device
+        # int8 backbone tree, on the detector's device, with its kernel weights packed once
+        self.backbone_q = with_kmajor(backbone_q) if backbone_q is not None else None
         self.landmarks = landmark_model
         self.pose = make_pose_pipeline(landmark_model, landmarks_3d, K, dist, config)
 

@@ -16,7 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "spacecraft_pose_estimation_tpu")
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_ablate.py"]
 
 
 def _imported_modules(path: Path):
@@ -31,7 +31,7 @@ def _imported_modules(path: Path):
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
-    """Neither the port nor chip_smoke.py imports JAX or the JAX package
+    """Neither the port nor its card scripts import JAX or the JAX package
     (the exact package; the ``_torch`` port itself is fine)."""
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
