@@ -7,8 +7,9 @@ from the repository root, on a machine with an NVIDIA H100 and the CUDA
 toolkit. It
 
 1. builds the CUDA kernels of ``spacecraft_pose_estimation_tpu_torch/csrc``
-   (one nvcc per source, in parallel) and reads the SASS of K5a and K5:
-   integer tensor-core instructions (IGMMA), no dp4a;
+   (one nvcc per source, in parallel) and reads the SASS of the four int8
+   kernels K5a, K5, K6 and K7: integer tensor-core instructions (IGMMA),
+   no dp4a;
 2. checks the tiny detector + HRNet serving path on the card against the
    same path on the CPU (plain PyTorch versions of the kernels), in the
    bf16 form and in the int8 form with every fused route on, and the PnP
@@ -61,7 +62,8 @@ NUM_JOINTS = 11
 # the int8 form with every fused route of the JAX package switched on
 FUSED = dict(fused_blocks=True, layer1_strips=True, fuse_exchange=True)
 INT8_IDS = ("K5a", "K5", "K6", "K7")
-TENSOR_CORE_SOURCES = ("int8_conv_requant.cu", "basic_block_chain.cu")  # K5a, K5
+TENSOR_CORE_SOURCES = ("int8_conv_requant.cu", "basic_block_chain.cu",  # K5a, K5
+                       "bottleneck_chain.cu", "up_exchange.cu")  # K6, K7
 
 
 def log(msg: str) -> None:
@@ -242,8 +244,8 @@ def crop_numbers(torch, args):
 
 
 def check_tensor_core_sass(cuda) -> None:
-    """K5a and K5 multiply on the int8 tensor cores: their SASS holds IGMMA
-    (wgmma) and no IDP4A."""
+    """K5a, K5, K6 and K7 multiply on the int8 tensor cores: their SASS
+    holds IGMMA (wgmma) and no IDP4A."""
     import os
 
     cuobjdump = os.path.join(os.path.dirname(cuda._nvcc()), "cuobjdump")
@@ -596,7 +598,7 @@ def int8_rows(torch, m, captures):
         cap = captures[key]
         calls = [cap.bound(i) for i in range(len(cap.calls))]
         kernel = cap.orig
-        drop = ("strip", "wk")  # the plain versions take the HWIO weights alone
+        drop = ("strip", "wk", "wks")  # the plain versions take the HWIO weights alone
         plain = plains[key]
         run_k = [lambda a=a, f=kernel: f(**a) for a in calls]
         run_p = [lambda a={k: v for k, v in a.items() if k not in drop}, f=plain: f(**a) for a in calls]
@@ -611,11 +613,23 @@ def int8_rows(torch, m, captures):
                    numbers=(sum(b for b, _ in totals), sum(o for _, o in totals)), calls=len(calls))
         rows.append(row)
         if key == "K6":  # the same kernel on the fused_blocks route: two strips per image (K6)
+            row["extra"] = {"workspace_bytes": workspace_bytes(m, calls)}
             whole = [dict(a, strip=None) for a in calls]
             rows.append(dict(row, name="bottleneck_chain (layer1, two strips per image, the fused_blocks route: K6)",
                              replaces="spacecraft_pose_estimation_tpu/ops/pallas_blocks.py:238",
-                             run_k=lambda fs=[lambda a=a, f=kernel: f(**a) for a in whole]: [f() for f in fs]))
+                             run_k=lambda fs=[lambda a=a, f=kernel: f(**a) for a in whole]: [f() for f in fs],
+                             extra={"workspace_bytes": workspace_bytes(m, whole)}))
     return rows
+
+
+def workspace_bytes(m, calls) -> int:
+    """K6's global workspace over ``calls`` (the bands of every strip)."""
+    total = 0
+    for a in calls:
+        bsz, h, w, _ = a["x"].shape
+        total += m.int8_blocks.bottleneck_workspace_bytes(bsz, h, w, a["w2"].shape[-1], a["w3"].shape[-1],
+                                                          a["nblocks"], a["strip"])
+    return total
 
 
 def compare(got, want, tol) -> tuple[float, float, bool]:
@@ -665,10 +679,14 @@ def kernel_report(rows, launches):
             "bound_by": bound_by, "bytes": nb, "ops": ops, "peak_ops_per_s": row["peak"],
             "library_ms": time_ms(row["run_lib"], 10) if row["run_lib"] is not None else None,
         }
+        entry["bound_share"] = bound / (entry["device_ms"] or entry["ms"])
         if "calls" in row:
             entry["calls_timed"] = row["calls"]
+        entry.update(row.get("extra", {}))
         log(f"{key} {name}: {entry['ms']:.4f} ms ({entry['device_ms']} ms replayed from a CUDA graph; plain "
-            f"{entry['plain_ms']:.4f} ms, bound {bound:.5f} ms by {bound_by}, library {entry['library_ms']})")
+            f"{entry['plain_ms']:.4f} ms, bound {bound:.5f} ms by {bound_by} = {entry['bound_share']:.4f} of the "
+            f"device time, library {entry['library_ms']})" +
+            "".join(f", {k} {v}" for k, v in row.get("extra", {}).items()))
         report.append(entry)
     return report
 

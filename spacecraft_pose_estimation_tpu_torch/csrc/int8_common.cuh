@@ -1,18 +1,10 @@
-// The int8 pieces shared by every int8 kernel, and the __dp4a conv body of
-// K6 (bottleneck_chain.cu) and K7 (up_exchange.cu). K5a and K5 run the
-// tensor-core body of int8_mma.cuh on the same operands and epilogues.
+// The int8 pieces shared by every int8 kernel of the port (K5a, K5, K6,
+// K7): the operand descriptors (Src, Dst, ConvW), the requant epilogues, the
+// cluster barrier and the clustered launch. The conv body they feed is the
+// tensor-core tile of int8_mma.cuh.
 //
-// One call of conv_tile computes a tile of TM output pixels x TN output
-// channels of an int8 x int8 -> int32 convolution (NHWC activations, HWIO
-// weights, k x k taps, stride s, zero padding k / 2) with 256 threads, then
-// hands every (row, col, channel, int32 sum) to an epilogue functor. The
-// inner product is __dp4a over groups of 4 input channels, so every input
-// channel count must be a multiple of 4 (the wrappers check it). Per K step
-// the block stages 32 input channels of one tap for its TM pixels and TN
-// channels in shared memory; each thread keeps 4 x 4 int32 sums.
-//
-// The sums are exact. The epilogues compute f = float(acc) * m + b as two
-// roundings (the build passes --fmad=false), an optional relu, and
+// The sums are exact int32. The epilogues compute f = float(acc) * m + b as
+// two roundings (the build passes --fmad=false), an optional relu, and
 // requantize with rintf (half to even, as jnp.round and torch.round), so
 // each site equals the plain PyTorch version bit for bit.
 //
@@ -26,7 +18,6 @@
 namespace spe_i8 {
 
 constexpr int kThreads = 256;
-constexpr int kKWords = 8;  // K step: 8 int32 words = 32 input channels
 
 // An int8 NHWC activation of one image, or a band of its rows.
 // Element (row, col, ch) of the image lives at
@@ -50,9 +41,9 @@ struct Dst {
   }
 };
 
-// One conv's weights and its per-output-channel requant vectors. The
-// weights are HWIO (k, k, cin, cout) for conv_tile and K-major
-// (cout, k, k, cin) for int8_mma.cuh's conv_tile_mma; cin is per group.
+// One conv's weights, K-major (cout, k, k, cin) as int8_mma.cuh's
+// conv_tile_mma reads them, and its per-output-channel requant vectors;
+// cin is per group.
 struct ConvW {
   const int8_t* w;
   const float* m;
@@ -73,24 +64,11 @@ __device__ __forceinline__ int8_t ld_i8(const int8_t* p) {
   return static_cast<int8_t>(__ldcg(reinterpret_cast<const signed char*>(p)));
 }
 
-template <int TN>
-struct Tile {
-  static constexpr int TM = 4096 / TN;  // 64 pixels at TN 64, 128 at TN 32
-  static_assert(TN == 32 || TN == 64, "TN is 32 or 64");
-};
-
-template <int TN>
-struct __align__(16) Smem {
-  int a[kKWords][Tile<TN>::TM + 4];  // +4: the staging stores hit distinct banks
-  int b[kKWords][TN];
-};
-
-// Epilogues. operator() computes the output element of the int32 sum
-// `acc` at (row, col, ch) and stores it to dst (conv_tile).
-// conv_tile_mma computes the same in two steps: stage() of every sum of a
-// tile (it depends on the channel alone) into shared memory, then finish()
-// of each run v of N = 16 / sizeof(Out) consecutive channels of one pixel
-// (its first n valid), in place, before storing the run to dst.
+// Epilogues. conv_tile_mma computes each output element of an int32 sum
+// `acc` in two steps: stage() of every sum of a tile (it depends on the
+// channel alone) into shared memory, then finish() of each run v of
+// N = 16 / sizeof(Out) consecutive channels of one pixel (its first n
+// valid), in place, before storing the run to dst.
 
 // Requantize (optional relu) into an int8 destination.
 struct StoreRq {
@@ -101,9 +79,6 @@ struct StoreRq {
   __device__ __forceinline__ int8_t stage(int ch, int acc) const { return requant(epilogue(cw, ch, acc, relu)); }
   template <int N>
   __device__ __forceinline__ void finish(int, int, int, int8_t (&)[N], int) const {}
-  __device__ __forceinline__ void operator()(int row, int col, int ch, int acc) const {
-    dst.p[dst.at(row, col, ch)] = stage(ch, acc);
-  }
 };
 
 // f32 output (optional relu), no rounding (K5a's head).
@@ -151,93 +126,10 @@ struct StoreResidualAdd {
         if (e < n) v[e] = add(v[e], ld_i8(r + e));
     }
   }
-  __device__ __forceinline__ void operator()(int row, int col, int ch, int acc) const {
-    dst.p[dst.at(row, col, ch)] = add(stage(ch, acc), ld_i8(residual(row, col, ch)));
-  }
 };
 
-// Output pixels p in [0, npx) of a region map to (row0 + p / ncols, col0 + p % ncols).
-// Tile (tile_p, tile_c) covers pixels [tile_p * TM, +TM) and channels
-// [tile_c * TN, +TN). With groups > 1 a tile's channels must lie in one group.
-template <int TN, class Epi>
-__device__ void conv_tile(const Src& s, const ConvW& cw, int row0, int col0, int ncols, int npx,
-                          int tile_p, int tile_c, Smem<TN>& sm, const Epi& epi) {
-  constexpr int TM = Tile<TN>::TM;
-  constexpr int kLoadsA = TM * kKWords / kThreads;  // 2 or 4
-  constexpr int kLoadsB = TN * kKWords / kThreads;  // 2 or 1
-  const int tid = threadIdx.x;
-  const int pad = cw.k / 2;
-  const int p_base = tile_p * TM, c_base = tile_c * TN;
-  const int cin_off = cw.groups > 1 ? (c_base / (cw.cout / cw.groups)) * cw.cin : 0;
-
-  // the pixels this thread stages: fixed over the K loop
-  int iy0[kLoadsA], ix0[kLoadsA];
-  bool pv[kLoadsA];
-  for (int r = 0; r < kLoadsA; ++r) {
-    const int p = p_base + (tid + r * kThreads) / kKWords;
-    pv[r] = p < npx;
-    const int oy = row0 + (pv[r] ? p / ncols : 0);
-    const int ox = col0 + (pv[r] ? p % ncols : 0);
-    iy0[r] = oy * cw.stride - pad;
-    ix0[r] = ox * cw.stride - pad;
-  }
-  const int wa = tid % kKWords;  // the word this thread stages for its pixels
-
-  const int tx = tid % (TN / 4), ty = tid / (TN / 4);
-  int acc[4][4];
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int tap = 0; tap < cw.k * cw.k; ++tap) {
-    const int dy = tap / cw.k, dx = tap % cw.k;
-    const int8_t* wtap = cw.w + static_cast<int64_t>(tap) * cw.cin * cw.cout;
-    for (int ci0 = 0; ci0 < cw.cin; ci0 += 4 * kKWords) {
-      // stage A: activations, 4 channels per word
-      const int ca = ci0 + 4 * wa;
-      for (int r = 0; r < kLoadsA; ++r) {
-        const int iy = iy0[r] + dy, ix = ix0[r] + dx;
-        int v = 0;
-        if (pv[r] && ca < cw.cin && iy >= 0 && iy < s.H && ix >= 0 && ix < s.W)
-          v = __ldcg(reinterpret_cast<const int*>(
-              s.p + (static_cast<int64_t>(iy - s.row0) * s.W + ix) * s.C + cin_off + ca));
-        sm.a[wa][(tid + r * kThreads) / kKWords] = v;
-      }
-      // stage B: weights, the 4 input channels of a word packed for dp4a
-      for (int r = 0; r < kLoadsB; ++r) {
-        const int i = tid + r * kThreads;
-        const int co = i % TN, wd = i / TN;
-        const int cb = ci0 + 4 * wd, cg = c_base + co;
-        uint32_t v = 0;
-        if (cb < cw.cin && cg < cw.cout) {
-          const int8_t* wp = wtap + static_cast<int64_t>(cb) * cw.cout + cg;
-          for (int j = 0; j < 4; ++j)
-            v |= static_cast<uint32_t>(static_cast<uint8_t>(wp[static_cast<int64_t>(j) * cw.cout])) << (8 * j);
-        }
-        sm.b[wd][co] = static_cast<int>(v);
-      }
-      __syncthreads();
-      for (int wd = 0; wd < kKWords; ++wd) {
-        const int4 av = *reinterpret_cast<const int4*>(&sm.a[wd][ty * 4]);
-        const int4 bv = *reinterpret_cast<const int4*>(&sm.b[wd][tx * 4]);
-        const int a4[4] = {av.x, av.y, av.z, av.w};
-        const int b4[4] = {bv.x, bv.y, bv.z, bv.w};
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a4[i], b4[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int i = 0; i < 4; ++i) {
-    const int p = p_base + ty * 4 + i;
-    if (p >= npx) continue;
-    const int oy = row0 + p / ncols, ox = col0 + p % ncols;
-    for (int j = 0; j < 4; ++j) {
-      const int co = c_base + tx * 4 + j;
-      if (co < cw.cout) epi(oy, ox, co, acc[i][j]);
-    }
-  }
-}
+// A pointer the 16-byte paths (cp.async, int4 loads and stores) can take.
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Barrier of all blocks of this block's cluster, after which every global
 // write of the cluster before it is visible to every block of the cluster.
@@ -267,19 +159,6 @@ int launch_clustered(Kernel kernel, dim3 grid, int cluster, cudaStream_t stream,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-// Every tile of one conv over output rows [lo, hi) x all cols (wo of them),
-// dealt round-robin to `nworkers` blocks, this one being `worker`.
-template <int TN, class Epi>
-__device__ void conv_rows(const Src& s, const ConvW& cw, int lo, int hi, int wo, int worker,
-                          int nworkers, Smem<TN>& sm, const Epi& epi) {
-  constexpr int TM = Tile<TN>::TM;
-  const int npx = (hi - lo) * wo;
-  if (npx <= 0) return;
-  const int tiles_p = (npx + TM - 1) / TM, tiles_c = (cw.cout + TN - 1) / TN;
-  for (int t = worker; t < tiles_p * tiles_c; t += nworkers)
-    conv_tile<TN>(s, cw, lo, 0, wo, npx, t / tiles_c, t % tiles_c, sm, epi);
 }
 
 }  // namespace spe_i8

@@ -21,9 +21,9 @@
 // both from the served inputs). The design: the conv body of int8_mma.cuh, wgmma
 // on the int8 tensor cores fed by a ring of 16-byte cp.async copies, the
 // weights read as they lie (K-major, 16 bytes a copy), the outputs stored
-// 16 bytes a thread. The previous body (int8_common.cuh's conv_tile, dp4a
-// on the CUDA cores, no overlap of loads and arithmetic, weights gathered
-// a byte at a time) sat at 3.5% of the bound.
+// 16 bytes a thread. The kernel's first body (dp4a on the CUDA cores, no
+// overlap of loads and arithmetic, weights gathered a byte at a time) sat
+// at 3.5% of the bound.
 #include "int8_mma.cuh"
 
 namespace {

@@ -1,5 +1,6 @@
-// The int8 tensor-core conv body of K5a (int8_conv_requant.cu) and K5
-// (basic_block_chain.cu).
+// The int8 tensor-core conv body of every int8 kernel: K5a
+// (int8_conv_requant.cu), K5 (basic_block_chain.cu), K6 (bottleneck_chain.cu)
+// and K7 (up_exchange.cu).
 //
 // conv_tile_mma computes one tile of kTM = 128 output pixels x TN (32, 64
 // or 128) output channels of an int8 x int8 -> int32 convolution (NHWC
@@ -25,7 +26,9 @@
 //   loaded as 4-byte words through registers instead, still with ld.cg.
 // * The tile's outputs are staged in shared memory (the ring's bytes) and
 //   stored as 16-byte runs of one pixel's channels; a residual add reads
-//   its operand as the same 16-byte runs.
+//   its operand as the same 16-byte runs. The destination is a generic
+//   pointer: it may lie in shared memory outside the ring (K7's low-res
+//   buffers).
 #pragma once
 
 #include "int8_common.cuh"
@@ -318,7 +321,7 @@ __device__ void store_tile(const ConvW& cw, const Region& rg, int p_base, int c_
   }
 }
 
-// One tile (tile_p, tile_c) of one conv (K5a's block). `smem` holds
+// One tile (tile_p, tile_c) of one conv (K5a's block, K7's ups). `smem` holds
 // MmaCfg<TN>::kSmemBytes - 1024 bytes, 1024-aligned; the epilogue stages
 // in the whole ring.
 template <int TN, bool V16, class Epi>
@@ -336,8 +339,8 @@ __device__ void conv_tile_mma(const Src& s, const ConvW& cw, const Region& rg, i
 }
 
 // Every tile of one conv over output rows [lo, hi) x all cols (wo of them),
-// dealt round-robin to `nworkers` blocks, this one being `worker` (K5's
-// convs).
+// dealt round-robin to `nworkers` blocks, this one being `worker` (the
+// convs of K5 and K6).
 template <int TN, bool V16, class Epi>
 __device__ void conv_rows_mma(const Src& s, const ConvW& cw, int lo, int hi, int wo, int worker,
                               int nworkers, uint8_t* smem, const Epi& epi) {

@@ -228,8 +228,8 @@ class _Int8Ops:
         ops = int8_blocks.up_exchange_operands(self.q, prefix, i, [y.value for y in ys])
         if ops is None:
             return None
-        ups, coeffs = ops
-        out = int8_blocks.up_exchange(ys[i].value, [d.value for d in downs], ups, coeffs)
+        ups, coeffs, wks = ops
+        out = int8_blocks.up_exchange(ys[i].value, [d.value for d in downs], ups, coeffs, wks=wks)
         return _Handle(out, None)
 
 
@@ -372,7 +372,9 @@ class HRNetInt8(nn.Module):
     ``fuse_exchange`` (with ``fused_blocks``) runs the fuse exchanges as K7.
     ``q`` is moved to ``device`` (CUDA unless given), which the module keeps
     as ``self.device``: it holds no parameters. Every int8 site gets its
-    K-major weights ``w8k`` beside ``w8`` here, once (``int8_conv.with_kmajor``).
+    K-major weights ``w8k`` beside ``w8`` here, once (``int8_conv.with_kmajor``),
+    which K5a and K7 read; K5's and K6's packed operands (with their K-major
+    copies) are built at their first call and kept (:meth:`packed`).
     """
 
     def __init__(self, config: HRNetConfig, q: dict, fused_blocks: bool = False,

@@ -15,7 +15,10 @@ and the packers that gather their operands from a quantized tree
 (``chain_params_from_q``, ``bottleneck_params_from_q``,
 ``up_exchange_operands``). Each ``*_plain`` function is the per-op int8 walk
 of the same sites through :func:`..int8_conv.int8_conv_plain`, and is what
-the wrappers run for CPU tensors.
+the wrappers run for CPU tensors. All three kernels multiply on the int8
+tensor cores, which read weights K-major: the packers hand over those
+copies beside the HWIO weights (``wk``, ``wks``), made once when a model is
+built, and the wrappers raise on CUDA tensors without them.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ CHAIN = _cuda.Kernel(
 )
 BOTTLENECK = _cuda.Kernel(
     "bottleneck_chain", "bottleneck_chain.cu",
-    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
 EXCHANGE = _cuda.Kernel(
     "up_exchange", "up_exchange.cu",
@@ -147,52 +150,77 @@ def bottleneck_chain_plain(x: Tensor, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md
 
 
 def bottleneck_chain(x: Tensor, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs,
-                     nblocks: int, strip: int | None = None) -> Tensor:
+                     nblocks: int, strip: int | None = None, wk: tuple | None = None) -> Tensor:
     """HRNet layer1: ``nblocks`` int8 Bottlenecks over x (B, H, W, Cin0).
 
     w1 (n, Cin_max, Cm) (each block reads its first Cin rows: Cin0 for
     block 0, Cout after), w2 (n, 3, 3, Cm, Cm), w3 (n, Cm, Cout) int8;
     wd (Cin0, Cout) block 0's projection; m*, b* f32 per output channel;
-    coeffs (n, 2). CPU tensors take the plain version; CUDA tensors launch
-    K6 with ``strip`` output rows per strip (the strips kernel K6s uses 32;
-    default: two strips per image).
+    coeffs (n, 2); wk ``pack_bottleneck_kmajor(w1, w2, w3, wd)``. CPU
+    tensors take the plain version on the HWIO weights; CUDA tensors launch
+    K6 on ``wk``, which they require, with ``strip`` output rows per strip
+    (the strips kernel K6s uses 32; default: two strips per image).
     """
     if x.device.type == "cpu":
         return bottleneck_chain_plain(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs, nblocks)
-    return _launch_bottleneck(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs, nblocks, strip)
+    return _launch_bottleneck(x, wk, m1, b1, m2, b2, m3, b3, md, bd, coeffs, nblocks, strip)
 
 
-def _launch_bottleneck(x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs, nblocks, strip):
+def pack_bottleneck_kmajor(w1: Tensor, w2: Tensor, w3: Tensor, wd: Tensor) -> tuple:
+    """K6's K-major weights (w1k, w2k, w3k, wdk) from its HWIO operands.
+
+    w1k is flat: each block's (Cm, Cin) 1x1 in turn, at that block's own
+    Cin (Cin0, wd's rows, for block 0; Cout after), so the kernel reads no
+    padding rows; w2k (n, Cm, 3, 3, Cm); w3k (n, Cout, 1, 1, Cm); wdk
+    (Cout, 1, 1, Cin0).
+    """
+    cin0, cout = wd.shape
+    w1k = torch.cat([w1[k, :cin0 if k == 0 else cout].t().flatten() for k in range(w1.shape[0])])
+    return w1k.contiguous(), pack_kmajor(w2), pack_kmajor(w3[:, None, None]), pack_kmajor(wd[None, None])
+
+
+def bottleneck_workspace_bytes(bsz: int, h: int, w: int, cm: int, cout: int, nblocks: int,
+                               strip: int | None = None) -> int:
+    """K6's global workspace: each strip's band of rows (the strip and its
+    halo) holds the running activation and the two Cm-wide intermediates."""
+    strip = strip or _default_strip(h)
+    band = min(h, strip + 2 * nblocks)
+    return bsz * math.ceil(h / strip) * band * w * (cout + 2 * cm)
+
+
+def _launch_bottleneck(x, wk, m1, b1, m2, b2, m3, b3, md, bd, coeffs, nblocks, strip):
+    if wk is None:
+        raise ValueError("bottleneck_chain: the CUDA kernel needs the K-major weights wk = "
+                         "pack_bottleneck_kmajor(w1, w2, w3, wd), packed once by bottleneck_params_from_q")
     _cuda.check_cuda_tensor("x", x, torch.int8, 4)
     _cuda.check_word_aligned("x", x)
-    for name, t, nd in (("w1", w1, 3), ("w2", w2, 5), ("w3", w3, 3), ("wd", wd, 2)):
+    w1k, w2k, w3k, wdk = wk
+    for name, t, nd in (("w1k", w1k, 1), ("w2k", w2k, 5), ("w3k", w3k, 5), ("wdk", wdk, 4)):
         _cuda.check_cuda_tensor(name, t, torch.int8, nd)
     for name, t in (("m1", m1), ("b1", b1), ("m2", m2), ("b2", b2), ("m3", m3), ("b3", b3),
                     ("md", md), ("bd", bd), ("coeffs", coeffs)):
         _cuda.check_cuda_tensor(name, t, torch.float32)
     bsz, h, wdt, cin0 = x.shape
-    cin_max, cm = w1.shape[1], w1.shape[2]
-    cout = w3.shape[-1]
-    if (w1.shape[0] != nblocks or tuple(w2.shape) != (nblocks, 3, 3, cm, cm) or tuple(w3.shape) != (nblocks, cm, cout)
-            or tuple(wd.shape) != (cin0, cout) or cin_max < cin0 or (nblocks > 1 and cin_max < cout)
+    cm, cout = w2k.shape[1], w3k.shape[1]
+    if (tuple(w1k.shape) != (cm * (cin0 + (nblocks - 1) * cout),) or tuple(w2k.shape) != (nblocks, cm, 3, 3, cm)
+            or tuple(w3k.shape) != (nblocks, cout, 1, 1, cm) or tuple(wdk.shape) != (cout, 1, 1, cin0)
             or tuple(coeffs.shape) != (nblocks, 2)):
         raise ValueError(f"bottleneck_chain: operands disagree with x {tuple(x.shape)} and nblocks {nblocks}")
     _check_int8_channels("bottleneck_chain", cin0, cm, cout)
     strip = strip or _default_strip(h)
-    band = min(h, strip + 2 * nblocks)
     out = torch.empty((bsz, h, wdt, cout), dtype=torch.int8, device=x.device)
-    work = torch.empty(bsz * math.ceil(h / strip) * band * wdt * (cout + 2 * cm), dtype=torch.int8,
+    work = torch.empty(bottleneck_workspace_bytes(bsz, h, wdt, cm, cout, nblocks, strip), dtype=torch.int8,
                        device=x.device)
-    BOTTLENECK.launch(*[_cuda.ptr(t) for t in (x, w1, m1, b1, w2, m2, b2, w3, m3, b3, wd, md, bd, coeffs,
+    BOTTLENECK.launch(*[_cuda.ptr(t) for t in (x, w1k, m1, b1, w2k, m2, b2, w3k, m3, b3, wdk, md, bd, coeffs,
                                                out, work)],
-                      bsz, h, wdt, cin0, cin_max, cm, cout, nblocks, strip)
+                      bsz, h, wdt, cin0, cm, cout, nblocks, strip)
     return out
 
 
 def bottleneck_params_from_q(q: dict, nblocks: int):
     """layer1's sites packed for K6 (w1 zero-padded to the widest input:
-    zero rows add nothing to the int32 sums), or None without block 0's
-    projection."""
+    zero rows add nothing to the int32 sums), with the kernel's K-major
+    copies ``wk``, or None without block 0's projection."""
     convs = q["convs"]
     if "layer1/block0/down" not in convs:
         return None
@@ -204,7 +232,7 @@ def bottleneck_params_from_q(q: dict, nblocks: int):
         w1 = c1["w8"][0, 0]
         w1s.append(torch.nn.functional.pad(w1, (0, 0, 0, cin_max - w1.shape[0])))
     d = convs["layer1/block0/down"]
-    return dict(
+    p = dict(
         w1=torch.stack(w1s), m1=torch.stack([c1["m"] for c1, _, _ in blocks]),
         b1=torch.stack([c1["b"] for c1, _, _ in blocks]),
         w2=torch.stack([c2["w8"] for _, c2, _ in blocks]), m2=torch.stack([c2["m"] for _, c2, _ in blocks]),
@@ -215,6 +243,8 @@ def bottleneck_params_from_q(q: dict, nblocks: int):
         coeffs=torch.stack([torch.as_tensor(q["adds"][f"layer1/block{k}"]["coeffs"], dtype=torch.float32)
                             for k in range(nblocks)]),
     )
+    p["wk"] = pack_bottleneck_kmajor(p["w1"], p["w2"], p["w3"], p["wd"])
+    return p
 
 
 # --------------------------------------------------------------------------- K7
@@ -238,17 +268,22 @@ def up_exchange_plain(yi: Tensor, downs: list, ups: list, coeffs: Tensor) -> Ten
     return requant(torch.clamp_min(acc, 0.0))
 
 
-def up_exchange(yi: Tensor, downs: list, ups: list, coeffs: Tensor) -> Tensor:
+def up_exchange(yi: Tensor, downs: list, ups: list, coeffs: Tensor, wks: list | None = None) -> Tensor:
     """Fuse-exchange output i: ``yi`` (B, H, W, C) int8, ``downs`` int8 at
     yi's shape, ``ups`` [(u_j (B, H / f, W / f, C_j) int8, w_j (C_j, C) int8,
-    m_j, b_j (C,) f32)], ``coeffs`` (1 + len(downs) + len(ups),) f32.
-    CPU tensors take the plain version; CUDA tensors launch K7."""
+    m_j, b_j (C,) f32)], ``coeffs`` (1 + len(downs) + len(ups),) f32;
+    ``wks`` [w_j's K-major copy, (C, 1, 1, C_j)], the sites' ``w8k``. CPU
+    tensors take the plain version on the ``w_j``; CUDA tensors launch K7 on
+    ``wks``, which they require when there are ups."""
     if yi.device.type == "cpu":
         return up_exchange_plain(yi, downs, ups, coeffs)
-    return _launch_exchange(yi, downs, ups, coeffs)
+    return _launch_exchange(yi, downs, ups, coeffs, wks)
 
 
-def _launch_exchange(yi, downs, ups, coeffs):
+def _launch_exchange(yi, downs, ups, coeffs, wks):
+    if ups and (wks is None or len(wks) != len(ups)):
+        raise ValueError("up_exchange: the CUDA kernel needs the K-major weights wks, one (C, 1, 1, C_j) per up "
+                         "(the sites' w8k, packed once by int8_conv.with_kmajor)")
     _cuda.check_cuda_tensor("yi", yi, torch.int8, 4)
     _cuda.check_cuda_tensor("coeffs", coeffs, torch.float32, 1)
     bsz, h, wdt, c = yi.shape
@@ -260,17 +295,17 @@ def _launch_exchange(yi, downs, ups, coeffs):
         if d.shape != yi.shape:
             raise ValueError(f"up_exchange: downs[{i}] {tuple(d.shape)} is not at yi's shape {tuple(yi.shape)}")
     up_args = []
-    for j, (u, w, m, b) in enumerate(ups):
+    for j, ((u, _, m, b), wk) in enumerate(zip(ups, wks or [])):
         _cuda.check_cuda_tensor(f"ups[{j}].u", u, torch.int8, 4)
         _cuda.check_word_aligned(f"ups[{j}].u", u)
-        _cuda.check_cuda_tensor(f"ups[{j}].w", w, torch.int8, 2)
+        _cuda.check_cuda_tensor(f"wks[{j}]", wk, torch.int8, 4)
         _cuda.check_cuda_tensor(f"ups[{j}].m", m, torch.float32, 1)
         _cuda.check_cuda_tensor(f"ups[{j}].b", b, torch.float32, 1)
         if u.shape[0] != bsz or h % u.shape[1] or wdt % u.shape[2] or h // u.shape[1] != wdt // u.shape[2] \
-                or tuple(w.shape) != (u.shape[3], c):
-            raise ValueError(f"up_exchange: ups[{j}] u {tuple(u.shape)}, w {tuple(w.shape)} vs yi {tuple(yi.shape)}")
+                or tuple(wk.shape) != (c, 1, 1, u.shape[3]):
+            raise ValueError(f"up_exchange: ups[{j}] u {tuple(u.shape)}, wk {tuple(wk.shape)} vs yi {tuple(yi.shape)}")
         _check_int8_channels("up_exchange", u.shape[3])
-        up_args += [_cuda.ptr(u), _cuda.ptr(w), _cuda.ptr(m), _cuda.ptr(b), u.shape[1], u.shape[2], u.shape[3]]
+        up_args += [_cuda.ptr(u), _cuda.ptr(wk), _cuda.ptr(m), _cuda.ptr(b), u.shape[1], u.shape[2], u.shape[3]]
     _check_int8_channels("up_exchange", c)
     null = ctypes.c_void_p(None)
     down_ptrs = [_cuda.ptr(d) for d in downs] + [null] * (MAX_EXCHANGE_OPERANDS - len(downs))
@@ -284,11 +319,12 @@ def _launch_exchange(yi, downs, ups, coeffs):
 
 def up_exchange_operands(q: dict, prefix: str, i: int, ys: list):
     """The coarser operands of exchange output i, [(y_j, w (C_j, C), m, b)]
-    for j > i, and its add coefficients; None when a 1x1 site is missing."""
-    ups = []
-    for j in range(i + 1, len(ys)):
-        c = q["convs"].get(f"{prefix}/fuse/up{i}_{j}")
-        if c is None:
-            return None
-        ups.append((ys[j], c["w8"][0, 0], c["m"], c["b"]))
-    return ups, torch.as_tensor(q["adds"][f"{prefix}/fuse/out{i}"]["coeffs"], dtype=torch.float32)
+    for j > i, its add coefficients, and the sites' K-major weights
+    [w8k (C, 1, 1, C_j)] (None when the tree holds no ``w8k``: the
+    quantizer's tree); None when a 1x1 site is missing."""
+    sites = [q["convs"].get(f"{prefix}/fuse/up{i}_{j}") for j in range(i + 1, len(ys))]
+    if any(c is None for c in sites):
+        return None
+    ups = [(y, c["w8"][0, 0], c["m"], c["b"]) for y, c in zip(ys[i + 1:], sites)]
+    wks = [c["w8k"] for c in sites] if all("w8k" in c for c in sites) else None
+    return ups, torch.as_tensor(q["adds"][f"{prefix}/fuse/out{i}"]["coeffs"], dtype=torch.float32), wks

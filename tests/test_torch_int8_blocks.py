@@ -185,11 +185,12 @@ def test_packers_match_jax():
         np.testing.assert_array_equal(n(got), np.asarray(want))
     got = int8_blocks.bottleneck_params_from_q(tq, nblocks)
     want = jpb.bottleneck_params_from_q(jax_tree(jq), nblocks)
-    assert set(got) == set(want)
+    assert set(got) == set(want) | {"wk"}  # wk: K6's K-major copies (test_torch_int8_pack.py)
     for key in want:
         np.testing.assert_array_equal(n(got[key]), np.asarray(want[key]), err_msg=key)
     ys = [t(rand_int8(rng, 1, 8 // 2**j, 8 // 2**j, c * 2**j)) for j in range(3)]
-    ups, coeffs = int8_blocks.up_exchange_operands(tq, "stage2_m0", 0, ys)
+    ups, coeffs, wks = int8_blocks.up_exchange_operands(tq, "stage2_m0", 0, ys)
+    assert wks is None  # the quantizer's tree holds no K-major copies
     np.testing.assert_array_equal(n(coeffs), jq["adds"]["stage2_m0/fuse/out0"]["coeffs"])
     for j, (y, w, m, b) in enumerate(ups, 1):  # the JAX walk's operand list (hrnet_int8.py:348-357)
         site = jq["convs"][f"stage2_m0/fuse/up0_{j}"]
