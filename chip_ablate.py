@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
-"""Where the time of the int8 tensor-core kernels K5a, K5, K6 and K7 goes, on one CUDA card.
+"""Where the time of the port's kernels goes, on one CUDA card: the int8 tensor-core kernels K5a, K5, K6
+and K7, the FPN ROIAlign K2 and the NMS K4.
 
-    python3 chip_ablate.py
+    python3 chip_ablate.py [KERNEL ...]
 
 from the repository root, on a machine with an NVIDIA H100 and the CUDA
-toolkit. It copies ``spacecraft_pose_estimation_tpu_torch/csrc`` once per
-variant into the gitignored ``_build/ablate/``, edits one piece of the
-tensor-core conv body out of each copy (the epilogue, the wgmma, the
-copies into shared memory, K5's cluster barriers) or changes the ring's
-depth or K7's tile rows, builds every copy (one nvcc per source, in
-parallel), and times each variant's K5a, K5, K6 and K7 at the serving
-shapes (HRNet-W32's four branch chains; R101 and HRNet conv sites; layer1
-in 32-row strips and in two strips per image; three fuse-exchange outputs)
-from CUDA graphs, turn by turn in one process. Only the unedited source is held to the plain versions: the
-others compute wrong answers on purpose, and their times say what the
-removed piece costs. Prints the card, one JSON line per shape and a last
-line ``{"ok": true, ...}``; without a CUDA device it exits 1.
+toolkit; with kernel ids (``K2 K4``) it times only their variants and
+shapes. It copies ``spacecraft_pose_estimation_tpu_torch/csrc`` once per
+variant into the gitignored ``_build/ablate/``, edits one piece of a
+kernel out of each copy (the tensor-core conv body's epilogue, wgmma or
+copies into shared memory, K5's cluster barriers, K2's loads or stores,
+K4's overlap phase, its walk or all but its launch), changes one of its sizes, or swaps in an
+exact alternative (K2's sampling ratio fixed at the served 2, K4's IoU
+decision by division, its walk not unrolled or not skipping empty
+quarters of a word), builds each copy's sources of the kernels the variant
+touches (one nvcc per source, in parallel), and times each variant's
+kernels at the serving shapes (HRNet-W32's four branch chains; R101 and
+HRNet conv sites; layer1 in 32-row strips and in two strips per image;
+three fuse-exchange outputs; K2 on 256 boxes over the four R101-FPN
+levels; K4 on the RPN's and the box head's problems, with as many valid
+boxes as the served ones and with most valid) from CUDA graphs,
+turn by turn in one process. Only the unedited source and the exact
+alternatives are held to the plain versions: the others compute wrong answers
+on purpose, and their times say what the removed piece costs. Prints the
+card, one JSON line per shape and a last line ``{"ok": true, ...}``;
+without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -28,26 +37,57 @@ import subprocess
 import sys
 import time
 
-# variant -> [(file, text, replacement)] applied to a copy of csrc/
+INT8 = ("K5a", "K5", "K6", "K7")
+# variant -> (kernel ids it applies to, [(file, text, replacement)] applied to a copy of csrc/)
 VARIANTS = {
-    "as committed": [],
-    "no epilogue": [("int8_mma.cuh", "  store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);",
-                     "  if (acc[0] == 0x7fffffff) store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);")],
-    "no wgmma": [("int8_mma.cuh",
-                  "      if (kk < nk) wgmma_s8<TN>(acc, desc_sw128(sa + kChunk * kk), desc_sw128(sb + kChunk * kk));",
-                  "      ;")],
-    "no copies": [("int8_mma.cuh", "    if (nxt < ld.nstage) ld.stage(smem, nxt % kStages, nxt);", "    ;"),
-                  ("int8_mma.cuh", "      if (st < nstage) stage(smem, st, st);", "      ;")],
-    "no cluster barriers": [("basic_block_chain.cu", "    cluster_barrier();\n    // conv2", "    // conv2"),
-                            ("basic_block_chain.cu", "    cluster_barrier();\n    cur = Src", "    cur = Src")],
-    "4-stage ring": [("int8_mma.cuh", "constexpr int kStages = 3;", "constexpr int kStages = 4;")],
-    "K7 tiles of the fewest rows": [("up_exchange.cu", "constexpr int kMaxTileRows = 32;",
-                                     "constexpr int kMaxTileRows = 1;")],
-    "K7 tiles of 32 rows": [("up_exchange.cu", "constexpr int kMinBlocksPerSm = 2;",
-                             "constexpr int kMinBlocksPerSm = 0;")],
+    "as committed": (INT8 + ("K2", "K4"), []),
+    "no epilogue": (INT8, [("int8_mma.cuh", "  store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);",
+                            "  if (acc[0] == 0x7fffffff) store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);")]),
+    "no wgmma": (INT8, [("int8_mma.cuh",
+                         "      if (kk < nk) wgmma_s8<TN>(acc, desc_sw128(sa + kChunk * kk), desc_sw128(sb + kChunk * kk));",
+                         "      ;")]),
+    "no copies": (INT8, [("int8_mma.cuh", "    if (nxt < ld.nstage) ld.stage(smem, nxt % kStages, nxt);", "    ;"),
+                         ("int8_mma.cuh", "      if (st < nstage) stage(smem, st, st);", "      ;")]),
+    "no cluster barriers": (("K5",), [("basic_block_chain.cu", "    cluster_barrier();\n    // conv2", "    // conv2"),
+                                      ("basic_block_chain.cu", "    cluster_barrier();\n    cur = Src", "    cur = Src")]),
+    "4-stage ring": (INT8, [("int8_mma.cuh", "constexpr int kStages = 3;", "constexpr int kStages = 4;")]),
+    "K7 tiles of the fewest rows": (("K7",), [("up_exchange.cu", "constexpr int kMaxTileRows = 32;",
+                                              "constexpr int kMaxTileRows = 1;")]),
+    "K7 tiles of 32 rows": (("K7",), [("up_exchange.cu", "constexpr int kMinBlocksPerSm = 2;",
+                                       "constexpr int kMinBlocksPerSm = 0;")]),
+    "K2 no loads": (("K2",), [("roi_align_multilevel.cu",
+                               "              load8(feat + (static_cast<int64_t>(taps.ky[ty][sy]) * w + taps.kx[tx][sx]) * C + c, f);",
+                               "              for (int q = 0; q < 8; ++q) f[q] = wx;")]),
+    "K2 no stores": (("K2",), [("roi_align_multilevel.cu", "      float4* o = reinterpret_cast<float4*>(orow + px * C + c);",
+                                "      if (acc[0] != 12345.f) continue;\n"
+                                "      float4* o = reinterpret_cast<float4*>(orow + px * C + c);")]),
+    "K2 S fixed at 2 (exact)": (("K2",), [("roi_align_multilevel.cu",
+                                           "      for (int iy = 0; iy < S; ++iy) {\n        const int sy = py * S + iy;\n"
+                                           "        for (int ix = 0; ix < S; ++ix) {\n          const int sx = px * S + ix;",
+                                           "#pragma unroll\n      for (int iy = 0; iy < 2; ++iy) {\n"
+                                           "        const int sy = py * 2 + iy;\n#pragma unroll\n"
+                                           "        for (int ix = 0; ix < 2; ++ix) {\n          const int sx = px * 2 + ix;")]),
+    "K4 no overlaps": (("K4",), [("nms_mask_sorted.cu",
+                                  "    if (!v[i]) continue;  // warp-uniform; the walk never reads an invalid row",
+                                  "    continue;")]),
+    "K4 no walk": (("K4",), [("nms_mask_sorted.cu", "  if (warp == 0) {", "  if (warp == 0 && N < 0) {")]),
+    "K4 launch only": (("K4",), [("nms_mask_sorted.cu", "  const int W = (N + 63) / 64;\n",
+                                  "  if (N > 0) return;\n  const int W = (N + 63) / 64;\n")]),
+    "K4 8 warps": (("K4",), [("nms_mask_sorted.cu", "  const int threads = 32 * min(32, (N + 7) / 8);",
+                              "  const int threads = 32 * min(8, (N + 7) / 8);")]),
+    "K4 IoU by division (exact)": (("K4",), [("nms_mask_sorted.cu",
+                                              "over_threshold(inter, fmaxf(uni, 1e-12f), threshold, t_up)",
+                                              "inter / fmaxf(uni, 1e-12f) > threshold")]),
+    "K4 walk not unrolled (exact)": (("K4",), [("nms_mask_sorted.cu", "#pragma unroll\n        for (int b = q;",
+                                                "#pragma unroll 1\n        for (int b = q;")]),
+    "K4 walk through empty quarters (exact)": (("K4",), [("nms_mask_sorted.cu",
+                                                          "        if (!(alive >> q & 0xffffull)) continue;", "")]),
 }
+# variants that must still agree with the plain versions: the committed sources and the other exact designs
+EXACT = ("as committed",) + tuple(name for name in VARIANTS if name.endswith("(exact)"))
 SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_block_chain.cu", "basic_block_chain"),
-           "K6": ("bottleneck_chain.cu", "bottleneck_chain"), "K7": ("up_exchange.cu", "up_exchange")}
+           "K6": ("bottleneck_chain.cu", "bottleneck_chain"), "K7": ("up_exchange.cu", "up_exchange"),
+           "K2": ("roi_align_multilevel.cu", "roi_align_multilevel"), "K4": ("nms_mask_sorted.cu", "nms_mask_sorted")}
 CHAINS = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128), (16, 16, 16, 256)]  # W32 branches, 4 blocks
 CONVS = [  # (B, H, W, Cin, Cout, k, stride): R101 at the 768 letterbox, HRNet-W32 at 512
     (4, 192, 192, 64, 256, 1, 1), (4, 192, 192, 256, 64, 1, 1), (4, 192, 192, 64, 64, 3, 1),
@@ -62,12 +102,16 @@ EXCHANGES = [  # (B, H, C, downs, [(f, C_j)]): W32 fuse outputs at 512
 ]
 
 
-def build(cuda) -> dict:
-    """Every variant's copy of csrc/, edited and built; {variant: {kernel id: ctypes function}}."""
+def build(cuda, keys) -> dict:
+    """Every variant's copy of csrc/, edited, with the sources of its kernels
+    among ``keys`` built; {variant: {kernel id: ctypes function}}."""
     root = cuda.BUILD_DIR / "ablate"
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
+    for i, (name, (kernels, edits)) in enumerate(VARIANTS.items()):
+        kernels = [k for k in kernels if k in keys]
+        if not kernels:
+            continue
         d = root / f"v{i}"
         shutil.copytree(cuda.CSRC, d)
         for fname, text, repl in edits:
@@ -75,7 +119,8 @@ def build(cuda) -> dict:
             if text not in src:
                 raise RuntimeError(f"variant {name!r}: {fname} no longer holds {text!r}")
             (d / fname).write_text(src.replace(text, repl))
-        for key, (source, _) in SOURCES.items():
+        for key in kernels:
+            source = SOURCES[key][0]
             out = d / f"{source[:-3]}.so"
             procs[name, key] = (subprocess.Popen([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(out), str(d / source)],
                                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
@@ -108,6 +153,29 @@ def graph_ms(torch, fn, calls: int = 10, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * calls)
+
+
+def pooler_nms_workloads(torch, ra, nms):
+    """K2 and K4 (label, kernel id, wrapper call, plain result) at the serving shapes: K2 on 256 boxes
+    over 4 images that reach all four R101-FPN levels (bf16, 256 channels); K4 on the RPN's 20 problems
+    of 256 boxes at IoU 0.7 and the box head's 4 of 64 at 0.5 (chip_smoke's seeded edge problems)."""
+    import chip_smoke as cs
+
+    gen = torch.Generator().manual_seed(0)
+    boxes = cs.coverage_boxes(torch, 256, cs.POOLER_SIZE, gen).cuda()
+    batch_idx = torch.randint(0, 4, (256,), generator=gen, dtype=torch.int32).cuda()
+    feats = [torch.randn(4, cs.POOLER_SIZE // s, cs.POOLER_SIZE // s, 256, generator=gen).to("cuda", torch.bfloat16)
+             for s in cs.POOLER_STRIDES]
+    args = (feats, boxes, batch_idx, 7, cs.POOLER_STRIDES)
+    kw = dict(sampling_ratio=2, window=cs.POOLER_WINDOW)
+    out = [("K2 256 boxes, P2-P5 of 4x192x192x256 bf16 -> 256x7x7x256 f32", "K2",
+            functools.partial(ra.roi_align_multilevel, *args, **kw), ra.roi_align_multilevel_plain(*args, **kw))]
+    # the served RPN's problems were 6% valid (323 of 5,120 boxes, chip_smoke.py), its box head's 12%
+    for p, n, thresh, share in ((20, 256, 0.7, 0.8), (20, 256, 0.7, 0.06), (4, 64, 0.5, 0.8), (4, 64, 0.5, 0.12)):
+        b, v = (t.cuda() for t in cs.nms_edge_problems(torch, n, p, gen, share))
+        out.append((f"K4 {p}x{n} at IoU {thresh}, {share:.0%} valid", "K4",
+                    functools.partial(nms.nms_mask_sorted, b, v, thresh), nms.nms_mask_sorted_plain(b, v, thresh)))
+    return out
 
 
 def workloads(torch, ic, ib):
@@ -168,29 +236,37 @@ def main() -> int:
         print("chip_ablate: no CUDA device is available", file=sys.stderr)
         return 1
     from spacecraft_pose_estimation_tpu_torch import _cuda
-    from spacecraft_pose_estimation_tpu_torch.ops import int8_blocks, int8_conv
+    from spacecraft_pose_estimation_tpu_torch.ops import int8_blocks, int8_conv, nms, roi_align
 
+    keys = sys.argv[1:] or list(SOURCES)
+    if set(keys) - set(SOURCES):
+        raise SystemExit(f"chip_ablate: kernel ids are {list(SOURCES)}, got {keys}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
-    fns = build(_cuda)
-    print(f"built {len(VARIANTS)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
+    fns = build(_cuda, keys)
+    print(f"built {len(fns)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = {"K5a": int8_conv.KERNEL, "K5": int8_blocks.CHAIN, "K6": int8_blocks.BOTTLENECK,
-               "K7": int8_blocks.EXCHANGE}
+               "K7": int8_blocks.EXCHANGE, "K2": roi_align.KERNEL, "K4": nms.KERNEL}
     times: dict = {}
-    work = workloads(torch, int8_conv, int8_blocks)
+    work = (workloads(torch, int8_conv, int8_blocks) if set(keys) & set(INT8) else []) + \
+        (pooler_nms_workloads(torch, roi_align, nms) if set(keys) & {"K2", "K4"} else [])
     for _ in range(2):  # two turns through the variants, to show the spread
         for name, by_key in fns.items():
             for key, fn in by_key.items():
                 fn.argtypes, fn.restype = kernels[key].argtypes, ctypes.c_int
                 kernels[key]._fn = fn
             for label, key, call, want in work:
+                if key not in by_key:
+                    continue
                 got = call()
                 torch.cuda.synchronize()
-                if name == "as committed" and not torch.equal(got, want):
-                    raise RuntimeError(f"{label}: the committed kernel disagrees with its plain version")
-                times.setdefault(label, {}).setdefault(name, []).append(round(graph_ms(torch, call), 5))
+                if name in EXACT and not torch.equal(got, want):
+                    if key != "K2" or (got - want).abs().max().item() > 1e-5 * want.abs().max().item():
+                        raise RuntimeError(f"{label}: {name!r} disagrees with the plain version")
+                calls = 50 if key in ("K2", "K4") else 10  # ~1 ms a replay, as chip_smoke.py's k
+                times.setdefault(label, {}).setdefault(name, []).append(round(graph_ms(torch, call, calls), 5))
     for label, by_variant in times.items():
         print(json.dumps({"shape": label, "device_ms": by_variant}), flush=True)
     print(json.dumps({"ok": True, "card": card}))

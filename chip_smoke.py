@@ -10,7 +10,12 @@ toolkit. It
    (one nvcc per source, in parallel) and reads the SASS of the four int8
    kernels K5a, K5, K6 and K7: integer tensor-core instructions (IGMMA),
    no dp4a;
-2. checks the tiny detector + HRNet serving path on the card against the
+2. holds K2 to its plain version on seeded boxes that the served
+   proposals may not reach (every pyramid level, the image's edges, boxes
+   larger than the read window; f32 and bf16 features, 256 and 16
+   channels) and K4 exactly on seeded problems of 1, 63, 65 and 1024
+   boxes with duplicates, ties, zero-area boxes and no valid box; then
+   checks the tiny detector + HRNet serving path on the card against the
    same path on the CPU (plain PyTorch versions of the kernels), in the
    bf16 form and in the int8 form with every fused route on, and the PnP
    solver against a known pose;
@@ -21,11 +26,13 @@ toolkit. It
    ``bench.py``'s default, the int8 backbone feeding the detector and the
    int8 HRNet on raw crops, with the fused chains (K5, K6 in 32-row
    strips, K7). Every kernel launch counter is reset just before each
-   serving run and read just after;
+   serving run and read just after, and the served ROIs' pyramid levels
+   are logged;
 4. holds each kernel to its plain version on the inputs the serving runs
    gave it, and times both (and one PyTorch library call where one
    computes the same function), the kernel also replayed from a CUDA
-   graph (its device time without the host's launch cost); the fused
+   graph of k back-to-back calls, k chosen for about 1 ms a replay (its
+   device time without the host's launch cost); the fused
    int8 HRNet is held to the per-op one on the served crops;
 5. runs K3, the single-level ROIAlign that no serving path calls, on the
    P2 map of one served keyframe and that image's box-head proposals, with
@@ -48,6 +55,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from types import SimpleNamespace
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM
@@ -99,13 +107,16 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 5) -> float | None:
-    """Device time of ``fn`` replayed from a CUDA graph: its kernels without
-    the host's launch cost, which ``time_ms`` of a short kernel measures
-    instead. None when ``fn`` cannot be captured."""
+def graph_ms(fn, reps: int = 5) -> tuple[float | None, int]:
+    """Device time of one call of ``fn``: k back-to-back calls captured in
+    one CUDA graph, its replay time over k. A graph of one call, replayed,
+    times the host's cost of a replay as much as a kernel of a few
+    microseconds, so k is chosen to give one replay about 1 ms of work
+    (1 <= k <= 50), from a first graph of one call. Returns (ms, k);
+    (None, 0) when ``fn`` cannot be captured."""
     import torch
 
-    try:
+    def captured(k: int):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -113,11 +124,17 @@ def graph_ms(fn, reps: int = 5) -> float | None:
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            fn()
-        return time_ms(graph.replay, reps)
+            for _ in range(k):
+                fn()
+        return graph
+
+    try:
+        one = time_ms(captured(1).replay, reps)
+        k = max(1, min(50, round(1.0 / one)))
+        return (one if k == 1 else time_ms(captured(k).replay, reps) / k), k
     except RuntimeError as e:
         log(f"graph capture failed: {e}")
-        return None
+        return None, 0
 
 
 def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -258,6 +275,99 @@ def check_tensor_core_sass(cuda) -> None:
             raise RuntimeError(f"{source} does not run on the int8 tensor cores: {counts}")
 
 
+POOLER_SIZE, POOLER_STRIDES, POOLER_WINDOW = 768, (4, 8, 16, 32), 48  # the served R101-FPN pooler
+
+
+def coverage_boxes(torch, r: int, size: int, gen):
+    """r boxes on a size x size image that reach every level P2..P5 (sides
+    8 px to twice the image), cross the image's edges (centres up to 64 px
+    outside it) and exceed the read window (aspect ratios up to 8:1)."""
+    u = lambda: torch.rand(r, generator=gen, dtype=torch.float64)
+    side = torch.exp(math.log(8.0) + u() * math.log(2.0 * size / 8.0))
+    aspect = torch.exp((u() - 0.5) * 2.0 * math.log(8.0)).sqrt()
+    w, h = side * aspect, side / aspect
+    cx, cy = u() * (size + 128) - 64, u() * (size + 128) - 64
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1).float()
+
+
+def check_pooler_coverage(torch, m) -> None:
+    """K2 against its plain version on seeded boxes that the served
+    proposals may not reach (random weights can put them all on one level):
+    every level, the image's edges, boxes larger than the read window; f32
+    and bf16 features, 256 and 16 channels; 1e-5 of the output's scale."""
+    gen = torch.Generator().manual_seed(4)
+    r, n_img = 256, DET_BATCH
+    boxes = coverage_boxes(torch, r, POOLER_SIZE, gen).cuda()
+    batch_idx = torch.randint(0, n_img, (r,), generator=gen, dtype=torch.int32).cuda()
+    levels = m.roi_align.assign_levels(boxes, len(POOLER_STRIDES), int(math.log2(POOLER_STRIDES[0])))
+    stride = torch.tensor(POOLER_STRIDES, device=boxes.device, dtype=torch.float32)[levels]
+    edge = int(((boxes[:, :2] < 0) | (boxes[:, 2:] > POOLER_SIZE)).any(-1).sum())
+    wide = int((((boxes[:, 2] - boxes[:, 0]) / stride > POOLER_WINDOW + 8)
+                | ((boxes[:, 3] - boxes[:, 1]) / stride > POOLER_WINDOW)).sum())
+    hist = torch.bincount(levels, minlength=len(POOLER_STRIDES)).tolist()
+    log(f"K2 coverage boxes: {r} over {n_img} images, per level P2..P5 {hist}, {edge} across the image's edge, "
+        f"{wide} larger than the read window")
+    if min(hist) == 0 or edge == 0 or wide == 0:
+        raise RuntimeError("K2 coverage boxes miss a level, the edge or the window")
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (256, 16):
+            feats = [torch.randn(n_img, POOLER_SIZE // s, POOLER_SIZE // s, c, generator=gen).to(boxes.device, dtype)
+                     for s in POOLER_STRIDES]
+            args = (feats, boxes, batch_idx, 7, POOLER_STRIDES)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # the window-coverage warning: these boxes exceed it on purpose
+                got = m.roi_align.roi_align_multilevel(*args, sampling_ratio=2, window=POOLER_WINDOW)
+                want = m.roi_align.roi_align_multilevel_plain(*args, sampling_ratio=2, window=POOLER_WINDOW)
+            sync()
+            err, share, ok = compare(got, want, None)
+            log(f"K2 coverage, {dtype} features, C {c}: max_abs_err {err:.3g} of scale "
+                f"{want.abs().max().item():.3g}, share off {share:.3g} (limit 1e-5 of the scale)")
+            if not ok:
+                raise RuntimeError(f"K2 disagrees with its plain version on the coverage boxes ({dtype}, C {c}): {err}")
+
+
+def nms_edge_problems(torch, n: int, p: int, gen, valid_share: float = 0.8):
+    """p score-sorted problems of n boxes: clustered boxes with exact
+    duplicates, zero-width and zero-height boxes, tied scores, a share
+    ``valid_share`` of them valid; problem 0 has no valid box."""
+    u = lambda *shape: torch.rand(*shape, generator=gen)
+    centres = u(p, 4, 2) * 200
+    pick = torch.randint(0, 4, (p, n), generator=gen)
+    c = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2)) + torch.randn(p, n, 2, generator=gen) * 8
+    wh = 5 + u(p, n, 2) * 55
+    boxes = torch.cat([c - wh / 2, c + wh / 2], -1)
+    scores = torch.floor(u(p, n) * max(n // 4, 1))  # ties: about four boxes per score
+    valid = u(p, n) < valid_share
+    valid[0] = False
+    dst, src = torch.randint(0, n, (n // 4 + 1,), generator=gen), torch.randint(0, n, (n // 4 + 1,), generator=gen)
+    boxes[:, dst] = boxes[:, src]
+    zero = torch.randint(0, n, (n // 8 + 1,), generator=gen)
+    boxes[:, zero[::2], 2] = boxes[:, zero[::2], 0]
+    boxes[:, zero[1::2], 3] = boxes[:, zero[1::2], 1]
+    order = torch.sort(torch.where(valid, scores, -torch.inf), dim=-1, descending=True, stable=True).indices
+    return (torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous(),
+            torch.gather(valid, 1, order).contiguous())
+
+
+def check_nms_coverage(torch, m) -> None:
+    """K4 exact against its plain version at N = 1, 63, 65 and 1024 (edges
+    of its 64-bit words and its largest problem, 128 KB of mask in shared
+    memory), with duplicates, ties, zero-area boxes and an all-invalid
+    problem, at IoU thresholds 0, 0.5 and 0.99."""
+    gen = torch.Generator().manual_seed(5)
+    for n in (1, 63, 65, 1024):
+        boxes, valid = (t.cuda() for t in nms_edge_problems(torch, n, 4, gen))
+        for thresh in (0.0, 0.5, 0.99):
+            got = m.nms.nms_mask_sorted(boxes, valid, thresh)
+            want = m.nms.nms_mask_sorted_plain(boxes, valid, thresh)
+            sync()
+            off = int((got != want).sum())
+            log(f"K4 coverage, 4 problems of {n} at IoU {thresh}: {int(want.sum())} kept of {int(valid.sum())} "
+                f"valid, {off} differ (limit 0)")
+            if off or got.dtype != torch.bool:
+                raise RuntimeError(f"K4 disagrees with its plain version at N {n}, IoU {thresh}: {off} differ")
+
+
 def touched_cells(torch, taps, h, w) -> int:
     """Cells of an (h, w) map that some box's nonzero taps read."""
     (ky, wy), (kx, wx) = taps
@@ -280,21 +390,25 @@ def single_numbers(torch, roi_align, feat, boxes, p, scale, s, window):
 def pooler_numbers(torch, roi_align, args, kwargs):
     """Bytes K2 must move (the feature cells its taps touch, read once per
     image and level; boxes, indices; the pooled output) and its FLOPs
-    (53 per output value at sampling ratio 2)."""
+    (53 per output value at sampling ratio 2); and the bytes of the tap
+    loads it issues (every nonzero tap of every sample, C channels each),
+    which L1 and L2 serve."""
     feats, boxes, batch_idx, p, strides = args[:5]
     s, window = kwargs.get("sampling_ratio", 2), kwargs.get("window", 48)
     c = feats[0].shape[-1]
     r = boxes.shape[0]
     levels = roi_align.assign_levels(boxes, len(feats), int(math.log2(strides[0])))
-    cells = 0
+    cells = taps_read = 0
     for li, (f, stride) in enumerate(zip(feats, strides)):
         for img in range(f.shape[0]):
             sel = torch.nonzero((levels == li) & (batch_idx == img)).flatten()
             if sel.numel():
                 taps = roi_align.level_taps(boxes[sel], f.shape[1], f.shape[2], stride, p, s, window)
                 cells += touched_cells(torch, taps, f.shape[1], f.shape[2])
+                (_, wy), (_, wx) = taps  # a bin's samples pair its S rows with its S columns
+                taps_read += int(((wy != 0).sum((1, 2)) * (wx != 0).sum((1, 2))).sum())
     nbytes = cells * c * feats[0].element_size() + r * p * p * c * 4 + r * (16 + 4)
-    return nbytes, 53.0 * r * p * p * c
+    return nbytes, 53.0 * r * p * p * c, taps_read * c * feats[0].element_size()
 
 
 def nbytes(*tensors) -> int:
@@ -432,6 +546,10 @@ def serve(torch, m, dev, form, det_cfg, hr_cfg, frame_hw, det_size, config, clip
             stack.enter_context(c)
         server(clips[0])  # warm-up, and the kernels' serving inputs
         sync()
+    feats, boxes, _, _, strides = captures["K2"].calls[0][0][:5]
+    levels = m.roi_align.assign_levels(boxes, len(feats), int(math.log2(strides[0])))
+    log(f"{form}: the served ROIs per pyramid level P2..P5: "
+        f"{torch.bincount(levels, minlength=len(feats)).tolist()} of {boxes.shape[0]}")
 
     for _, _, k in m.kernels.values():
         k.launches = 0
@@ -552,12 +670,13 @@ def float_rows(torch, m, dev, captures):
                      tol=1e-3, peak=FP32_FLOPS, numbers=crop_numbers(torch, crop_args)))
 
     pool_args, pool_kwargs = captures["K2"].calls[0]
+    *pool_totals, tap_bytes = pooler_numbers(torch, m.roi_align, pool_args, pool_kwargs)
     rows.append(dict(id="K2", name="roi_align_multilevel",
                      source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel.cu",
                      replaces="spacecraft_pose_estimation_tpu/ops/pallas_pooler.py:135",
                      run_k=lambda: m.roi_align.roi_align_multilevel(*pool_args, **pool_kwargs),
                      run_p=lambda: m.roi_align.roi_align_multilevel_plain(*pool_args, **pool_kwargs), run_lib=None,
-                     tol=None, peak=FP32_FLOPS, numbers=pooler_numbers(torch, m.roi_align, pool_args, pool_kwargs)))
+                     tol=None, peak=FP32_FLOPS, numbers=tuple(pool_totals), extra={"tap_load_bytes": tap_bytes}))
 
     for i, (nms_args, _) in enumerate(captures["K4"].calls[:2]):  # the RPN's, then the box head's
         boxes, valid, thresh = nms_args
@@ -573,7 +692,8 @@ def float_rows(torch, m, dev, captures):
                          replaces="spacecraft_pose_estimation_tpu/ops/pallas_nms.py:67",
                          run_k=lambda a=nms_args: m.nms.nms_mask_sorted(*a),
                          run_p=lambda a=nms_args: m.nms.nms_mask_sorted_plain(*a),
-                         run_lib=lib, tol=0.0, peak=FP32_FLOPS, numbers=(p * n * (16 + 1 + 1), kept * n * 15.0)))
+                         run_lib=lib, tol=0.0, peak=FP32_FLOPS, numbers=(p * n * (16 + 1 + 1), kept * n * 15.0),
+                         extra={"valid": int(valid.sum()), "kept": int(kept)}))
     return rows
 
 
@@ -674,16 +794,18 @@ def kernel_report(rows, launches):
         entry = {
             "name": name, "id": key, "route": "cuda", "source": row["source"], "replaces": row["replaces"],
             "launches": launches[key], "max_abs_err": err, "share_off": share,
-            "ms": time_ms(row["run_k"], 10), "device_ms": graph_ms(row["run_k"]),
+            "ms": time_ms(row["run_k"], 10),
             "plain_ms": time_ms(row["run_p"], 2), "bound_ms": bound,
             "bound_by": bound_by, "bytes": nb, "ops": ops, "peak_ops_per_s": row["peak"],
             "library_ms": time_ms(row["run_lib"], 10) if row["run_lib"] is not None else None,
         }
+        entry["device_ms"], entry["k"] = graph_ms(row["run_k"])
         entry["bound_share"] = bound / (entry["device_ms"] or entry["ms"])
         if "calls" in row:
             entry["calls_timed"] = row["calls"]
         entry.update(row.get("extra", {}))
-        log(f"{key} {name}: {entry['ms']:.4f} ms ({entry['device_ms']} ms replayed from a CUDA graph; plain "
+        log(f"{key} {name}: {entry['ms']:.4f} ms ({entry['device_ms']} ms replayed from a CUDA graph of "
+            f"{entry['k']} calls; plain "
             f"{entry['plain_ms']:.4f} ms, bound {bound:.5f} ms by {bound_by} = {entry['bound_share']:.4f} of the "
             f"device time, library {entry['library_ms']})" +
             "".join(f", {k} {v}" for k, v in row.get("extra", {}).items()))
@@ -726,6 +848,8 @@ def main() -> int:
     build_s = _cuda.build_all()
     log("build (s): " + json.dumps({k: round(v, 2) for k, v in build_s.items()}))
     check_tensor_core_sass(_cuda)
+    check_pooler_coverage(torch, m)
+    check_nms_coverage(torch, m)
     check_tiny_against_cpu(torch, m)
 
     dev = torch.device("cuda")

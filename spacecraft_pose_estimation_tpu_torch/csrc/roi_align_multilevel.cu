@@ -13,22 +13,30 @@
 // the mean of its S*S samples. Where the window covers the box, which the
 // caller checks, this is exact ROIAlign.
 //
-// One block per ROI (over all images; batch_idx names the ROI's image).
-// The block first lays out the 2 taps of each of the P*S sample rows and
-// columns in shared memory, then its threads span (bin, channel): channels
-// are innermost, so a warp reads 32 consecutive channels of one NHWC cell.
-//
-// Bound: memory. Per ROI it writes P*P*C f32 (50 KB at 7x7x256) and reads
-// at most (P*S*2)^2 cells of C channels of one level, ~16 reads and ~50
-// FLOP per output value.
+// K2's bound: memory, and mostly its f32 output. The serving call pools
+// R = 4 keyframes x 64 proposals = 256 ROIs of 7 x 7 x 256 channels: the
+// output is 12.85 MB of the 14.6 MB the call must move (the rest is the
+// feature cells its taps touch), ~16 tap reads and ~50 FLOP per output.
+// Its design: one block per (ROI, output row py), R * P blocks (1,792 at
+// serving, ~13 per SM), so enough warps are in flight to cover the loads'
+// latency; one warp per bin px of the row; each lane owns 8 consecutive
+// channels and reads them as one 16-byte vector through the read-only path
+// (8 bf16, or two float4 of f32), so a warp reads a cell's 512 bytes of 256
+// bf16 channels in one coalesced load, and writes its 8 f32 outputs as two
+// 16-byte stores (1 KB contiguous per warp). The block lays out the taps of
+// its S sample rows and P * S sample columns once in shared memory; zero-
+// weight taps are skipped warp-uniformly. Each lane sums in f32 registers in
+// the plain version's order: x taps, then y taps, then the S x S mean.
+// Channels must be a multiple of 8 and every level 16-byte aligned (the
+// wrapper raises otherwise).
 //
 // K3 replaces pallas_pooler.py roi_align_pallas / _pooler_kernel: the same
 // taps on one (h, w, C) map at any spatial_scale, no level assignment, the
 // window min(window, h) x min(window + 8, w) with its origin clamped to
 // max(w - win_w, 0) and rounded down to a multiple of 8 (window_matrices).
-// Bound: memory, as K2. K2's 64 ROIs make 64 blocks for 132 SMs (2.5% of
-// its bound), so K3's block is one ROI x one 64-channel slice: 256 blocks
-// at 64 ROIs of 256 channels.
+// Bound: memory, as K2. K3's block is one ROI x one 64-channel slice: 256
+// blocks at 64 ROIs of 256 channels; its threads stride over (bin, channel)
+// and read one 2-byte channel each.
 #include "common.cuh"
 
 namespace {
@@ -59,6 +67,14 @@ __device__ void axis_taps(float coord, int limit, int origin, int win, int* k, f
   }
 }
 
+// Sample point i of the P * S along one axis of a box from lo to hi: bin
+// i / S, sub-sample i % S, at the centre of its 1 / S slice.
+__device__ __forceinline__ float sample_coord(int i, float lo, float hi, int P, int S) {
+  const float grid = static_cast<float>(i / S) +
+                     (static_cast<float>(i % S) + 0.5f) / static_cast<float>(S);
+  return lo + grid * (hi - lo) / static_cast<float>(P);
+}
+
 // The two taps of every sample row and column of one box, in shared memory.
 struct Taps {
   int ky[2][kMaxSamples], kx[2][kMaxSamples];
@@ -71,10 +87,8 @@ struct Taps {
 __device__ void fill_taps(Taps& t, float x0, float y0, float x1, float y1, int h, int w, int oy,
                           int ox, int win_h, int win_w, int P, int S) {
   for (int i = threadIdx.x; i < P * S; i += blockDim.x) {
-    const float grid = static_cast<float>(i / S) +
-                       (static_cast<float>(i % S) + 0.5f) / static_cast<float>(S);
-    const float sy = y0 + grid * (y1 - y0) / static_cast<float>(P);
-    const float sx = x0 + grid * (x1 - x0) / static_cast<float>(P);
+    const float sy = sample_coord(i, y0, y1, P, S);
+    const float sx = sample_coord(i, x0, x1, P, S);
     int k[2];
     float wt[2];
     axis_taps(sy, h, oy, win_h, k, wt);
@@ -109,15 +123,37 @@ __device__ float pool_bin(const Taps& t, const T* feat, int w, int C, int c, int
   return acc * (1.f / static_cast<float>(S * S));
 }
 
+// 8 consecutive channels of one cell as f32, in one 16-byte vector load
+// through the read-only path (p is 16-byte aligned).
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 f = __bfloat1622float2(h[q]);
+    v[2 * q] = f.x;
+    v[2 * q + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+constexpr int kMaxBinWarps = 16;  // warps of a K2 block; bins past it loop
+
+// K2: block (r, py) of a grid of R * P; warp px of the row's bins; lane
+// channels [8 * lane, 8 * lane + 8) + 256 k.
 template <typename T>
-__global__ void roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min,
-                                    const float* __restrict__ boxes,
-                                    const int* __restrict__ batch_idx,
-                                    float* __restrict__ out, int C, int P, int S, int window,
-                                    float canonical_size, int canonical_level) {
+__global__ void __launch_bounds__(32 * kMaxBinWarps)
+roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, const float* __restrict__ boxes,
+                    const int* __restrict__ batch_idx, float* __restrict__ out, int C, int P,
+                    int S, int window, float canonical_size, int canonical_level) {
   __shared__ Taps taps;
 
-  const int r = blockIdx.x;
+  const int r = blockIdx.x / P, py = blockIdx.x % P;
   const float* box = boxes + 4 * r;
   const int win_h = window, win_w = window + 8;
 
@@ -139,16 +175,58 @@ __global__ void roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min,
   const int oy = min(max(static_cast<int>(floorf(y0)) - 1, 0), hp - win_h);
   int ox = min(max(static_cast<int>(floorf(x0)) - 1, 0), wp - win_w);
   ox = (ox / 8) * 8;
-  fill_taps(taps, x0, y0, x1, y1, h, w, oy, ox, win_h, win_w, P, S);
+  // the taps of every sample column, and of this row's S sample rows only
+  for (int i = threadIdx.x; i < P * S; i += blockDim.x) {
+    int k[2];
+    float wt[2];
+    axis_taps(sample_coord(i, x0, x1, P, S), w, ox, win_w, k, wt);
+    taps.kx[0][i] = k[0]; taps.kx[1][i] = k[1]; taps.wx[0][i] = wt[0]; taps.wx[1][i] = wt[1];
+    if (i < S) {
+      const int iy = py * S + i;
+      axis_taps(sample_coord(iy, y0, y1, P, S), h, oy, win_h, k, wt);
+      taps.ky[0][iy] = k[0]; taps.ky[1][iy] = k[1]; taps.wy[0][iy] = wt[0]; taps.wy[1][iy] = wt[1];
+    }
+  }
   __syncthreads();
 
   const T* feat = static_cast<const T*>(pyr.feat[lvl]) +
                   static_cast<int64_t>(batch_idx[r]) * h * w * C;
-  const int n_out = P * P * C;
-  float* o = out + static_cast<int64_t>(r) * n_out;
-  for (int e = threadIdx.x; e < n_out; e += blockDim.x) {
-    const int bin = e / C;
-    o[e] = pool_bin(taps, feat, w, C, e % C, bin / P, bin % P, S);
+  float* orow = out + (static_cast<int64_t>(r) * P + py) * P * C;
+  const int lane = threadIdx.x & 31;
+  const float inv = 1.f / static_cast<float>(S * S);
+  for (int px = threadIdx.x >> 5; px < P; px += blockDim.x >> 5) {
+    for (int c = 8 * lane; c < C; c += 256) {
+      float acc[8] = {};
+      for (int iy = 0; iy < S; ++iy) {
+        const int sy = py * S + iy;
+        for (int ix = 0; ix < S; ++ix) {
+          const int sx = px * S + ix;
+          float v[8] = {};
+#pragma unroll
+          for (int ty = 0; ty < 2; ++ty) {
+            const float wy = taps.wy[ty][sy];
+            if (wy == 0.f) continue;  // adds 0 * row in the plain version
+            float rowv[8] = {};
+#pragma unroll
+            for (int tx = 0; tx < 2; ++tx) {
+              const float wx = taps.wx[tx][sx];
+              if (wx == 0.f) continue;
+              float f[8];
+              load8(feat + (static_cast<int64_t>(taps.ky[ty][sy]) * w + taps.kx[tx][sx]) * C + c, f);
+#pragma unroll
+              for (int q = 0; q < 8; ++q) rowv[q] += wx * f[q];
+            }
+#pragma unroll
+            for (int q = 0; q < 8; ++q) v[q] += wy * rowv[q];
+          }
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[q] += v[q];
+        }
+      }
+      float4* o = reinterpret_cast<float4*>(orow + px * C + c);
+      o[0] = make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv);
+      o[1] = make_float4(acc[4] * inv, acc[5] * inv, acc[6] * inv, acc[7] * inv);
+    }
   }
 }
 
@@ -186,9 +264,10 @@ __global__ void roi_align_single_kernel(const T* __restrict__ feat, int h, int w
 }  // namespace
 
 // f0..f3: per-level NHWC features (B, h_l, w_l, C), float32 or bfloat16
-// (all the same type), fine to coarse; levels past num_levels are unused.
-// boxes: (R, 4) f32 XYXY in image pixels; batch_idx: (R,) int32;
-// out: (R, P, P, C) f32. lvl_min = log2 of the finest level's stride.
+// (all the same type), fine to coarse, each 16-byte aligned with C a
+// multiple of 8; levels past num_levels are unused. boxes: (R, 4) f32 XYXY
+// in image pixels; batch_idx: (R,) int32; out: (R, P, P, C) f32, 16-byte
+// aligned. lvl_min = log2 of the finest level's stride.
 extern "C" int roi_align_multilevel(const void* f0, const void* f1, const void* f2,
                                     const void* f3, int h0, int w0, int h1, int w1, int h2,
                                     int w2, int h3, int w3, int num_levels, int lvl_min,
@@ -196,18 +275,19 @@ extern "C" int roi_align_multilevel(const void* f0, const void* f1, const void* 
                                     void* out, int R, int C, int P, int S, int window,
                                     float canonical_size, int canonical_level, void* stream) {
   if (R == 0) return 0;
-  if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4)
+  if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4 || C % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Pyramid pyr{{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
-  const int threads = 256;
+  const int threads = 32 * min(P, kMaxBinWarps);
+  const int blocks = R * P;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    roi_align_ml_kernel<__nv_bfloat16><<<R, threads, 0, s>>>(
+    roi_align_ml_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         pyr, num_levels, lvl_min, static_cast<const float*>(boxes),
         static_cast<const int*>(batch_idx), static_cast<float*>(out), C, P, S, window,
         canonical_size, canonical_level);
   } else {
-    roi_align_ml_kernel<float><<<R, threads, 0, s>>>(
+    roi_align_ml_kernel<float><<<blocks, threads, 0, s>>>(
         pyr, num_levels, lvl_min, static_cast<const float*>(boxes),
         static_cast<const int*>(batch_idx), static_cast<float*>(out), C, P, S, window,
         canonical_size, canonical_level);

@@ -27,22 +27,27 @@ KERNEL = _cuda.Kernel(
 
 
 def nms_mask_sorted_plain(boxes: Tensor, valid: Tensor, iou_threshold: float) -> Tensor:
-    """Plain PyTorch K4: (P, N, 4) score-sorted boxes, (P, N) bool -> (P, N) keep."""
+    """Plain PyTorch K4: (P, N, 4) score-sorted boxes, (P, N) bool -> (P, N) keep.
+
+    In the kernel's form: a kept box removes only the boxes after it
+    (j > i). That gives the greedy keep-mask because the IoU is symmetric
+    bit for bit: a kept box never overlaps an earlier kept one above the
+    threshold, so removing earlier boxes changes no keep bit.
+    """
     n = boxes.shape[-2]
-    over = pairwise_iou(boxes, boxes) > iou_threshold
-    suppressed = torch.zeros_like(valid)
+    over = torch.triu(pairwise_iou(boxes, boxes) > iou_threshold, diagonal=1)
+    removed = torch.zeros_like(valid)
     for i in range(n):
-        keep_i = valid[:, i] & ~suppressed[:, i]
-        row = over[:, i] & keep_i[:, None]
-        row[:, i] = False
-        suppressed |= row
-    return valid & ~suppressed
+        keep_i = valid[:, i] & ~removed[:, i]
+        removed |= over[:, i] & keep_i[:, None]
+    return valid & ~removed
 
 
 def nms_mask_sorted(boxes: Tensor, valid: Tensor, iou_threshold: float) -> Tensor:
     """Keep-mask (P, N) bool over (P, N, 4) score-sorted boxes.
 
-    CPU tensors take the plain version; CUDA tensors launch K4.
+    CPU tensors take the plain version; CUDA tensors launch K4, which
+    writes the bool mask itself.
     """
     if boxes.device.type == "cpu":
         return nms_mask_sorted_plain(boxes, valid, iou_threshold)
@@ -53,11 +58,11 @@ def nms_mask_sorted(boxes: Tensor, valid: Tensor, iou_threshold: float) -> Tenso
         raise ValueError(f"boxes {tuple(boxes.shape)} and valid {tuple(valid.shape)} disagree")
     if n > MAX_BOXES:
         raise ValueError(f"nms_mask_sorted takes at most {MAX_BOXES} boxes per problem, got {n}")
-    keep = torch.empty((p, n), dtype=torch.uint8, device=boxes.device)
+    keep = torch.empty((p, n), dtype=torch.bool, device=boxes.device)
     KERNEL.launch(
         _cuda.ptr(boxes), _cuda.ptr(valid), _cuda.ptr(keep), p, n, float(iou_threshold)
     )
-    return keep.bool()
+    return keep
 
 
 def nms_mask(

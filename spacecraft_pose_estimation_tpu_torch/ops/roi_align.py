@@ -164,7 +164,9 @@ def roi_align_multilevel(
     feats: fine-to-coarse list of (B, H_l, W_l, C), float32 or bfloat16,
     strides consecutive powers of two; boxes (R, 4) XYXY image pixels;
     batch_idx (R,) image of each box. CPU tensors take the plain version;
-    CUDA tensors launch K2.
+    CUDA tensors launch K2, one block per (box, output row) and one warp per
+    bin, each lane reading 8 channels as one 16-byte vector: C must be a
+    multiple of 8 and every level 16-byte aligned.
     """
     check_window_covers([tuple(f.shape[1:3]) for f in feats], canonical_size, canonical_level, window)
     if boxes.device.type == "cpu":
@@ -186,6 +188,10 @@ def roi_align_multilevel(
         _cuda.check_cuda_tensor(f"feats[{i}]", f, (torch.float32, torch.bfloat16), 4)
         if f.dtype != dtype or f.shape[0] != b or f.shape[-1] != c:
             raise ValueError("all levels need the same dtype, batch and channels")
+        if f.data_ptr() % 16:
+            raise ValueError(f"feats[{i}]: expected a tensor starting on a 16-byte boundary")
+    if c % 8:
+        raise ValueError(f"roi_align_multilevel reads 8 channels at a time: C must be a multiple of 8, got {c}")
     _cuda.check_cuda_tensor("boxes", boxes, torch.float32, 2)
     _cuda.check_cuda_tensor("batch_idx", batch_idx, torch.int32, 1)
     r = boxes.shape[0]

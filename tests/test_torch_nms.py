@@ -74,3 +74,44 @@ def test_sorted_core_plain_matches_pallas_kernel():
     want = np.asarray(nms_mask_sorted_pallas(jnp.asarray(boxes[order]), jnp.asarray(valid[order]), 0.5))
     got = n(tnms.nms_mask_sorted_plain(t(boxes[order])[None], t(valid[order])[None], 0.5))[0]
     np.testing.assert_array_equal(got, want)
+
+
+def _edge_problem(rng, k, all_invalid=False):
+    """_problem with exact duplicate boxes (some also tied in score),
+    zero-width and zero-height boxes, or no valid box at all."""
+    boxes, scores, valid = _problem(rng, k)
+    dst, src = rng.integers(0, k, k // 4 + 1), rng.integers(0, k, k // 4 + 1)
+    boxes[dst] = boxes[src]
+    scores[dst[::2]] = scores[src[::2]]
+    zero = rng.integers(0, k, k // 8 + 1)
+    boxes[zero[::2], 2] = boxes[zero[::2], 0]
+    boxes[zero[1::2], 3] = boxes[zero[1::2], 1]
+    if all_invalid:
+        valid[:] = False
+    return boxes, scores, valid
+
+
+CASES = [(k, thresh, False) for k in (1, 63, 64, 65, 256) for thresh in (0.0, 0.99)]
+CASES += [(k, 0.5, True) for k in (1, 64, 65)]
+
+
+@pytest.mark.parametrize("k,thresh,all_invalid", CASES)
+def test_sorted_core_suppresses_later_boxes_only(k, thresh, all_invalid):
+    """K4's plain version in the kernel's form (a kept box removes only the
+    boxes after it) against the Pallas kernel on the same sorted input and,
+    through nms_mask's sort and scatter, against the JAX XLA nms_mask: at
+    every word edge of the kernel's 64-bit masks, with duplicates, ties,
+    zero-area boxes and problems with no valid box."""
+    from spacecraft_pose_estimation_tpu.ops.pallas_nms import nms_mask_sorted_pallas
+
+    boxes, scores, valid = _edge_problem(np.random.default_rng(k), k, all_invalid)
+    order = np.argsort(-np.where(valid, scores, -np.inf), kind="stable")
+    want = np.asarray(nms_mask_sorted_pallas(jnp.asarray(boxes[order]), jnp.asarray(valid[order]), thresh))
+    got = n(tnms.nms_mask_sorted_plain(t(boxes[order])[None], t(valid[order])[None], thresh))[0]
+    np.testing.assert_array_equal(got, want)
+    want_xla = np.asarray(jnms.nms_mask(jnp.asarray(boxes), jnp.asarray(scores), thresh, jnp.asarray(valid)))
+    np.testing.assert_array_equal(n(tnms.nms_mask(t(boxes), t(scores), thresh, t(valid))), want_xla)
+    if all_invalid:
+        assert not got.any()
+    elif k > 1:
+        assert 0 < got.sum() < valid.sum()
