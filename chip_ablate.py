@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Where the time of the port's kernels goes, on one CUDA card: the int8 tensor-core kernels K5a, K5, K6
-and K7, the FPN ROIAlign K2 and the NMS K4.
+and K7, the ROIAlign kernel (K2 on the FPN, K3 on one map) and the NMS K4.
 
     python3 chip_ablate.py [KERNEL ...]
 
@@ -9,16 +9,16 @@ toolkit; with kernel ids (``K2 K4``) it times only their variants and
 shapes. It copies ``spacecraft_pose_estimation_tpu_torch/csrc`` once per
 variant into the gitignored ``_build/ablate/``, edits one piece of a
 kernel out of each copy (the tensor-core conv body's epilogue, wgmma or
-copies into shared memory, K5's cluster barriers, K2's loads or stores,
-K4's overlap phase, its walk or all but its launch), changes one of its sizes, or swaps in an
-exact alternative (K2's sampling ratio fixed at the served 2, K4's IoU
+copies into shared memory, K5's cluster barriers, the ROIAlign kernel's loads, its stores or all
+but its launch, K4's overlap phase, its walk or all but its launch), changes one of its sizes, or swaps in an
+exact alternative (the ROIAlign sampling ratio fixed at the served 2, K4's IoU
 decision by division, its walk not unrolled or not skipping empty
 quarters of a word), builds each copy's sources of the kernels the variant
 touches (one nvcc per source, in parallel), and times each variant's
 kernels at the serving shapes (HRNet-W32's four branch chains; R101 and
 HRNet conv sites; layer1 in 32-row strips and in two strips per image;
 three fuse-exchange outputs; K2 on 256 boxes over the four R101-FPN
-levels; K4 on the RPN's and the box head's problems, with as many valid
+levels; K3 on 64 P2-sized boxes on one 192x192x256 bf16 map; K4 on the RPN's and the box head's problems, with as many valid
 boxes as the served ones and with most valid) from CUDA graphs,
 turn by turn in one process. Only the unedited source and the exact
 alternatives are held to the plain versions: the others compute wrong answers
@@ -40,7 +40,7 @@ import time
 INT8 = ("K5a", "K5", "K6", "K7")
 # variant -> (kernel ids it applies to, [(file, text, replacement)] applied to a copy of csrc/)
 VARIANTS = {
-    "as committed": (INT8 + ("K2", "K4"), []),
+    "as committed": (INT8 + ("K2", "K3", "K4"), []),
     "no epilogue": (INT8, [("int8_mma.cuh", "  store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);",
                             "  if (acc[0] == 0x7fffffff) store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);")]),
     "no wgmma": (INT8, [("int8_mma.cuh",
@@ -55,13 +55,15 @@ VARIANTS = {
                                               "constexpr int kMaxTileRows = 1;")]),
     "K7 tiles of 32 rows": (("K7",), [("up_exchange.cu", "constexpr int kMinBlocksPerSm = 2;",
                                        "constexpr int kMinBlocksPerSm = 0;")]),
-    "K2 no loads": (("K2",), [("roi_align_multilevel.cu",
+    "K2/K3 no loads": (("K2", "K3"), [("roi_align_multilevel.cu",
                                "              load8(feat + (static_cast<int64_t>(taps.ky[ty][sy]) * w + taps.kx[tx][sx]) * C + c, f);",
                                "              for (int q = 0; q < 8; ++q) f[q] = wx;")]),
-    "K2 no stores": (("K2",), [("roi_align_multilevel.cu", "      float4* o = reinterpret_cast<float4*>(orow + px * C + c);",
+    "K2/K3 no stores": (("K2", "K3"), [("roi_align_multilevel.cu", "      float4* o = reinterpret_cast<float4*>(orow + px * C + c);",
                                 "      if (acc[0] != 12345.f) continue;\n"
                                 "      float4* o = reinterpret_cast<float4*>(orow + px * C + c);")]),
-    "K2 S fixed at 2 (exact)": (("K2",), [("roi_align_multilevel.cu",
+    "K2/K3 launch only": (("K2", "K3"), [("roi_align_multilevel.cu", "  const int r = blockIdx.x / P, py = blockIdx.x % P;\n",
+                                         "  if (P > 0) return;\n  const int r = blockIdx.x / P, py = blockIdx.x % P;\n")]),
+    "K2/K3 S fixed at 2 (exact)": (("K2", "K3"), [("roi_align_multilevel.cu",
                                            "      for (int iy = 0; iy < S; ++iy) {\n        const int sy = py * S + iy;\n"
                                            "        for (int ix = 0; ix < S; ++ix) {\n          const int sx = px * S + ix;",
                                            "#pragma unroll\n      for (int iy = 0; iy < 2; ++iy) {\n"
@@ -87,7 +89,8 @@ VARIANTS = {
 EXACT = ("as committed",) + tuple(name for name in VARIANTS if name.endswith("(exact)"))
 SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_block_chain.cu", "basic_block_chain"),
            "K6": ("bottleneck_chain.cu", "bottleneck_chain"), "K7": ("up_exchange.cu", "up_exchange"),
-           "K2": ("roi_align_multilevel.cu", "roi_align_multilevel"), "K4": ("nms_mask_sorted.cu", "nms_mask_sorted")}
+           "K2": ("roi_align_multilevel.cu", "roi_align_multilevel"), "K3": ("roi_align_multilevel.cu", "roi_align_single"),
+           "K4": ("nms_mask_sorted.cu", "nms_mask_sorted")}
 CHAINS = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128), (16, 16, 16, 256)]  # W32 branches, 4 blocks
 CONVS = [  # (B, H, W, Cin, Cout, k, stride): R101 at the 768 letterbox, HRNet-W32 at 512
     (4, 192, 192, 64, 256, 1, 1), (4, 192, 192, 256, 64, 1, 1), (4, 192, 192, 64, 64, 3, 1),
@@ -104,7 +107,7 @@ EXCHANGES = [  # (B, H, C, downs, [(f, C_j)]): W32 fuse outputs at 512
 
 def build(cuda, keys) -> dict:
     """Every variant's copy of csrc/, edited, with the sources of its kernels
-    among ``keys`` built; {variant: {kernel id: ctypes function}}."""
+    among ``keys`` built (each source once); {variant: {kernel id: ctypes function}}."""
     root = cuda.BUILD_DIR / "ablate"
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
@@ -119,17 +122,19 @@ def build(cuda, keys) -> dict:
             if text not in src:
                 raise RuntimeError(f"variant {name!r}: {fname} no longer holds {text!r}")
             (d / fname).write_text(src.replace(text, repl))
-        for key in kernels:
-            source = SOURCES[key][0]
+        for source in {SOURCES[key][0] for key in kernels}:
             out = d / f"{source[:-3]}.so"
-            procs[name, key] = (subprocess.Popen([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(out), str(d / source)],
-                                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+            procs[name, source] = (subprocess.Popen([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(out), str(d / source)],
+                                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                                   out, [k for k in kernels if SOURCES[k][0] == source])
     fns: dict = {}
-    for (name, key), (proc, out) in procs.items():
+    for (name, source), (proc, out, kernels) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"variant {name!r}: nvcc failed for {SOURCES[key][0]}:\n{log}")
-        fns.setdefault(name, {})[key] = getattr(ctypes.CDLL(str(out)), SOURCES[key][1])
+            raise RuntimeError(f"variant {name!r}: nvcc failed for {source}:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        for key in kernels:
+            fns.setdefault(name, {})[key] = getattr(lib, SOURCES[key][1])
     return fns
 
 
@@ -156,9 +161,11 @@ def graph_ms(torch, fn, calls: int = 10, reps: int = 5) -> float:
 
 
 def pooler_nms_workloads(torch, ra, nms):
-    """K2 and K4 (label, kernel id, wrapper call, plain result) at the serving shapes: K2 on 256 boxes
-    over 4 images that reach all four R101-FPN levels (bf16, 256 channels); K4 on the RPN's 20 problems
-    of 256 boxes at IoU 0.7 and the box head's 4 of 64 at 0.5 (chip_smoke's seeded edge problems)."""
+    """K2, K3 and K4 (label, kernel id, wrapper call, plain result) at the serving shapes: K2 on 256 boxes
+    over 4 images that reach all four R101-FPN levels (bf16, 256 channels); K3 on 64 boxes of sides
+    16-112 px (P2's range) on the first image's P2 map at scale 0.25, as in its chip_smoke.py phase; K4 on
+    the RPN's 20 problems of 256 boxes at IoU 0.7 and the box head's 4 of 64 at 0.5 (chip_smoke's seeded
+    edge problems)."""
     import chip_smoke as cs
 
     gen = torch.Generator().manual_seed(0)
@@ -175,6 +182,13 @@ def pooler_nms_workloads(torch, ra, nms):
         b, v = (t.cuda() for t in cs.nms_edge_problems(torch, n, p, gen, share))
         out.append((f"K4 {p}x{n} at IoU {thresh}, {share:.0%} valid", "K4",
                     functools.partial(nms.nms_mask_sorted, b, v, thresh), nms.nms_mask_sorted_plain(b, v, thresh)))
+    # drawn after K4's problems, which keep their earlier inputs
+    u = lambda: torch.rand(64, generator=gen, dtype=torch.float64)
+    side, centre = 16 * 7 ** u(), torch.stack([u(), u()], -1) * cs.POOLER_SIZE
+    p2 = torch.cat([centre - side[:, None] / 2, centre + side[:, None] / 2], -1).float().cuda()
+    single = (feats[0][0], p2, 7, 0.25, 2, cs.POOLER_WINDOW)
+    out.append(("K3 64 boxes, P2 of 192x192x256 bf16 at scale 0.25 -> 64x7x7x256 f32", "K3",
+                functools.partial(ra.roi_align_single, *single), ra.roi_align_single_plain(*single)))
     return out
 
 
@@ -248,10 +262,10 @@ def main() -> int:
     fns = build(_cuda, keys)
     print(f"built {len(fns)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = {"K5a": int8_conv.KERNEL, "K5": int8_blocks.CHAIN, "K6": int8_blocks.BOTTLENECK,
-               "K7": int8_blocks.EXCHANGE, "K2": roi_align.KERNEL, "K4": nms.KERNEL}
+               "K7": int8_blocks.EXCHANGE, "K2": roi_align.KERNEL, "K3": roi_align.SINGLE, "K4": nms.KERNEL}
     times: dict = {}
     work = (workloads(torch, int8_conv, int8_blocks) if set(keys) & set(INT8) else []) + \
-        (pooler_nms_workloads(torch, roi_align, nms) if set(keys) & {"K2", "K4"} else [])
+        (pooler_nms_workloads(torch, roi_align, nms) if set(keys) & {"K2", "K3", "K4"} else [])
     for _ in range(2):  # two turns through the variants, to show the spread
         for name, by_key in fns.items():
             for key, fn in by_key.items():
@@ -263,9 +277,9 @@ def main() -> int:
                 got = call()
                 torch.cuda.synchronize()
                 if name in EXACT and not torch.equal(got, want):
-                    if key != "K2" or (got - want).abs().max().item() > 1e-5 * want.abs().max().item():
+                    if key not in ("K2", "K3") or (got - want).abs().max().item() > 1e-5 * want.abs().max().item():
                         raise RuntimeError(f"{label}: {name!r} disagrees with the plain version")
-                calls = 50 if key in ("K2", "K4") else 10  # ~1 ms a replay, as chip_smoke.py's k
+                calls = 50 if key in ("K2", "K3", "K4") else 10  # ~1 ms a replay, as chip_smoke.py's k
                 times.setdefault(label, {}).setdefault(name, []).append(round(graph_ms(torch, call, calls), 5))
     for label, by_variant in times.items():
         print(json.dumps({"shape": label, "device_ms": by_variant}), flush=True)

@@ -13,12 +13,15 @@ toolkit. It
 2. holds K2 to its plain version on seeded boxes that the served
    proposals may not reach (every pyramid level, the image's edges, boxes
    larger than the read window; f32 and bf16 features, 256 and 16
-   channels) and K4 exactly on seeded problems of 1, 63, 65 and 1024
-   boxes with duplicates, ties, zero-area boxes and no valid box; then
-   checks the tiny detector + HRNet serving path on the card against the
-   same path on the CPU (plain PyTorch versions of the kernels), in the
-   bf16 form and in the int8 form with every fused route on, and the PnP
-   solver against a known pose;
+   channels), K3 likewise on maps larger and smaller than its read window
+   at spatial scales 0.25, 0.3 and 1/12 (boxes across every edge, larger
+   than the window, zero-area, wholly outside the map; a CUDA call with 12
+   channels must raise), and K4 exactly on seeded problems of 1, 63, 65
+   and 1024 boxes with duplicates, ties, zero-area boxes and no valid box;
+   then checks the tiny detector + HRNet serving path on the card against
+   the same path on the CPU (plain PyTorch versions of the kernels), in
+   the bf16 form and in the int8 form with every fused route on, and the
+   PnP solver against a known pose;
 3. serves full-width clips of both forms: R101-FPN
    (``FASTER_RCNN_R101_SERVING_1OBJ``, 768 letterbox) and HRNet-W32
    (11 joints, 512 crops) on uint8 1920x1200 frames, weights from seeds.
@@ -30,13 +33,15 @@ toolkit. It
    are logged;
 4. holds each kernel to its plain version on the inputs the serving runs
    gave it, and times both (and one PyTorch library call where one
-   computes the same function), the kernel also replayed from a CUDA
-   graph of k back-to-back calls, k chosen for about 1 ms a replay (its
-   device time without the host's launch cost); the fused
+   computes the same function), the kernel and the library call also
+   replayed from a CUDA graph of k back-to-back calls, k chosen for about
+   1 ms a replay (its device time without the host's launch cost); the fused
    int8 HRNet is held to the per-op one on the served crops;
 5. runs K3, the single-level ROIAlign that no serving path calls, on the
    P2 map of one served keyframe and that image's box-head proposals, with
-   its launch counter reset just before and read just after;
+   its launch counter reset just before and read just after (K2's and K3's
+   yardstick: ``F.grid_sample`` at the sample points, then
+   ``F.avg_pool2d``);
 6. times each serving stage on one clip of each form (CUDA events) and
    runs torch.profiler over one more;
 7. prints the card, a ``{"kernels": [...]}`` line and, last, the result
@@ -326,6 +331,80 @@ def check_pooler_coverage(torch, m) -> None:
                 raise RuntimeError(f"K2 disagrees with its plain version on the coverage boxes ({dtype}, C {c}): {err}")
 
 
+SINGLE_MAPS = ((192, 192), (40, 120), (100, 50), (30, 44))  # the served P2; h < 48; w < 56; both
+SINGLE_SCALES = (0.25, 0.3, 1.0 / 12)
+
+
+def single_coverage_boxes(torch, h: int, w: int, scale: float, gen):
+    """Boxes in image pixels on an (h, w) map at ``scale``: across each of
+    its four edges and all four at once, larger than the (48, 56) read
+    window, zero-area, wholly outside the map (the last 4 of 13), then a
+    random bulk of 48 (sides log-uniform from 2 px to 1.2x the image,
+    centres up to a tenth of it outside)."""
+    ih, iw = h / scale, w / scale
+    big = (POOLER_WINDOW + 24) / scale
+    fixed = torch.tensor([
+        [-40, 0.3 * ih, 0.4 * iw, 0.6 * ih], [0.2 * iw, -30, 0.5 * iw, 0.4 * ih],
+        [0.7 * iw, 0.2 * ih, iw + 50, 0.5 * ih], [0.3 * iw, 0.8 * ih, 0.6 * iw, ih + 45],
+        [-25, -25, iw + 25, ih + 25],
+        [0.05 * iw, 0.05 * ih, 0.05 * iw + big, 0.05 * ih + big],
+        [0.4 * iw, 0.4 * ih, 0.4 * iw, 0.6 * ih], [0.4 * iw, 0.5 * ih, 0.7 * iw, 0.5 * ih],
+        [0.5 * iw, 0.5 * ih, 0.5 * iw, 0.5 * ih],
+        [-60 / scale, 0.2 * ih, -3 / scale, 0.6 * ih], [iw + 3 / scale, 0.1 * ih, iw + 40 / scale, 0.9 * ih],
+        [0.2 * iw, -50 / scale, 0.7 * iw, -3 / scale], [0.1 * iw, ih + 3 / scale, 0.5 * iw, ih + 30 / scale],
+    ], dtype=torch.float64)
+    u = lambda: torch.rand(48, generator=gen, dtype=torch.float64)
+    bw, bh = 2 * (0.6 * iw) ** u(), 2 * (0.6 * ih) ** u()  # log-uniform, 2 px to 1.2x the image
+    cx, cy = (u() * 1.2 - 0.1) * iw, (u() * 1.2 - 0.1) * ih
+    bulk = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], -1)
+    return torch.cat([fixed, bulk]).float()
+
+
+def check_single_coverage(torch, m) -> None:
+    """K3 against its plain version where the served call does not reach:
+    maps of 192x192, shorter than the window (h < 48), narrower than window
+    + 8 (w < 56) and smaller on both axes; spatial scales 0.25, 0.3 and
+    1/12; boxes across every edge, larger than the window, zero-area,
+    wholly outside the map (all-zero output) and a random bulk; f32 and
+    bf16 features, 256 and 16 channels; 1e-5 of the output's scale. A CUDA
+    call with 12 channels must raise ValueError."""
+    gen = torch.Generator().manual_seed(6)
+    ra = m.roi_align
+    worst = 0.0
+    for h, w in SINGLE_MAPS:
+        for scale in SINGLE_SCALES:
+            boxes = single_coverage_boxes(torch, h, w, scale, gen).cuda()
+            cells = boxes * scale - 0.5
+            edge = int(((cells[:, 0] < 0) | (cells[:, 1] < 0) | (cells[:, 2] > w - 1) | (cells[:, 3] > h - 1)).sum())
+            wide = int(((cells[:, 2] - cells[:, 0] > POOLER_WINDOW + 8) | (cells[:, 3] - cells[:, 1] > POOLER_WINDOW))
+                       .sum())
+            errs = []
+            for dtype in (torch.float32, torch.bfloat16):
+                for c in (256, 16):
+                    feat = torch.randn(h, w, c, generator=gen).to(boxes.device, dtype)
+                    args = (feat, boxes, 7, scale, 2, POOLER_WINDOW)
+                    got, want = ra.roi_align_single(*args), ra.roi_align_single_plain(*args)
+                    sync()
+                    err, share, ok = compare(got, want, None)
+                    outside = got[-52:-48].abs().max().item()  # the 4 boxes wholly outside the map
+                    errs.append(f"{str(dtype)[6:]} C {c}: {err:.3g} of {want.abs().max().item():.3g}")
+                    worst = max(worst, err / max(1.0, want.abs().max().item()))
+                    if not ok or outside != 0.0:
+                        raise RuntimeError(f"K3 disagrees with its plain version on a {h}x{w} map at scale {scale} "
+                                           f"({dtype}, C {c}): max_abs_err {err}, outside boxes {outside}")
+            log(f"K3 coverage, {h}x{w} map at scale {scale:.4g}, {boxes.shape[0]} boxes ({edge} across the map's "
+                f"edge, {wide} larger than the read window): max_abs_err " + "; ".join(errs) +
+                " (limit 1e-5 of the scale)")
+    log(f"K3 coverage: worst error {worst:.3g} of the output's scale over {len(SINGLE_MAPS) * len(SINGLE_SCALES) * 4} "
+        "cases")
+    try:
+        ra.roi_align_single(torch.zeros(16, 16, 12, device="cuda"), torch.zeros(1, 4, device="cuda"), 7, 0.25)
+    except ValueError as e:
+        log(f"K3 with C 12 on the card raises: {e}")
+    else:
+        raise RuntimeError("K3 with C 12 on the card did not raise")
+
+
 def nms_edge_problems(torch, n: int, p: int, gen, valid_share: float = 0.8):
     """p score-sorted problems of n boxes: clustered boxes with exact
     duplicates, zero-width and zero-height boxes, tied scores, a share
@@ -411,6 +490,54 @@ def pooler_numbers(torch, roi_align, args, kwargs):
     return nbytes, 53.0 * r * p * p * c, taps_read * c * feats[0].element_size()
 
 
+def roi_sample_grid(torch, boxes, scale: float, h: int, w: int, p: int, s: int):
+    """``F.grid_sample`` coordinates (n, P*S, P*S, 2) of the ROIAlign sample
+    points of boxes (n, 4) on an (h, w) map at ``scale`` (align_corners
+    False: pixel x sits at (2x + 1) / w - 1)."""
+    dev = boxes.device
+    pts = (torch.arange(p, device=dev)[:, None] + (torch.arange(s, device=dev)[None, :] + 0.5) / s).reshape(-1)
+    x0, y0, x1, y1 = (boxes * scale - 0.5).unbind(-1)
+    sx = x0[:, None] + pts * (x1 - x0)[:, None] / p
+    sy = y0[:, None] + pts * (y1 - y0)[:, None] / p
+    gx = ((2 * sx + 1) / w - 1)[:, None, :].expand(-1, p * s, -1)
+    gy = ((2 * sy + 1) / h - 1)[:, :, None].expand(-1, -1, p * s)
+    return torch.stack([gx, gy], -1)
+
+
+def grid_pool_call(torch, maps_and_grids, s: int):
+    """The library yardstick of an ROI pooler: per map, one bilinear
+    ``F.grid_sample`` (border padding) of the NCHW f32 map at every box's
+    sample points, then ``F.avg_pool2d(S)`` into the bins. A timing
+    yardstick only: the port never calls it, and its edge semantics differ
+    from ROIAlign's for samples at or below -1, so it is not compared."""
+    import torch.nn.functional as F
+
+    return lambda: [F.avg_pool2d(F.grid_sample(x, g, mode="bilinear", padding_mode="border", align_corners=False), s)
+                    for x, g in maps_and_grids]
+
+
+def pooler_library_call(torch, roi_align, args, kwargs):
+    """K2's yardstick: per level, the (B, C, H_l, W_l) map and each image's
+    boxes of that level as rows of one grid, padded to the level's largest
+    per-image count (built once, outside the timed call)."""
+    feats, boxes, batch_idx, p, strides = args[:5]
+    s = kwargs.get("sampling_ratio", 2)
+    levels = roi_align.assign_levels(boxes, len(feats), int(math.log2(strides[0])))
+    calls = []
+    for li, (f, stride) in enumerate(zip(feats, strides)):
+        b, h, w, _ = f.shape
+        per_img = [boxes[(levels == li) & (batch_idx == i)] for i in range(b)]
+        most = max(len(x) for x in per_img)
+        if most == 0:
+            continue
+        grid = torch.zeros(b, most, p * s, p * s, 2, device=boxes.device)
+        for i, bx in enumerate(per_img):
+            if len(bx):
+                grid[i, :len(bx)] = roi_sample_grid(torch, bx, 1.0 / stride, h, w, p, s)
+        calls.append((f.permute(0, 3, 1, 2).float().contiguous(), grid.reshape(b, most * p * s, p * s, 2)))
+    return grid_pool_call(torch, calls, s)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -469,11 +596,14 @@ def single_level_row(torch, m, captures):
         f"{tuple(out.shape)}; launches {launches}")
     if launches == 0 or not torch.isfinite(out).all():
         raise RuntimeError(f"K3 phase: {launches} launches, finite output {bool(torch.isfinite(out).all())}")
+    h, w, _ = feat.shape
+    grid = roi_sample_grid(torch, boxes0, args[3], h, w, args[2], args[4]).reshape(1, -1, args[2] * args[4], 2)
+    lib = grid_pool_call(torch, [(feat.permute(2, 0, 1)[None].float().contiguous(), grid.contiguous())], args[4])
     row = dict(id="K3", name=f"roi_align_single (P2 of one served keyframe, its {boxes0.shape[0]} proposals)",
                source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel.cu",
                replaces="spacecraft_pose_estimation_tpu/ops/pallas_pooler.py:262",
                run_k=lambda: m.roi_align.roi_align_single(*args),
-               run_p=lambda: m.roi_align.roi_align_single_plain(*args), run_lib=None, tol=None, peak=FP32_FLOPS,
+               run_p=lambda: m.roi_align.roi_align_single_plain(*args), run_lib=lib, tol=None, peak=FP32_FLOPS,
                numbers=single_numbers(torch, m.roi_align, *args[:3], args[3], args[4], args[5]))
     return row, {"K3": launches}
 
@@ -675,8 +805,9 @@ def float_rows(torch, m, dev, captures):
                      source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel.cu",
                      replaces="spacecraft_pose_estimation_tpu/ops/pallas_pooler.py:135",
                      run_k=lambda: m.roi_align.roi_align_multilevel(*pool_args, **pool_kwargs),
-                     run_p=lambda: m.roi_align.roi_align_multilevel_plain(*pool_args, **pool_kwargs), run_lib=None,
-                     tol=None, peak=FP32_FLOPS, numbers=tuple(pool_totals), extra={"tap_load_bytes": tap_bytes}))
+                     run_p=lambda: m.roi_align.roi_align_multilevel_plain(*pool_args, **pool_kwargs),
+                     run_lib=pooler_library_call(torch, m.roi_align, pool_args, pool_kwargs), tol=None,
+                     peak=FP32_FLOPS, numbers=tuple(pool_totals), extra={"tap_load_bytes": tap_bytes}))
 
     for i, (nms_args, _) in enumerate(captures["K4"].calls[:2]):  # the RPN's, then the box head's
         boxes, valid, thresh = nms_args
@@ -800,6 +931,8 @@ def kernel_report(rows, launches):
             "library_ms": time_ms(row["run_lib"], 10) if row["run_lib"] is not None else None,
         }
         entry["device_ms"], entry["k"] = graph_ms(row["run_k"])
+        if row["run_lib"] is not None:  # the yardstick's device time, as the kernel's
+            entry["library_device_ms"], entry["library_k"] = graph_ms(row["run_lib"])
         entry["bound_share"] = bound / (entry["device_ms"] or entry["ms"])
         if "calls" in row:
             entry["calls_timed"] = row["calls"]
@@ -807,7 +940,7 @@ def kernel_report(rows, launches):
         log(f"{key} {name}: {entry['ms']:.4f} ms ({entry['device_ms']} ms replayed from a CUDA graph of "
             f"{entry['k']} calls; plain "
             f"{entry['plain_ms']:.4f} ms, bound {bound:.5f} ms by {bound_by} = {entry['bound_share']:.4f} of the "
-            f"device time, library {entry['library_ms']})" +
+            f"device time, library {entry['library_ms']}, replayed {entry.get('library_device_ms')})" +
             "".join(f", {k} {v}" for k, v in row.get("extra", {}).items()))
         report.append(entry)
     return report
@@ -849,6 +982,7 @@ def main() -> int:
     log("build (s): " + json.dumps({k: round(v, 2) for k, v in build_s.items()}))
     check_tensor_core_sass(_cuda)
     check_pooler_coverage(torch, m)
+    check_single_coverage(torch, m)
     check_nms_coverage(torch, m)
     check_tiny_against_cpu(torch, m)
 

@@ -13,8 +13,3 @@ extern "C" const char* spe_error_string(int err) {
 
 // Launchers return the launch status as an int: 0 is cudaSuccess.
 #define SPE_RETURN_LAUNCH_STATUS() return static_cast<int>(cudaGetLastError())
-
-__device__ __forceinline__ float spe_load(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float spe_load(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}

@@ -30,13 +30,18 @@
 // Channels must be a multiple of 8 and every level 16-byte aligned (the
 // wrapper raises otherwise).
 //
-// K3 replaces pallas_pooler.py roi_align_pallas / _pooler_kernel: the same
-// taps on one (h, w, C) map at any spatial_scale, no level assignment, the
-// window min(window, h) x min(window + 8, w) with its origin clamped to
-// max(w - win_w, 0) and rounded down to a multiple of 8 (window_matrices).
-// Bound: memory, as K2. K3's block is one ROI x one 64-channel slice: 256
-// blocks at 64 ROIs of 256 channels; its threads stride over (bin, channel)
-// and read one 2-byte channel each.
+// K3 replaces pallas_pooler.py:262, roi_align_pallas / _pooler_kernel:
+// the same taps on one (h, w, C) map of one image at any spatial_scale
+// (not only 1 / stride), with no level assignment. Its window is
+// window_matrices' min(window, h) x min(window + 8, w), origin clamped to
+// max(h - win_h, 0) and max(w - win_w, 0), x rounded down to a multiple of
+// 8: on a map smaller than the window the origin is 0 and every in-map tap
+// lies inside either window, so K2's padded window picks the same taps. K3
+// is therefore K2's kernel with one level, the caller's scale and image 0
+// (kSingleMap). Bound: memory, as K2's. The served call (64 proposals on
+// one keyframe's 192 x 192 x 256 bf16 P2 map) moves ~3.6 MB, 3.2 MB of it
+// the f32 output; its 448 blocks (3.4 per SM) are one wave, so the loads'
+// latency, not a bandwidth, is what the design has to hide.
 #include "common.cuh"
 
 namespace {
@@ -81,48 +86,6 @@ struct Taps {
   float wy[2][kMaxSamples], wx[2][kMaxSamples];
 };
 
-// Fill `t` for the box (x0, y0)-(x1, y1) in map coordinates (the -0.5
-// offset applied) on an (h, w) map read through the window (oy, ox,
-// win_h, win_w); the block's threads share the work.
-__device__ void fill_taps(Taps& t, float x0, float y0, float x1, float y1, int h, int w, int oy,
-                          int ox, int win_h, int win_w, int P, int S) {
-  for (int i = threadIdx.x; i < P * S; i += blockDim.x) {
-    const float sy = sample_coord(i, y0, y1, P, S);
-    const float sx = sample_coord(i, x0, x1, P, S);
-    int k[2];
-    float wt[2];
-    axis_taps(sy, h, oy, win_h, k, wt);
-    t.ky[0][i] = k[0]; t.ky[1][i] = k[1]; t.wy[0][i] = wt[0]; t.wy[1][i] = wt[1];
-    axis_taps(sx, w, ox, win_w, k, wt);
-    t.kx[0][i] = k[0]; t.kx[1][i] = k[1]; t.wx[0][i] = wt[0]; t.wx[1][i] = wt[1];
-  }
-}
-
-// Bin (py, px), channel c: the mean of its S * S samples, x taps first,
-// then y taps, then the mean, as the plain version sums.
-template <typename T>
-__device__ float pool_bin(const Taps& t, const T* feat, int w, int C, int c, int py, int px, int S) {
-  float acc = 0.f;
-  for (int iy = 0; iy < S; ++iy) {
-    const int sy = py * S + iy;
-    for (int ix = 0; ix < S; ++ix) {
-      const int sx = px * S + ix;
-      float v = 0.f;
-      for (int ty = 0; ty < 2; ++ty) {
-        float rowv = 0.f;
-        for (int tx = 0; tx < 2; ++tx) {
-          const float wgt = t.wx[tx][sx];
-          if (wgt != 0.f && t.wy[ty][sy] != 0.f)
-            rowv += wgt * spe_load(feat, (static_cast<int64_t>(t.ky[ty][sy]) * w + t.kx[tx][sx]) * C + c);
-        }
-        v += t.wy[ty][sy] * rowv;
-      }
-      acc += v;
-    }
-  }
-  return acc * (1.f / static_cast<float>(S * S));
-}
-
 // 8 consecutive channels of one cell as f32, in one 16-byte vector load
 // through the read-only path (p is 16-byte aligned).
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
@@ -142,33 +105,40 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-constexpr int kMaxBinWarps = 16;  // warps of a K2 block; bins past it loop
+constexpr int kMaxBinWarps = 16;  // warps of a block; bins past it loop
 
-// K2: block (r, py) of a grid of R * P; warp px of the row's bins; lane
-// channels [8 * lane, 8 * lane + 8) + 256 k.
-template <typename T>
+// Block (r, py) of a grid of R * P; warp px of the row's bins; lane
+// channels [8 * lane, 8 * lane + 8) + 256 k. K2 assigns each box its level
+// and reads image batch_idx[r]; K3 (kSingleMap) reads level 0 of image 0 at
+// spatial_scale.
+template <typename T, bool kSingleMap>
 __global__ void __launch_bounds__(32 * kMaxBinWarps)
-roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, const float* __restrict__ boxes,
-                    const int* __restrict__ batch_idx, float* __restrict__ out, int C, int P,
-                    int S, int window, float canonical_size, int canonical_level) {
+roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, float spatial_scale,
+                    const float* __restrict__ boxes, const int* __restrict__ batch_idx,
+                    float* __restrict__ out, int C, int P, int S, int window,
+                    float canonical_size, int canonical_level) {
   __shared__ Taps taps;
 
   const int r = blockIdx.x / P, py = blockIdx.x % P;
   const float* box = boxes + 4 * r;
   const int win_h = window, win_w = window + 8;
 
-  // level assignment (pallas_pooler.py:165-171)
-  const float bw = fmaxf(box[2] - box[0], 0.f);
-  const float bh = fmaxf(box[3] - box[1], 0.f);
-  const float area = bw * bh;
-  float target = floorf(static_cast<float>(canonical_level) +
-                        log2f(sqrtf(area) / canonical_size + 1e-8f));
-  target = fminf(fmaxf(target, static_cast<float>(lvl_min)),
-                 static_cast<float>(lvl_min + num_levels - 1));
-  const int lvl = static_cast<int>(target) - lvl_min;
+  int lvl = 0;
+  float scale = spatial_scale;
+  if (!kSingleMap) {
+    // level assignment (pallas_pooler.py:165-171)
+    const float bw = fmaxf(box[2] - box[0], 0.f);
+    const float bh = fmaxf(box[3] - box[1], 0.f);
+    const float area = bw * bh;
+    float target = floorf(static_cast<float>(canonical_level) +
+                          log2f(sqrtf(area) / canonical_size + 1e-8f));
+    target = fminf(fmaxf(target, static_cast<float>(lvl_min)),
+                   static_cast<float>(lvl_min + num_levels - 1));
+    lvl = static_cast<int>(target) - lvl_min;
+    scale = 1.f / static_cast<float>(1 << (lvl_min + lvl));
+  }
 
   const int h = pyr.h[lvl], w = pyr.w[lvl];
-  const float scale = 1.f / static_cast<float>(1 << (lvl_min + lvl));
   const float x0 = box[0] * scale - 0.5f, y0 = box[1] * scale - 0.5f;
   const float x1 = box[2] * scale - 0.5f, y1 = box[3] * scale - 0.5f;
   const int hp = max(h, win_h), wp = max(w, win_w);
@@ -189,8 +159,8 @@ roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, const float* __res
   }
   __syncthreads();
 
-  const T* feat = static_cast<const T*>(pyr.feat[lvl]) +
-                  static_cast<int64_t>(batch_idx[r]) * h * w * C;
+  const T* feat = static_cast<const T*>(pyr.feat[lvl]);
+  if (!kSingleMap) feat += static_cast<int64_t>(batch_idx[r]) * h * w * C;
   float* orow = out + (static_cast<int64_t>(r) * P + py) * P * C;
   const int lane = threadIdx.x & 31;
   const float inv = 1.f / static_cast<float>(S * S);
@@ -230,35 +200,31 @@ roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, const float* __res
   }
 }
 
-// K3: one ROI x one kSliceC-channel slice per block (grid R x ceil(C /
-// kSliceC)), so that 64 ROIs of 256 channels fill 256 blocks, not 64.
-constexpr int kSliceC = 64;
-
-template <typename T>
-__global__ void roi_align_single_kernel(const T* __restrict__ feat, int h, int w, int C,
-                                        const float* __restrict__ boxes, float* __restrict__ out,
-                                        int P, float spatial_scale, int S, int window) {
-  __shared__ Taps taps;
-  const int r = blockIdx.x;
-  const int c0 = blockIdx.y * kSliceC;
-  const float* box = boxes + 4 * r;
-  // window_matrices (pallas_pooler.py:55-62): the window shrinks to a
-  // smaller map instead of the map being padded
-  const int win_h = min(window, h), win_w = min(window + 8, w);
-  const float x0 = box[0] * spatial_scale - 0.5f, y0 = box[1] * spatial_scale - 0.5f;
-  const float x1 = box[2] * spatial_scale - 0.5f, y1 = box[3] * spatial_scale - 0.5f;
-  const int oy = min(max(static_cast<int>(floorf(y0)) - 1, 0), max(h - win_h, 0));
-  int ox = min(max(static_cast<int>(floorf(x0)) - 1, 0), max(w - win_w, 0));
-  ox = (ox / 8) * 8;
-  fill_taps(taps, x0, y0, x1, y1, h, w, oy, ox, win_h, win_w, P, S);
-  __syncthreads();
-
-  const int nc = min(kSliceC, C - c0);
-  float* o = out + static_cast<int64_t>(r) * P * P * C;
-  for (int e = threadIdx.x; e < P * P * nc; e += blockDim.x) {
-    const int bin = e / nc, c = c0 + e % nc;
-    o[static_cast<int64_t>(bin) * C + c] = pool_bin(taps, feat, w, C, c, bin / P, bin % P, S);
+// Both entries: C a multiple of 8, every map 16-byte aligned, out (R, P, P,
+// C) f32 16-byte aligned.
+template <bool kSingleMap>
+int launch(const Pyramid& pyr, int num_levels, int lvl_min, float spatial_scale, int is_bf16,
+           const void* boxes, const void* batch_idx, void* out, int R, int C, int P, int S,
+           int window, float canonical_size, int canonical_level, void* stream) {
+  if (R == 0) return 0;
+  if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4 || C % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 32 * min(P, kMaxBinWarps);
+  const int blocks = R * P;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* bx = static_cast<const float*>(boxes);
+  const auto* bi = static_cast<const int*>(batch_idx);
+  auto* o = static_cast<float*>(out);
+  if (is_bf16) {
+    roi_align_ml_kernel<__nv_bfloat16, kSingleMap><<<blocks, threads, 0, s>>>(
+        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, canonical_size,
+        canonical_level);
+  } else {
+    roi_align_ml_kernel<float, kSingleMap><<<blocks, threads, 0, s>>>(
+        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, canonical_size,
+        canonical_level);
   }
+  SPE_RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
@@ -274,45 +240,19 @@ extern "C" int roi_align_multilevel(const void* f0, const void* f1, const void* 
                                     int is_bf16, const void* boxes, const void* batch_idx,
                                     void* out, int R, int C, int P, int S, int window,
                                     float canonical_size, int canonical_level, void* stream) {
-  if (R == 0) return 0;
-  if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4 || C % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Pyramid pyr{{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
-  const int threads = 32 * min(P, kMaxBinWarps);
-  const int blocks = R * P;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    roi_align_ml_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        pyr, num_levels, lvl_min, static_cast<const float*>(boxes),
-        static_cast<const int*>(batch_idx), static_cast<float*>(out), C, P, S, window,
-        canonical_size, canonical_level);
-  } else {
-    roi_align_ml_kernel<float><<<blocks, threads, 0, s>>>(
-        pyr, num_levels, lvl_min, static_cast<const float*>(boxes),
-        static_cast<const int*>(batch_idx), static_cast<float*>(out), C, P, S, window,
-        canonical_size, canonical_level);
-  }
-  SPE_RETURN_LAUNCH_STATUS();
+  const Pyramid pyr{{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
+  return launch<false>(pyr, num_levels, lvl_min, 0.f, is_bf16, boxes, batch_idx, out, R, C, P, S,
+                       window, canonical_size, canonical_level, stream);
 }
 
-// feat: (h, w, C) NHWC, float32 or bfloat16; boxes: (R, 4) f32 XYXY in
-// image pixels, scaled by spatial_scale; out: (R, P, P, C) f32.
+// feat: (h, w, C) NHWC, float32 or bfloat16, 16-byte aligned with C a
+// multiple of 8; boxes: (R, 4) f32 XYXY in image pixels, scaled by
+// spatial_scale; out: (R, P, P, C) f32, 16-byte aligned.
 extern "C" int roi_align_single(const void* feat, int h, int w, int C, int is_bf16,
                                 const void* boxes, void* out, int R, int P, float spatial_scale,
                                 int S, int window, void* stream) {
-  if (R == 0 || C == 0) return 0;
-  if (P * S > kMaxSamples || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(R, (C + kSliceC - 1) / kSliceC);
-  const int threads = 256;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* bx = static_cast<const float*>(boxes);
-  auto* o = static_cast<float*>(out);
-  if (is_bf16) {
-    roi_align_single_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(feat), h, w, C, bx, o, P, spatial_scale, S, window);
-  } else {
-    roi_align_single_kernel<float><<<grid, threads, 0, s>>>(
-        static_cast<const float*>(feat), h, w, C, bx, o, P, spatial_scale, S, window);
-  }
-  SPE_RETURN_LAUNCH_STATUS();
+  if (h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Pyramid pyr{{feat}, {h}, {w}};
+  return launch<true>(pyr, 1, 0, spatial_scale, is_bf16, boxes, nullptr, out, R, C, P, S, window,
+                      0.f, 0, stream);
 }

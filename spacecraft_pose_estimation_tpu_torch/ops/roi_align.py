@@ -10,7 +10,10 @@ taps are limited to a (window, window + 8) read window per box.
   spatial scale, kernel K3. Nothing in the JAX package calls it; it is
   held to ``roi_align_windowed``.
 
-Both kernels are in ``csrc/roi_align_multilevel.cu``; the ``*_plain``
+K3 is K2's kernel with one level, the caller's scale and no level
+assignment: on a map smaller than the window, K3's shrunk window and K2's
+padded one pick the same taps, so both entries of
+``csrc/roi_align_multilevel.cu`` launch one kernel. The ``*_plain``
 functions compute the same in eager PyTorch and are taken for CPU tensors.
 """
 
@@ -228,7 +231,10 @@ def roi_align_single(feat: Tensor, boxes: Tensor, output_size: int, spatial_scal
     image pixels, mapped by ``spatial_scale`` (any float, not only
     1 / stride); each box reads its (min(window, H), min(window + 8, W))
     window, as ``roi_align_pallas`` does. CPU tensors take the plain
-    version; CUDA tensors launch K3, one block per ROI and 64-channel slice.
+    version, which takes any C; CUDA tensors launch K2's kernel on one
+    level (a block per (box, output row), a warp per bin, each lane reading
+    8 channels as one 16-byte vector): C must be a multiple of 8 and
+    ``feat`` 16-byte aligned.
     """
     if boxes.device.type == "cpu":
         return roi_align_single_plain(feat, boxes, output_size, spatial_scale, sampling_ratio, window)
@@ -239,6 +245,10 @@ def roi_align_single(feat: Tensor, boxes: Tensor, output_size: int, spatial_scal
     if boxes.shape[1] != 4:
         raise ValueError(f"boxes must be (R, 4), got {tuple(boxes.shape)}")
     h, w, c = feat.shape
+    if c % 8:
+        raise ValueError(f"roi_align_single reads 8 channels at a time: C must be a multiple of 8, got {c}")
+    if feat.data_ptr() % 16:
+        raise ValueError("feat: expected a tensor starting on a 16-byte boundary")
     r = boxes.shape[0]
     out = torch.empty((r, output_size, output_size, c), dtype=torch.float32, device=boxes.device)
     SINGLE.launch(_cuda.ptr(feat), h, w, c, int(feat.dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(out),

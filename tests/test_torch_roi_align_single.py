@@ -77,18 +77,54 @@ def test_bf16_features():
     np.testing.assert_allclose(n(got), want, atol=1e-4)
 
 
-def test_single_level_taps_match_k2_at_one_level():
-    """On a map at least as large as the window, K3 at spatial_scale 1 / stride
-    reads what K2 reads for a box of that level."""
-    rng = np.random.default_rng(3)
-    feat = rng.normal(size=(1, 64, 64, 8)).astype(np.float32)
-    boxes = boxes_in(rng, 6, 40, 100, 300, 300)
-    levels = troi.assign_levels(t(boxes), 1, 3)
-    assert (levels == 0).all()
-    got = troi.roi_align_single(t(feat[0]), t(boxes), 7, 1 / 8, 2, 48)
-    with pytest.warns(UserWarning, match="cannot cover"):  # K2's check for the level's largest boxes
-        want = troi.roi_align_multilevel([t(feat)], t(boxes), torch.zeros(6, dtype=torch.int32), 7, (8,), 2, 48)
+def edge_boxes(rng, h, w, scale, window):
+    """Boxes on an (h, w) map at ``scale``: across each of its four edges,
+    larger than the (window, window + 8) read window, and zero-area."""
+    img_h, img_w = h / scale, w / scale
+    big = (window + 24) / scale
+    return np.array([
+        [-30, 0.3 * img_h, 0.4 * img_w, 0.6 * img_h],  # left edge
+        [0.2 * img_w, -25, 0.5 * img_w, 0.4 * img_h],  # top edge
+        [0.7 * img_w, 0.2 * img_h, img_w + 40, 0.5 * img_h],  # right edge
+        [0.3 * img_w, 0.8 * img_h, 0.6 * img_w, img_h + 35],  # bottom edge
+        [-20, -20, img_w + 20, img_h + 20],  # all four
+        [0.1 * img_w, 0.1 * img_h, 0.1 * img_w + big, 0.1 * img_h + big],  # over the window
+        [0.5 * img_w, 0.5 * img_h, 0.5 * img_w, 0.5 * img_h + 9],  # zero width
+    ], np.float32)
+
+
+# name: (H, W, stride, window, boxes(rng, h, w, stride, window))
+SHARED_WINDOW_CASES = {
+    "64x64": (64, 64, 8, 48, lambda rng, *_: boxes_in(rng, 6, 40, 100, 300, 300)),
+    "h-under-window": (20, 96, 4, 48, lambda rng, h, w, s, win: edge_boxes(rng, h, w, 1 / s, win)),
+    "w-under-window-plus-8": (64, 40, 8, 48, lambda rng, h, w, s, win: edge_boxes(rng, h, w, 1 / s, win)),
+    "both-under": (24, 30, 16, 32, lambda rng, h, w, s, win: edge_boxes(rng, h, w, 1 / s, win)),
+    "edges-and-over-the-window": (64, 72, 4, 16, lambda rng, h, w, s, win: np.concatenate(
+        [edge_boxes(rng, h, w, 1 / s, win), boxes_in(rng, 6, 40, 120, 4 * w, 4 * h)])),
+}
+
+
+@pytest.mark.parametrize("case", list(SHARED_WINDOW_CASES))
+def test_single_level_taps_match_k2_at_one_level(case):
+    """K3's shrunk window (min(window, H) x min(window + 8, W)) and K2's
+    window over the level padded up to it pick the same taps at spatial
+    scale 1 / stride, on maps larger and smaller than the window: the CUDA
+    K3 is K2's kernel on one level."""
+    h, w, stride, window, make_boxes = SHARED_WINDOW_CASES[case]
+    rng = np.random.default_rng(3 + list(SHARED_WINDOW_CASES).index(case))
+    feat = rng.normal(size=(1, h, w, 8)).astype(np.float32)
+    boxes = make_boxes(rng, h, w, stride, window)
+    lvl_min = int(np.log2(stride))
+    assert (troi.assign_levels(t(boxes), 1, lvl_min) == 0).all()
+    single = troi.single_taps(t(boxes), h, w, 1 / stride, 7, 2, window)
+    level = troi.level_taps(t(boxes), h, w, stride, 7, 2, window)
+    for a, b in zip((*single[0], *single[1]), (*level[0], *level[1])):
+        np.testing.assert_array_equal(n(a), n(b))
+    got = troi.roi_align_single_plain(t(feat[0]), t(boxes), 7, 1 / stride, 2, window)
+    want = troi.roi_align_multilevel_plain([t(feat)], t(boxes), torch.zeros(len(boxes), dtype=torch.int32), 7,
+                                           (stride,), 2, window)
     np.testing.assert_array_equal(n(got), n(want))
+    assert np.abs(n(got)).max() > 0
 
 
 def test_launches_or_raises_off_the_cpu():
