@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving and evaluation paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,8 @@ toolkit. It
    then checks the tiny detector + HRNet serving path on the card against
    the same path on the CPU (plain PyTorch versions of the kernels), in
    the bf16 form and in the int8 form with every fused route on, and the
-   PnP solver against a known pose;
+   PnP solvers against a known pose (RANSAC also with 3 of 11 points 200
+   px off, and against the CPU on the same noise);
 3. serves full-width clips of both forms: R101-FPN
    (``FASTER_RCNN_R101_SERVING_1OBJ``, 768 letterbox) and HRNet-W32
    (11 joints, 512 crops) on uint8 1920x1200 frames, weights from seeds.
@@ -44,7 +45,16 @@ toolkit. It
    ``F.avg_pool2d``);
 6. times each serving stage on one clip of each form (CUDA events) and
    runs torch.profiler over one more;
-7. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+7. serves 2 clips of the X101 serving form (``FASTER_RCNN_X101_SERVING``
+   in bf16, GN PnP: ``bench.py``'s ``det_kind="x101"``);
+8. runs the fused evaluation entry (``evaluate.run_scene``) on 24 seeded
+   1920x1200 BGR frames in batches of 8: X101-32x8d FPN
+   (``FASTER_RCNN_X101_SPACECRAFT``, bf16, 768 letterbox), HRNet-W32 at
+   512, RANSAC PnP with 256 hypotheses; checks its three artifacts, that
+   K1, K2 and K4 launched (counters reset just before, read just after),
+   holds K2 and K4 to their plain versions on its inputs, and times its
+   stages and frames/s;
+9. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -248,20 +258,47 @@ def check_tiny_against_cpu(torch, m) -> None:
     log(f"PnP on the card vs the true pose: max_err={err:.3g} (limit 1e-3)")
     if not err <= 1e-3:
         raise RuntimeError(f"PnP on the card misses a known pose by {err}")
+    check_ransac_gate(torch, m, world, R, t, K, dist, px)
+
+
+def check_ransac_gate(torch, m, world, R, t, K, dist, px) -> None:
+    """RANSAC PnP (256 hypotheses) on the card: the known pose from 11
+    points, 3 of them moved 200 px off, within 1e-3 (t over its 10 m
+    depth); and the same call on the CPU with the same Gumbel noise within
+    1e-4."""
+    px = px.clone()
+    px[[1, 4, 7]] += torch.tensor([200.0, -200.0])
+    gumbel = m.pnp.gumbel_noise((1, 256, 11), torch.Generator().manual_seed(7))
+    conf = torch.ones(1, 11)
+    outs = {dev: m.pnp.pnp_ransac(world.to(dev), px[None].to(dev), K.to(dev), dist.to(dev), conf.to(dev),
+                                  gumbel=gumbel.to(dev), num_hypotheses=256)
+            for dev in ("cuda", "cpu")}
+    gpu, cpu = ({k: v.cpu() for k, v in o.items()} for o in (outs["cuda"], outs["cpu"]))
+    err = max((gpu["R"][0] - R).abs().max().item(), (gpu["t"][0] - t).abs().max().item() / 10.0)
+    dev_err = max((gpu["R"] - cpu["R"]).abs().max().item(), (gpu["t"] - cpu["t"]).abs().max().item())
+    log(f"RANSAC PnP on the card, 3 of 11 points 200 px off: vs the true pose max_err={err:.3g} (limit 1e-3), "
+        f"vs the CPU on the same noise {dev_err:.3g} (limit 1e-4); inliers {gpu['inliers'][0].int().tolist()}")
+    if not (err <= 1e-3 and dev_err <= 1e-4 and gpu["inliers"][0].sum().item() == 8):
+        raise RuntimeError(f"RANSAC PnP on the card: pose error {err}, card vs CPU {dev_err}, "
+                           f"{int(gpu['inliers'][0].sum())} inliers")
 
 
 def crop_numbers(torch, args):
-    """Bytes K1 must move (the frame cells under each crop read once, the
-    crops written once) and its FLOPs (12 per output value)."""
+    """Bytes K1 must move (each frame cell that a crop's bilinear taps
+    touch read once, the parameters read once, the crops written once) and
+    its FLOPs (12 per output value). A crop whose step is over 1 px taps
+    only some of the rows and columns it spans."""
     frames, params, out_size = args[:3]
     b, h, w, _ = frames.shape
     ow, oh = out_size
-    spans = []
+    counts = []
     for n_out, limit, a, c in ((ow, w, 0, 1), (oh, h, 2, 3)):
-        lo = torch.floor(params[:, c]).clamp(0, limit - 1)
-        hi = (torch.floor(params[:, a] * (n_out - 1) + params[:, c]) + 1).clamp(0, limit - 1)
-        spans.append((hi - lo + 1).clamp(min=0))
-    nbytes = float((spans[0] * spans[1]).sum()) * 3 + params.numel() * 4 + b * oh * ow * 3 * 4
+        lo = torch.floor(params[:, a:a + 1] * torch.arange(n_out, device=params.device) + params[:, c:c + 1]).long()
+        taps = torch.cat([lo, lo + 1], 1)
+        hit = torch.zeros(b, limit + 1, dtype=torch.bool, device=params.device)
+        hit.scatter_(1, torch.where((taps >= 0) & (taps < limit), taps, limit), True)  # [limit]: taps outside
+        counts.append(hit[:, :limit].sum(1).double())
+    nbytes = float((counts[0] * counts[1]).sum()) * 3 + params.numel() * 4 + b * oh * ow * 3 * 4
     return nbytes, 12.0 * b * oh * ow * 3
 
 
@@ -637,14 +674,15 @@ def int_mm_call(torch, a):
 
 
 def build_server(torch, m, dev, form, det_cfg, hr_cfg, det_size, config):
-    """The bf16 server, or the int8 one quantized from the same float models."""
+    """The int8 server quantized from the float models, or (any other form)
+    the bf16 one."""
     detector = m.rcnn.GeneralizedRCNN(det_cfg, dtype=torch.bfloat16, device=dev,
                                       generator=torch.Generator().manual_seed(0))
     landmarks = m.hrnet.HRNet(hr_cfg.with_joints(NUM_JOINTS), dtype=torch.bfloat16, device=dev,
                               generator=torch.Generator().manual_seed(1))
     lm3d = torch.randn(NUM_JOINTS, 3, generator=torch.Generator().manual_seed(2))
     K = torch.tensor([[2988.6, 0, 960.0], [0, 2988.3, 600.0], [0, 0, 1]])
-    if form == "bf16":
+    if form != "int8":
         return m.serving.PoseServer(detector, landmarks, lm3d, K, torch.zeros(5), config,
                                     det_every=DET_EVERY, det_size=det_size), lm3d, K
     t0 = time.perf_counter()
@@ -778,12 +816,14 @@ def check_fused_against_per_op(torch, m, run, captures) -> None:
 
 def float_rows(torch, m, dev, captures):
     """K1, K2 and K4 rows on the inputs of the bf16 serving run's first call."""
-    try:
-        import torchvision.ops as tv_ops  # a yardstick only: the port never calls it
-    except ImportError:
-        tv_ops = None
-    rows = []
-    crop_args, _ = captures["K1"].calls[0]
+    rows = [crop_row(torch, m, dev, captures["K1"].calls[0], "crop_bilinear")]
+    rows.append(pooler_row(torch, m, captures["K2"].calls[0], "roi_align_multilevel"))
+    return rows + nms_rows(torch, m, dev, captures["K4"].calls[:2], "")
+
+
+def crop_row(torch, m, dev, call, name):
+    """K1's row on one captured call, held to its plain version within 1e-3 grey."""
+    crop_args, _ = call
     frames, params, out_size = crop_args
     frames_f = frames.permute(0, 3, 1, 2).float()
     h, w = frames.shape[1:3]
@@ -791,25 +831,35 @@ def float_rows(torch, m, dev, captures):
     ys = params[:, 2:3] * torch.arange(out_size[1], device=dev) + params[:, 3:4]
     grid = torch.stack([((2 * xs + 1) / w - 1)[:, None, :].expand(-1, out_size[1], -1),
                         ((2 * ys + 1) / h - 1)[:, :, None].expand(-1, -1, out_size[0])], dim=-1)
-    rows.append(dict(id="K1", name="crop_bilinear", source="spacecraft_pose_estimation_tpu_torch/csrc/crop_bilinear.cu",
-                     replaces="spacecraft_pose_estimation_tpu/ops/pallas_crop.py:191",
-                     run_k=lambda: m.warp.crop_bilinear(*crop_args),
-                     run_p=lambda: m.warp.crop_bilinear_plain(*crop_args),
-                     run_lib=lambda: torch.nn.functional.grid_sample(frames_f, grid, mode="bilinear",
-                                                                     padding_mode="zeros", align_corners=False),
-                     tol=1e-3, peak=FP32_FLOPS, numbers=crop_numbers(torch, crop_args)))
+    return dict(id="K1", name=name, source="spacecraft_pose_estimation_tpu_torch/csrc/crop_bilinear.cu",
+                replaces="spacecraft_pose_estimation_tpu/ops/pallas_crop.py:191",
+                run_k=lambda: m.warp.crop_bilinear(*crop_args),
+                run_p=lambda: m.warp.crop_bilinear_plain(*crop_args),
+                run_lib=lambda: torch.nn.functional.grid_sample(frames_f, grid, mode="bilinear",
+                                                                padding_mode="zeros", align_corners=False),
+                tol=1e-3, peak=FP32_FLOPS, numbers=crop_numbers(torch, crop_args))
 
-    pool_args, pool_kwargs = captures["K2"].calls[0]
+
+def pooler_row(torch, m, call, name):
+    """K2's row on one captured call."""
+    pool_args, pool_kwargs = call
     *pool_totals, tap_bytes = pooler_numbers(torch, m.roi_align, pool_args, pool_kwargs)
-    rows.append(dict(id="K2", name="roi_align_multilevel",
-                     source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel.cu",
-                     replaces="spacecraft_pose_estimation_tpu/ops/pallas_pooler.py:135",
-                     run_k=lambda: m.roi_align.roi_align_multilevel(*pool_args, **pool_kwargs),
-                     run_p=lambda: m.roi_align.roi_align_multilevel_plain(*pool_args, **pool_kwargs),
-                     run_lib=pooler_library_call(torch, m.roi_align, pool_args, pool_kwargs), tol=None,
-                     peak=FP32_FLOPS, numbers=tuple(pool_totals), extra={"tap_load_bytes": tap_bytes}))
+    return dict(id="K2", name=name, source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel.cu",
+                replaces="spacecraft_pose_estimation_tpu/ops/pallas_pooler.py:135",
+                run_k=lambda: m.roi_align.roi_align_multilevel(*pool_args, **pool_kwargs),
+                run_p=lambda: m.roi_align.roi_align_multilevel_plain(*pool_args, **pool_kwargs),
+                run_lib=pooler_library_call(torch, m.roi_align, pool_args, pool_kwargs), tol=None,
+                peak=FP32_FLOPS, numbers=tuple(pool_totals), extra={"tap_load_bytes": tap_bytes})
 
-    for i, (nms_args, _) in enumerate(captures["K4"].calls[:2]):  # the RPN's, then the box head's
+
+def nms_rows(torch, m, dev, calls, label):
+    """K4's rows on a detector call's two captured calls: the RPN's, then the box head's."""
+    try:
+        import torchvision.ops as tv_ops  # a yardstick only: the port never calls it
+    except ImportError:
+        tv_ops = None
+    rows = []
+    for i, (nms_args, _) in enumerate(calls):
         boxes, valid, thresh = nms_args
         p, n = valid.shape
         kept = float(m.nms.nms_mask_sorted_plain(boxes, valid, thresh).sum())
@@ -818,7 +868,7 @@ def float_rows(torch, m, dev, captures):
             idxs = torch.arange(p, device=dev)[:, None].expand(p, n)[valid]
             order = torch.arange(n, 0, -1, device=dev, dtype=torch.float32)[None].expand(p, n)[valid]
             lib = (lambda b=boxes[valid], s=order, i=idxs, th=thresh: tv_ops.batched_nms(b, s, i, th))
-        rows.append(dict(id="K4", name=f"nms_mask_sorted ({'rpn' if i == 0 else 'box head'} {p}x{n})",
+        rows.append(dict(id="K4", name=f"nms_mask_sorted ({label}{'rpn' if i == 0 else 'box head'} {p}x{n})",
                          source="spacecraft_pose_estimation_tpu_torch/csrc/nms_mask_sorted.cu",
                          replaces="spacecraft_pose_estimation_tpu/ops/pallas_nms.py:67",
                          run_k=lambda a=nms_args: m.nms.nms_mask_sorted(*a),
@@ -881,6 +931,186 @@ def workspace_bytes(m, calls) -> int:
         total += m.int8_blocks.bottleneck_workspace_bytes(bsz, h, w, a["w2"].shape[-1], a["w3"].shape[-1],
                                                           a["nblocks"], a["strip"])
     return total
+
+
+EVAL_FRAMES, EVAL_BATCH, EVAL_SIZE = 24, 8, 768
+EVAL_DIST = (-0.22, 0.18, 5e-4, -3e-4, -0.02)
+
+
+class TimedFrames:
+    """A scene's frames on the card, handed out one batch at a time; notes
+    the host clock (after a synchronize) when each batch is asked for."""
+
+    def __init__(self, frames):
+        self.frames, self.asked = frames, {}
+
+    def __len__(self) -> int:
+        return self.frames.shape[0]
+
+    def __getitem__(self, index: slice):
+        sync()
+        self.asked[index.start] = time.perf_counter()
+        return self.frames[index]
+
+
+def conv_flops(torch, m, modules, run) -> float:
+    """Multiply-adds x 2 of every port Conv inside ``modules`` during ``run()``."""
+    total = [0.0]
+
+    def hook(mod, inputs, out):
+        k = mod.weight.shape[-1]
+        total[0] += 2.0 * out.numel() * mod.weight.shape[1] * k * k
+
+    handles = [c.register_forward_hook(hook) for mod in modules for c in mod.modules() if isinstance(c, m.layers.Conv)]
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def check_artifacts(torch, out_dir, n_frames) -> None:
+    """pred.mat (n, 11, 3) finite; real_test.json n images and annotations;
+    opencv_poses.json n finite poses, R orthonormal within 1e-4."""
+    import os
+
+    import numpy as np
+    import scipy.io
+
+    preds = scipy.io.loadmat(os.path.join(out_dir, "pred.mat"))["preds"]
+    with open(os.path.join(out_dir, "real_test.json")) as f:
+        coco = json.load(f)
+    with open(os.path.join(out_dir, "opencv_poses.json")) as f:
+        poses = json.load(f)
+    Rs = np.array([p["rotation_matrix"] for p in poses])
+    Ts = np.array([p["T"] for p in poses])
+    ortho = np.abs(Rs @ Rs.transpose(0, 2, 1) - np.eye(3)).max() if len(poses) else np.inf
+    log(f"evaluate artifacts: pred.mat {preds.shape} finite {bool(np.isfinite(preds).all())}; real_test.json "
+        f"{len(coco['images'])} images, {len(coco['annotations'])} annotations; opencv_poses.json {len(poses)} poses, "
+        f"finite {bool(np.isfinite(Rs).all() and np.isfinite(Ts).all())}, max |R R^T - I| {ortho:.3g} (limit 1e-4)")
+    ok = (preds.shape == (n_frames, NUM_JOINTS, 3) and np.isfinite(preds).all()
+          and len(coco["images"]) == len(coco["annotations"]) == n_frames and len(poses) == n_frames
+          and Rs.shape == (n_frames, 3, 3) and Ts.shape == (n_frames, 3, 1)
+          and np.isfinite(Rs).all() and np.isfinite(Ts).all() and ortho <= 1e-4)
+    if not ok:
+        raise RuntimeError("the evaluation entry's artifacts are wrong (see the line above)")
+
+
+def evaluate_phase(torch, m, dev, r101):
+    """The fused evaluation entry (``evaluate.run_scene``) at full width:
+    X101-32x8d FPN (``FASTER_RCNN_X101_SPACECRAFT``) in bf16 at a 768
+    letterbox, HRNet-W32 with 11 joints at 512, RANSAC PnP with 256
+    hypotheses, on 24 seeded uint8 1920x1200 BGR frames in batches of 8
+    (one warm-up, two timed), a pinhole camera with distortion. Checks the
+    artifacts and that K1, K2 and K4 launched (counters reset just before,
+    read just after); times the stages of one batch. Returns the K1, K2 and
+    K4 rows on this phase's inputs and its launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    det = m.rcnn.GeneralizedRCNN(m.rcnn.FASTER_RCNN_X101_SPACECRAFT, dtype=torch.bfloat16, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    hr = m.models.build_landmark_model("pose_hrnet", NUM_JOINTS, device=dev, dtype=torch.bfloat16,
+                                       generator=torch.Generator().manual_seed(1))
+    lm3d = np.random.default_rng(2).normal(0, 0.8, (NUM_JOINTS, 3))
+    cam = m.camera.CameraModel(K=np.array([[2988.6, 0, 960.0], [0, 2988.3, 600.0], [0, 0, 1]]),
+                               dist=np.array(EVAL_DIST), width=FRAME_HW[1], height=FRAME_HW[0])
+    config = m.pipeline.PipelineConfig(image_size=(512, 512), solver="ransac")
+    gd = torch.Generator(device=dev).manual_seed(3)
+    frames = TimedFrames(torch.randint(0, 256, (EVAL_FRAMES, *FRAME_HW, 3), dtype=torch.uint8, device=dev,
+                                       generator=gd))
+    names = [f"img{i:06d}.png" for i in range(EVAL_FRAMES)]
+    captures = {key: Capture(*m.kernels[key][:2]) for key in ("K1", "K2", "K4")}
+    with tempfile.TemporaryDirectory() as out_dir, contextlib.ExitStack() as stack:
+        for c in captures.values():
+            stack.enter_context(c)
+        for _, _, k in m.kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = m.evaluate.run_scene(frames, names, out_dir, det, hr, lm3d, cam, batch_size=EVAL_BATCH,
+                                   input_size=EVAL_SIZE, config=config,
+                                   generator=torch.Generator(device=dev).manual_seed(4))
+        t_end = time.perf_counter()
+        launches = {key: k.launches for key, (_, _, k) in m.kernels.items()}
+        check_artifacts(torch, out_dir, EVAL_FRAMES)
+    timed = EVAL_FRAMES - EVAL_BATCH
+    log(f"evaluate (X101-32x8d bf16 at {EVAL_SIZE}, HRNet-W32 at 512, RANSAC 256): {EVAL_FRAMES} frames of "
+        f"{FRAME_HW[1]}x{FRAME_HW[0]} in batches of {EVAL_BATCH}, {t_end - t0:.4f} s in all (warm-up batch "
+        f"included); the {timed} frames after the warm-up batch, artifact writes included, in "
+        f"{t_end - frames.asked[EVAL_BATCH]:.4f} s = {timed / (t_end - frames.asked[EVAL_BATCH]):.2f} frames/s; "
+        f"launches {json.dumps(launches)}; first t {res['t'][0].tolist()}, first box {res['boxes'][0].tolist()}")
+    for key in ("K1", "K2", "K4"):
+        if launches[key] == 0:
+            raise RuntimeError(f"kernel {key} was not launched by the evaluation entry")
+    k4 = captures["K4"].calls
+    for name, calls in (("rpn", k4[0::2]), ("box head", k4[1::2])):
+        valid = sum(int(c[0][1].sum()) for c in calls)
+        total = sum(c[0][1].numel() for c in calls)
+        log(f"evaluate K4 {name} problems: {tuple(calls[0][0][1].shape)} a batch, {valid} valid boxes of {total} "
+            f"over {len(calls)} batches = {valid / total:.4f}")
+    feats, boxes, _, _, strides = captures["K2"].calls[-1][0][:5]
+    levels = m.roi_align.assign_levels(boxes, len(feats), int(math.log2(strides[0])))
+    log(f"evaluate: K2's ROIs per pyramid level P2..P5 in the last batch: "
+        f"{torch.bincount(levels, minlength=len(feats)).tolist()} of {boxes.shape[0]}")
+    evaluate_stage_times(torch, m, det, hr, frames.frames[:EVAL_BATCH], config, lm3d, cam, r101)
+    crop_params = captures["K1"].calls[-1][0][1]
+    log(f"evaluate: K1's last batch, {crop_params.shape[0]} crops; crop origins (x0, y0) "
+        f"{crop_params[:, [1, 3]].tolist()} in a {FRAME_HW[1]}x{FRAME_HW[0]} frame, steps "
+        f"{crop_params[:, [0, 2]].tolist()}")
+    rows = [crop_row(torch, m, dev, captures["K1"].calls[-1],
+                     f"crop_bilinear (evaluate: full frame, no window clamp, batch {EVAL_BATCH})")]
+    rows.append(pooler_row(torch, m, captures["K2"].calls[-1],
+                           f"roi_align_multilevel (evaluate: X101, batch {EVAL_BATCH}, {boxes.shape[0]} ROIs)"))
+    rows += nms_rows(torch, m, dev, k4[-2:], "evaluate: X101 ")
+    return rows, launches
+
+
+def evaluate_stage_times(torch, m, det, hr, frames, config, lm3d, cam, r101) -> None:
+    """Device time (CUDA events, ms) of each stage of one evaluate batch,
+    GN PnP beside RANSAC, and the X101 backbone+FPN's FLOP rate beside
+    R101's from the bf16 serving run."""
+    dev = frames.device
+    lm3d_t, K, dist = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (lm3d, cam.K, cam.dist))
+    gumbel = m.pnp.gumbel_noise((frames.shape[0], config.ransac_hypotheses, NUM_JOINTS),
+                                torch.Generator(device=dev).manual_seed(5), dev)
+    with torch.inference_mode():
+        lb, scale = m.serving.letterbox_linear(frames, EVAL_SIZE)
+        best = m.rcnn.select_best_box(det(lb), (EVAL_SIZE, EVAL_SIZE)) / scale
+        xywh = torch.cat([best[:, :2], best[:, 2:] - best[:, :2]], 1)
+        rgb = frames.flip(-1)
+        land = m.pipeline.make_landmark_stage(hr, config)(rgb, xywh)
+        centers, scales = land["centers"], land["scales"]
+        crops = m.warp.crop_and_resize(rgb, centers, scales, config.image_size)
+        w = m.pnp.adaptive_confidence_mask(land["confidence"], min_count=config.min_keypoints).float()
+        stages = {
+            "letterbox (cv2-style bilinear, BGR)": lambda: m.serving.letterbox_linear(frames, EVAL_SIZE),
+            "detector: X101 backbone+fpn": lambda: det.pyramid(lb),
+            "detector: all": lambda: det(lb),
+            "crop (K1, RGB)": lambda: m.warp.crop_and_resize(rgb, centers, scales, config.image_size),
+            "normalize+hrnet": lambda: hr(m.pipeline.normalize_crops(crops)),
+            "decode": lambda: m.heatmap.decode_heatmaps(land["heatmaps"], centers, scales),
+            "pnp ransac (256 hypotheses, 10 GN steps)": lambda: m.pnp.pnp_ransac(
+                lm3d_t, land["keypoints"], K, dist, land["confidence"], gumbel=gumbel,
+                num_hypotheses=config.ransac_hypotheses, reproj_threshold=config.reproj_threshold,
+                refine_iters=config.refine_iters, min_count=config.min_keypoints),
+            "pnp gn (epnp + 10 GN steps), for comparison": lambda: m.pnp.solve_pnp(
+                lm3d_t, land["keypoints"], K, dist, w, config.refine_iters),
+        }
+        times = {name: time_ms(fn, 3) for name, fn in stages.items()}
+    times["detector: rest (all - backbone+fpn)"] = times["detector: all"] - times["detector: X101 backbone+fpn"]
+    log(f"stage device ms per evaluate batch of {frames.shape[0]}: "
+        + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    x101_flops = conv_flops(torch, m, [det.backbone, det.fpn], lambda: det.pyramid(lb[:1]))
+    x101_rate = x101_flops * frames.shape[0] / (times["detector: X101 backbone+fpn"] * 1e-3)
+    r101_rate = r101["flops_per_image"] * r101["images"] / (r101["ms"] * 1e-3)
+    log(f"backbone+fpn at {EVAL_SIZE}: X101-32x8d {x101_flops / 1e9:.2f} GFLOP an image, "
+        f"{times['detector: X101 backbone+fpn'] / frames.shape[0]:.4f} ms an image = {x101_rate / 1e12:.2f} TFLOP/s; "
+        f"R101 (bf16 serving run) {r101['flops_per_image'] / 1e9:.2f} GFLOP an image, "
+        f"{r101['ms'] / r101['images']:.4f} ms an image = {r101_rate / 1e12:.2f} TFLOP/s; "
+        f"X101 takes {r101_rate / x101_rate:.2f}x R101's time per FLOP")
 
 
 def compare(got, want, tol) -> tuple[float, float, bool]:
@@ -952,15 +1182,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from spacecraft_pose_estimation_tpu_torch import _cuda, pipeline, serving
-    from spacecraft_pose_estimation_tpu_torch.models import backbone_int8, hrnet, hrnet_int8, rcnn
+    from spacecraft_pose_estimation_tpu_torch import _cuda, evaluate, models, pipeline, serving
+    from spacecraft_pose_estimation_tpu_torch.data import camera
+    from spacecraft_pose_estimation_tpu_torch.models import backbone_int8, hrnet, hrnet_int8, layers, rcnn
     from spacecraft_pose_estimation_tpu_torch.ops import (
         geometry, heatmap, int8_blocks, int8_conv, nms, pnp, roi_align, warp,
     )
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
-                        nms=nms, heatmap=heatmap, int8_conv=int8_conv, int8_blocks=int8_blocks)
+                        nms=nms, heatmap=heatmap, int8_conv=int8_conv, int8_blocks=int8_blocks, models=models,
+                        layers=layers, camera=camera, evaluate=evaluate)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -977,6 +1209,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    import importlib.util
+
+    log("optional packages the port's library path does without: " + json.dumps(
+        {name: importlib.util.find_spec(name) is not None for name in ("cv2", "PIL", "pandas", "yaml")}))
 
     build_s = _cuda.build_all()
     log("build (s): " + json.dumps({k: round(v, 2) for k, v in build_s.items()}))
@@ -989,10 +1225,14 @@ def main() -> int:
     dev = torch.device("cuda")
     args = (rcnn.FASTER_RCNN_R101_SERVING_1OBJ, hrnet.POSE_HRNET_W32, FRAME_HW, 768, serving.SERVING_PIPELINE)
     launches, captures, run = serve(torch, m, dev, "bf16", *args, CLIPS, expect=("K1", "K2", "K4"))
-    stage_times(torch, m, run)
+    times = stage_times(torch, m, run)
+    det = run.server.detector
+    lb1 = m.serving.letterbox(run.frames[:1], 768)[0]
+    r101 = dict(ms=times["detector: backbone+fpn"], images=DET_BATCH,
+                flops_per_image=conv_flops(torch, m, [det.backbone, det.fpn], lambda: det.pyramid(lb1)))
     profile_clip(torch, run)
     report = kernel_report(float_rows(torch, m, dev, captures), launches)
-    del run, captures
+    del run, captures, det
 
     launches, captures, run = serve(torch, m, dev, "int8", *args, CLIPS,
                                     expect=("K1", "K2", "K4") + INT8_IDS)
@@ -1004,6 +1244,17 @@ def main() -> int:
     k3 = kernel_report([k3_row], k3_launches)[0]
     k3["serving_launches"] = launches["K3"]  # no serving path calls it: nor does any in the JAX package
     report.append(k3)
+    del run, captures
+
+    # bench.py's det_kind="x101" point: the X101 serving preset in bf16, GN PnP
+    x101_args = (rcnn.FASTER_RCNN_X101_SERVING,) + args[1:]
+    _, _, run = serve(torch, m, dev, "x101 bf16", *x101_args, 2, expect=("K1", "K2", "K4"))
+    stage_times(torch, m, run)
+    del run
+    torch.cuda.empty_cache()
+
+    eval_rows, eval_launches = evaluate_phase(torch, m, dev, r101)
+    report += kernel_report(eval_rows, eval_launches)
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

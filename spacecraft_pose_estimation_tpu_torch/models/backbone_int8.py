@@ -11,9 +11,9 @@ takes in place of the bf16 backbone's.
 
 Every int8 conv is kernel K5a (``ops/int8_conv.py``), which reads each
 site's K-major ``w8k``: the holder of the tree packs it once
-(``int8_conv.with_kmajor``, as ``serving.PoseServer`` does). The port's backbone
-is the dense Caffe2 trunk (``groups=1``, stride in the 1x1), so the JAX
-package's merged-group expansion has nothing to do here.
+(``int8_conv.with_kmajor``, as ``serving.PoseServer`` does). Only the dense
+Caffe2 trunk (``groups=1``, stride in the 1x1) is quantized here; the
+grouped ResNeXt trunk raises (the int8 X101 is not ported yet).
 """
 
 from __future__ import annotations
@@ -34,6 +34,9 @@ _EPS = 1e-5
 def _structure(cfg: ResNetConfig):
     """(stage_name, block_name, stride, has_shortcut) rows in execution
     order, mirroring ResNetBackbone.forward."""
+    if cfg.groups != 1 or not cfg.stride_in_1x1:
+        raise NotImplementedError("the int8 backbone takes the dense Caffe2 trunk only; the int8 ResNeXt "
+                                  "(grouped 3x3, stride in the 3x3) is not ported yet (ROADMAP.md)")
     rows = []
     for si, n_blocks in enumerate(RESNET_STAGE_BLOCKS[cfg.depth]):
         stride = 1 if si == 0 else 2

@@ -18,19 +18,19 @@ BN_EPS = 1e-5
 
 
 class Conv(nn.Module):
-    """Conv2d with a (out, in, k, k) ``weight`` and optional ``bias``,
-    cast to the input's dtype; explicit symmetric padding."""
+    """Conv2d with a (out, in // groups, k, k) ``weight`` and optional
+    ``bias``, cast to the input's dtype; explicit symmetric padding."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, bias: bool = True):
+                 padding: int = 0, bias: bool = True, groups: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding, 1, self.groups)
 
 
 class Linear(nn.Module):

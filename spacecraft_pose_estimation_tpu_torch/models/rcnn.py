@@ -1,8 +1,8 @@
 """GeneralizedRCNN inference: backbone -> FPN -> RPN -> ROI heads.
 
-Port of the inference path of ``models/rcnn.py`` with its R101 presets and
-``select_best_box``. Images arrive pre-sized (the serving letterbox), and
-detections leave as padded (B, D) arrays with a ``valid`` mask.
+Port of the inference path of ``models/rcnn.py`` with its X101 and R101
+presets and ``select_best_box``. Images arrive pre-sized (a letterbox),
+and detections leave as padded (B, D) arrays with a ``valid`` mask.
 
 Inside the model, tensors are NCHW views of NHWC memory (the
 ``channels_last`` format), so the pyramid hands its levels to kernel K2 as
@@ -20,7 +20,7 @@ from ..device import resolve_device
 from .anchors import fpn_anchors
 from .fpn import FPN, FPN_STRIDES
 from .layers import init_params
-from .resnet_backbone import RESNET101_FPN, RESNET_TINY, ResNetBackbone, ResNetConfig
+from .resnet_backbone import RESNET101_FPN, RESNET_TINY, RESNEXT101_32x8d, ResNetBackbone, ResNetConfig
 from .roi_heads import ROIHeadsConfig, StandardROIHeads, fast_rcnn_inference
 from .rpn import RPNConfig, RPNHead, find_top_proposals
 
@@ -29,6 +29,9 @@ Tensor = torch.Tensor
 # Caffe2 zoo pixel stats (detectron2 configs: BGR mean, std 1).
 PIXEL_MEAN = (103.530, 116.280, 123.675)
 PIXEL_STD = (1.0, 1.0, 1.0)
+# The X101-32x8d trunk is torch-trained: its config sets a per-channel std
+# (faster_rcnn_X_101_32x8d_FPN_3x.yaml).
+X101_PIXEL_STD = (57.375, 57.120, 58.395)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +46,23 @@ class RCNNConfig:
     pixel_std: tuple[float, float, float] = PIXEL_STD
 
 
-# config_2 semantics (R101-FPN) with the spacecraft ROI heads: one class,
-# class-agnostic boxes, two detections per image.
-FASTER_RCNN_R101_SPACECRAFT = RCNNConfig(
-    backbone=RESNET101_FPN,
+# The reference's detector (config_4: X101-FPN) with the spacecraft ROI
+# heads: one class, class-agnostic boxes, two detections per image, 1000
+# proposals per level and image. The JAX preset names the Pallas pooler,
+# the port's only one (kernel K2).
+FASTER_RCNN_X101_SPACECRAFT = RCNNConfig(
+    backbone=RESNEXT101_32x8d,
     roi=ROIHeadsConfig(num_classes=1, cls_agnostic_bbox_reg=True, detections_per_image=2),
+    pixel_std=X101_PIXEL_STD,
+)
+# Serving variant: the same weights, 512/256 proposals.
+FASTER_RCNN_X101_SERVING = dataclasses.replace(
+    FASTER_RCNN_X101_SPACECRAFT,
+    rpn=RPNConfig(pre_nms_topk_test=512, post_nms_topk_test=256),
+)
+# config_2 semantics (R101-FPN, a Caffe2 model: std 1) with the same heads.
+FASTER_RCNN_R101_SPACECRAFT = dataclasses.replace(
+    FASTER_RCNN_X101_SPACECRAFT, backbone=RESNET101_FPN, pixel_std=PIXEL_STD,
 )
 # Single-object serving point: 256/64 proposals per level / image.
 FASTER_RCNN_R101_SERVING_1OBJ = dataclasses.replace(

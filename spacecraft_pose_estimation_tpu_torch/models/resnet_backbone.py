@@ -1,11 +1,11 @@
-"""ResNet detection backbone with frozen BN (port of ``models/resnet_backbone.py``).
+"""ResNet / ResNeXt detection backbone with frozen BN (port of ``models/resnet_backbone.py``).
 
-Dense Caffe2-style trunks only (stride in the 1x1, ``groups=1``):
-``RESNET101_FPN`` and ``RESNET_TINY``. The ResNeXt ``MergedGroupConv`` is
-not ported yet. Module names mirror the Flax tree (``stem.conv``,
-``stem.norm``, ``res2_b0.conv1`` ...). NCHW inside. Inference only, so
-FrozenBN is the eval-mode ``layers.BatchNorm``: the same affine from the
-same four tensors.
+The dense Caffe2-style trunks (stride in the 1x1, ``groups=1``:
+``RESNET101_FPN``, ``RESNET_TINY``) and the ResNeXt one
+(``RESNEXT101_32x8d``: 32 groups of 8 in res2, stride in the grouped
+3x3). Module names mirror the Flax tree (``stem.conv``, ``stem.norm``,
+``res2_b0.conv1`` ...). NCHW inside. Inference only, so FrozenBN is the
+eval-mode ``layers.BatchNorm``: the same affine from the same four tensors.
 """
 
 from __future__ import annotations
@@ -18,11 +18,26 @@ from torch import nn
 from .layers import BatchNorm, Conv
 
 
+class MergedGroupConv(Conv):
+    """The grouped conv of the JAX package's ``MergedGroupConv``, as a plain
+    ``groups=`` conv with the compact (out, in // groups, k, k) weight.
+
+    The JAX module merges groups block-diagonally into 128-lane groups, a
+    TPU packing: the zeros it adds change nothing but the order of the
+    sums, so the port does not copy it.
+    """
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, groups: int):
+        super().__init__(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False, groups=groups)
+
+
 class ConvFrozenBN(nn.Module):
-    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, act: bool = True):
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, act: bool = True,
+                 groups: int = 1):
         super().__init__()
         self.act = act
-        self.conv = Conv(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
+        self.conv = (MergedGroupConv(cin, cout, kernel, stride, groups) if groups > 1
+                     else Conv(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False))
         self.norm = BatchNorm(cout)
 
     def forward(self, x):
@@ -31,13 +46,17 @@ class ConvFrozenBN(nn.Module):
 
 
 class BottleneckX(nn.Module):
-    """Detectron2 BottleneckBlock, groups=1, stride in the 1x1:
-    1x1 -> 3x3 -> 1x1 + shortcut."""
+    """Detectron2 BottleneckBlock: 1x1 -> 3x3 (groups) -> 1x1 + shortcut.
 
-    def __init__(self, cin: int, out_channels: int, bottleneck_channels: int, stride: int = 1):
+    The stride sits on the 1x1 (Caffe2 trunks) or, with ``stride_in_1x1``
+    False, on the 3x3 (ResNeXt)."""
+
+    def __init__(self, cin: int, out_channels: int, bottleneck_channels: int, stride: int = 1,
+                 groups: int = 1, stride_in_1x1: bool = True):
         super().__init__()
-        self.conv1 = ConvFrozenBN(cin, bottleneck_channels, 1, stride)
-        self.conv2 = ConvFrozenBN(bottleneck_channels, bottleneck_channels, 3, 1)
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.conv1 = ConvFrozenBN(cin, bottleneck_channels, 1, s1)
+        self.conv2 = ConvFrozenBN(bottleneck_channels, bottleneck_channels, 3, s3, groups=groups)
         self.conv3 = ConvFrozenBN(bottleneck_channels, out_channels, 1, 1, act=False)
         self.shortcut = (
             ConvFrozenBN(cin, out_channels, 1, stride, act=False)
@@ -50,7 +69,6 @@ class BottleneckX(nn.Module):
 
 
 RESNET_STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
-RES2_BOTTLENECK = 64  # width_per_group x groups, doubling per stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,9 +76,14 @@ class ResNetConfig:
     depth: int = 101
     stem_channels: int = 64
     res2_out_channels: int = 256
+    groups: int = 1  # 32 for ResNeXt
+    width_per_group: int = 64  # 8 for X101-32x8d; res2's bottleneck is groups x width, doubling per stage
+    stride_in_1x1: bool = True  # False for the ResNeXt zoo weights
 
 
 RESNET101_FPN = ResNetConfig(depth=101)
+# The reference's flagship trunk (config_4: X101-FPN).
+RESNEXT101_32x8d = ResNetConfig(depth=101, groups=32, width_per_group=8, stride_in_1x1=False)
 RESNET_TINY = ResNetConfig(depth=50, stem_channels=8, res2_out_channels=16)
 
 
@@ -73,12 +96,13 @@ class ResNetBackbone(nn.Module):
         self.stem = ConvFrozenBN(3, config.stem_channels, 7, 2)
         cin = config.stem_channels
         out_ch = config.res2_out_channels
-        bottleneck = RES2_BOTTLENECK
+        bottleneck = config.width_per_group * config.groups
         self.stages = []
         for si, n_blocks in enumerate(RESNET_STAGE_BLOCKS[config.depth]):
             blocks = []
             for bi in range(n_blocks):
-                m = BottleneckX(cin, out_ch, bottleneck, 2 if si > 0 and bi == 0 else 1)
+                m = BottleneckX(cin, out_ch, bottleneck, 2 if si > 0 and bi == 0 else 1,
+                                config.groups, config.stride_in_1x1)
                 self.add_module(f"res{si + 2}_b{bi}", m)
                 blocks.append(m)
                 cin = out_ch

@@ -1,8 +1,9 @@
 """Batched PnP: weighted EPnP + Gauss-Newton refine, fixed depth, no cv2.
 
-Port of ``spacecraft_pose_estimation_tpu/ops/pnp.py`` (the ``solver="gn"``
-path). Every function takes leading batch dims where the JAX ones are
-vmapped. The algorithm is the same fixed-depth one: Gauss-Jordan inverses,
+Port of ``spacecraft_pose_estimation_tpu/ops/pnp.py``: the ``solver="gn"``
+path (:func:`solve_pnp`) and RANSAC (:func:`pnp_ransac`). Every function
+takes leading batch dims where the JAX ones are vmapped. The algorithm is
+the same fixed-depth one: Gauss-Jordan inverses,
 shifted (inverse) power iteration with repeated squaring in place of
 eigh/SVD, Horn's quaternion Kabsch, and the finite-fallback chain. The
 Gauss-Newton Jacobian is written out analytically where the JAX module
@@ -260,3 +261,115 @@ def solve_pnp(
     R0, t0 = epnp(world, _norm_pts(img_px, K, dist), weights)
     R, t = refine_pose(R0, t0, world, img_px, K, dist, weights, iters=refine_iters)
     return _first_finite_pose([(R, t), (R0, t0), _identity_pose(world)])
+
+
+def _reproj_err(world: Tensor, img_px: Tensor, K: Tensor, dist: Tensor, R: Tensor, t: Tensor) -> Tensor:
+    """Pixel distance (..., N) between img_px and world projected by (R, t)."""
+    return torch.linalg.vector_norm(geometry.project_points(world, R, t, K, dist) - img_px, dim=-1)
+
+
+def _masked_err_sum(err: Tensor, w: Tensor) -> Tensor:
+    """Weighted error sum over the last axis; a non-finite sum counts as
+    infinitely bad instead of poisoning comparisons with NaN."""
+    s = (torch.where(w > 0, err, torch.zeros_like(err)) * w).sum(-1)
+    return torch.where(torch.isfinite(s), s, torch.full_like(s, torch.inf))
+
+
+def gumbel_noise(shape, generator: torch.Generator, device=None) -> Tensor:
+    """Standard Gumbel draws -log(-log(U)), U uniform on [tiny, 1), as
+    ``jax.random.gumbel`` makes them (from other bits)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+
+
+def sampling_probs(valid: Tensor, sample_size: int) -> Tensor:
+    """RANSAC's draw probabilities (..., N): uniform over the valid points,
+    or over all points when fewer than ``sample_size`` are valid (a zero or
+    underfilled ``p`` leaves a draw without replacement undefined)."""
+    vf = valid.to(torch.float32)
+    count = vf.sum(-1, keepdim=True)
+    return torch.where(count >= sample_size, vf / torch.clamp(count, min=1.0),
+                       torch.full_like(vf, 1.0 / vf.shape[-1]))
+
+
+def sample_subsets(gumbel: Tensor, p: Tensor, sample_size: int) -> Tensor:
+    """Subsets (..., H, S) drawn without replacement with probabilities p
+    (..., N) by Gumbel top-k: the top ``sample_size`` of gumbel (..., H, N)
+    + log(p), ties to the lowest index (``jax.random.choice(replace=False,
+    p=p)`` on the same noise)."""
+    keys = gumbel + torch.log(p)[..., None, :]
+    return torch.sort(keys, dim=-1, descending=True, stable=True).indices[..., :sample_size]
+
+
+def ransac_hypotheses(
+    world: Tensor, img_px: Tensor, K: Tensor, dist: Tensor, valid: Tensor, gumbel: Tensor, sample_size: int,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """RANSAC's hypotheses: EPnP on each subset that ``sample_subsets``
+    draws from ``gumbel`` (..., H, N). world (..., N, 3); img_px (..., N, 2);
+    valid (..., N). Returns R (..., H, 3, 3), t (..., H, 3) and every
+    point's reprojection error under each, (..., H, N)."""
+    lead, n = img_px.shape[:-2], img_px.shape[-2]
+    idx = sample_subsets(gumbel, sampling_probs(valid, sample_size), sample_size)  # (..., H, S)
+    h = idx.shape[-2]
+
+    def subset(x: Tensor) -> Tensor:  # (..., N, c) -> (..., H, S, c)
+        x = x[..., None, :, :].expand(*lead, h, n, x.shape[-1])
+        return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+    Rs, ts = epnp(subset(world), subset(_norm_pts(img_px, K, dist)), torch.ones(idx.shape, device=img_px.device))
+    return Rs, ts, _reproj_err(world[..., None, :, :], img_px[..., None, :, :], K, dist, Rs, ts)
+
+
+def pnp_ransac(
+    world: Tensor, img_px: Tensor, K: Tensor, dist: Tensor, conf: Tensor,
+    gumbel: Tensor | None = None, generator: torch.Generator | None = None,
+    num_hypotheses: int = 512, sample_size: int = 6, reproj_threshold: float = 15.0,
+    refine_iters: int = 10, min_count: int = 15,
+) -> dict[str, Tensor]:
+    """Fixed-shape RANSAC PnP over confidence-gated keypoints.
+
+    world (N, 3) or (..., N, 3); img_px (..., N, 2); conf (..., N). Each
+    hypothesis is EPnP on ``sample_size`` points drawn without replacement
+    with probability ``p`` (uniform over the valid points, or over all when
+    fewer are valid than a subset needs): the top ``sample_size`` of
+    ``gumbel + log(p)``, ties to the lowest index, as ``jax.random.choice``
+    draws them. ``gumbel`` (..., num_hypotheses, N) is the noise; without
+    it, it is drawn from ``generator`` (seed 0 when None) on img_px's
+    device. The hypothesis with the most inliers (the first of equals)
+    or EPnP on its inliers, whichever fits them better, is refined by
+    Gauss-Newton; the finite-fallback chain follows, in the JAX order.
+
+    Returns {R (..., 3, 3), t (..., 3), inliers (..., N), num_inliers (...),
+    mean_reproj_err (...)}.
+    """
+    lead, n = img_px.shape[:-2], img_px.shape[-2]
+    world = world.expand(*lead, n, 3)
+    if gumbel is None:
+        if generator is None:
+            generator = torch.Generator(device=img_px.device).manual_seed(0)
+        gumbel = gumbel_noise((*lead, num_hypotheses, n), generator, img_px.device)
+    valid = adaptive_confidence_mask(conf, min_count=min_count)
+    Rs, ts, errs = ransac_hypotheses(world, img_px, K, dist, valid, gumbel, sample_size)
+    scores = ((errs < reproj_threshold) & valid[..., None, :]).sum(-1)
+    best = torch.argmax(scores, dim=-1)  # the first maximum, as jnp.argmax
+    R0 = torch.gather(Rs, -3, best[..., None, None, None].expand(*lead, 1, 3, 3))[..., 0, :, :]
+    t0 = torch.gather(ts, -2, best[..., None, None].expand(*lead, 1, 3))[..., 0, :]
+
+    err0 = _reproj_err(world, img_px, K, dist, R0, t0)
+    iw = ((err0 < reproj_threshold) & valid).to(torch.float32)
+    # re-solve EPnP on all inliers; keep whichever fits them better, then refine
+    R1, t1 = epnp(world, _norm_pts(img_px, K, dist), iw)
+    use_all = _masked_err_sum(_reproj_err(world, img_px, K, dist, R1, t1), iw) < _masked_err_sum(err0, iw)
+    R2 = torch.where(use_all[..., None, None], R1, R0)
+    t2 = torch.where(use_all[..., None], t1, t0)
+    R, t = refine_pose(R2, t2, world, img_px, K, dist, iw, iters=refine_iters)
+    # refined -> pre-refine selection -> best hypothesis -> inlier EPnP -> identity
+    R, t = _first_finite_pose([(R, t), (R2, t2), (R0, t0), (R1, t1), _identity_pose(world)])
+
+    err = _reproj_err(world, img_px, K, dist, R, t)
+    inliers = (err < reproj_threshold) & valid
+    iw_out = inliers.to(torch.float32)
+    return {
+        "R": R, "t": t, "inliers": inliers, "num_inliers": inliers.sum(-1),
+        "mean_reproj_err": (err * iw_out).sum(-1) / torch.clamp(iw_out.sum(-1), min=1.0),
+    }

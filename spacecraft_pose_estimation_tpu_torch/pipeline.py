@@ -8,7 +8,7 @@ Port of ``spacecraft_pose_estimation_tpu/pipeline.py``:
       -> ImageNet normalize
       -> heatmap model         (models/hrnet.py)
       -> sub-pixel decode      (ops/heatmap.py)
-      -> PnP solve             (ops/pnp.py, solver "gn")
+      -> PnP solve             (ops/pnp.py, solver "gn" or "ransac")
 
 The returned functions run under ``torch.inference_mode`` on the model's
 device.
@@ -41,7 +41,7 @@ class PipelineConfig:
     ``tests/test_torch_warp_dtype.py`` pins.
     ``crop_window_impl`` picks the coverage the crop scale is clamped to:
     ``"xla"`` the window less 2 px, ``"pallas"`` ``warp.window_coverage``.
-    The solver is ``"gn"`` or ``"none"``; ``"ransac"`` is not ported yet.
+    The solver is ``"gn"``, ``"ransac"`` or ``"none"``.
     """
 
     image_size: tuple[int, int] = (512, 512)  # (width, height) model input
@@ -114,28 +114,40 @@ def make_landmark_stage(model, config: PipelineConfig = PipelineConfig()) -> Cal
 def make_pose_pipeline(
     model, landmarks_3d, K, dist, config: PipelineConfig = PipelineConfig()
 ) -> Callable:
-    """Returns fn(frames, boxes) -> the landmark outputs plus R, t, quat.
+    """Returns fn(frames, boxes, gumbel=None, generator=None) -> the
+    landmark outputs plus R, t, quat.
 
     ``landmarks_3d`` (J, 3), ``K`` (3, 3) and ``dist`` (5,) are moved to
     the model's device (its ``device`` attribute, else its parameters') as
-    float32.
+    float32. With ``solver="ransac"`` the subsets' noise is ``gumbel``
+    (B, ransac_hypotheses, J), else drawn from ``generator`` (see
+    ``pnp.pnp_ransac``); the other solvers ignore both.
     """
-    if config.solver not in ("gn", "none"):
-        raise NotImplementedError(f"solver {config.solver!r} is not ported yet ('gn', 'none')")
+    if config.solver not in ("gn", "ransac", "none"):
+        raise ValueError(f"solver must be 'gn', 'ransac' or 'none', got {config.solver!r}")
     landmark_stage = make_landmark_stage(model, config)
     # a quantized model holds no parameters and names its device itself
     device = getattr(model, "device", None) or next(model.parameters()).device
     lm3d, K, dist = (torch.as_tensor(a, dtype=torch.float32).to(device) for a in (landmarks_3d, K, dist))
 
     @torch.inference_mode()
-    def run(frames: Tensor, boxes: Tensor) -> dict[str, Tensor]:
+    def run(frames: Tensor, boxes: Tensor, gumbel: Tensor | None = None,
+            generator: torch.Generator | None = None) -> dict[str, Tensor]:
         out = landmark_stage(frames, boxes)
         if config.solver == "none":
             return out
-        w = pnp.adaptive_confidence_mask(out["confidence"], min_count=config.min_keypoints)
-        R, t = pnp.solve_pnp(
-            lm3d, out["keypoints"], K, dist, w.to(torch.float32), refine_iters=config.refine_iters
-        )
+        if config.solver == "ransac":
+            sol = pnp.pnp_ransac(
+                lm3d, out["keypoints"], K, dist, out["confidence"], gumbel=gumbel, generator=generator,
+                num_hypotheses=config.ransac_hypotheses, reproj_threshold=config.reproj_threshold,
+                refine_iters=config.refine_iters, min_count=config.min_keypoints,
+            )
+            R, t = sol["R"], sol["t"]
+        else:
+            w = pnp.adaptive_confidence_mask(out["confidence"], min_count=config.min_keypoints)
+            R, t = pnp.solve_pnp(
+                lm3d, out["keypoints"], K, dist, w.to(torch.float32), refine_iters=config.refine_iters
+            )
         out.update({"R": R, "t": t, "quat": geometry.rotmat_to_quat(R)})
         return out
 

@@ -45,6 +45,23 @@ def letterbox(frames: Tensor, size: int) -> tuple[Tensor, float]:
     return x.permute(0, 2, 3, 1), scale
 
 
+def letterbox_linear(frames: Tensor, size: int) -> tuple[Tensor, float]:
+    """(B, H, W, 3) frames -> (B, size, size, 3) float32 and the scale.
+
+    The evaluation entry's letterbox (the JAX package's
+    ``data/detection_dataset.letterbox``, ``cv2.resize`` with
+    ``INTER_LINEAR``): bilinear with half-pixel centres and no
+    antialiasing, zero padding at the bottom and right.
+    """
+    _, h, w, _ = frames.shape
+    scale = min(size / h, size / w)
+    lb_h, lb_w = int(round(h * scale)), int(round(w * scale))
+    x = frames.to(torch.float32).permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(lb_h, lb_w), mode="bilinear", align_corners=False, antialias=False)
+    x = F.pad(x, (0, size - lb_w, 0, size - lb_h))
+    return x.permute(0, 2, 3, 1), scale
+
+
 class PoseServer:
     """Serve clips: uint8 (N, H, W, 3) frames on the models' device in,
     poses out.
@@ -84,9 +101,12 @@ class PoseServer:
         return best, xywh.repeat_interleave(self.det_every, dim=0)[: frames.shape[0]]
 
     @torch.inference_mode()
-    def __call__(self, frames: Tensor) -> dict[str, Tensor]:
+    def __call__(self, frames: Tensor, gumbel: Tensor | None = None,
+                 generator: torch.Generator | None = None) -> dict[str, Tensor]:
+        """``gumbel`` and ``generator`` go to the pose pipeline: the RANSAC
+        solver's noise (``pnp.pnp_ransac``); the GN solver ignores them."""
         det_boxes, boxes = self.detect(frames)
-        out = self.pose(frames, boxes)
+        out = self.pose(frames, boxes, gumbel=gumbel, generator=generator)
         return {
             "R": out["R"], "t": out["t"], "quat": out["quat"],
             "keypoints": out["keypoints"], "confidence": out["confidence"],

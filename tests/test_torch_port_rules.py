@@ -49,6 +49,15 @@ def test_entry_points_need_cuda_or_an_explicit_device():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GeneralizedRCNN(RCNN_TINY)
     assert next(HRNet(HRNET_TINY, device="cpu").parameters()).device.type == "cpu"
+    from spacecraft_pose_estimation_tpu_torch import evaluate
+    from spacecraft_pose_estimation_tpu_torch.models import build_landmark_model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_landmark_model("hrnet_tiny", 11)
+    # evaluate.main's --device defaults to cuda (run_scene runs on its models' device)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        evaluate.main(["--scenes-dir", ".", "--landmarks-file", "l.csv", "--calibration-file", "c.json",
+                       "--detector-checkpoint", "d.npz", "--landmark-checkpoint", "h.npz", "--output-dir", "."])
 
 
 def test_wrappers_launch_or_raise_off_the_cpu():

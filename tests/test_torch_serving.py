@@ -34,6 +34,7 @@ from spacecraft_pose_estimation_tpu_torch import pipeline as tpipe
 from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict
 from spacecraft_pose_estimation_tpu_torch.models import rcnn as trcnn
 from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNET_TINY, HRNet
+from spacecraft_pose_estimation_tpu_torch.ops import pnp as tpnp
 from spacecraft_pose_estimation_tpu_torch.serving import PoseServer
 
 from torch_port_util import n, random_variables, t, to_jax
@@ -148,5 +149,17 @@ def test_landmark_stage_matches_jax(setup, impl):
 
 
 def test_ransac_is_not_ported_yet(setup):
-    with pytest.raises(NotImplementedError, match="ransac"):
-        tpipe.make_pose_pipeline(setup["thr"], np.zeros((J, 3)), K, DIST, tpipe.PipelineConfig(solver="ransac"))
+    """solver="ransac" is ported now: a server built with it hands its
+    generator (or its noise) to the RANSAC solver, which finds the known
+    pose; an unknown solver raises."""
+    lm3d = _exact_landmarks(setup, "xla")
+    config = tpipe.PipelineConfig(**(_config("xla") | {"solver": "ransac", "ransac_hypotheses": 32}))
+    server = PoseServer(setup["tdet"], setup["thr"], lm3d, K, DIST, config, det_every=DET_EVERY, det_size=DET_SIZE)
+    frames = t(setup["frames"])
+    a = server(frames, generator=torch.Generator().manual_seed(3))
+    b = server(frames, gumbel=tpnp.gumbel_noise((CLIP, 32, J), torch.Generator().manual_seed(3)))
+    np.testing.assert_array_equal(n(a["R"]), n(b["R"]))  # the same draws, from the generator or given
+    np.testing.assert_allclose(n(a["R"]), np.broadcast_to(R_TRUE, (CLIP, 3, 3)), atol=1e-3)
+    np.testing.assert_allclose(n(a["t"]), np.broadcast_to(T_TRUE, (CLIP, 3)), atol=1e-2)
+    with pytest.raises(ValueError, match="solver"):
+        tpipe.make_pose_pipeline(setup["thr"], np.zeros((J, 3)), K, DIST, tpipe.PipelineConfig(solver="lm"))

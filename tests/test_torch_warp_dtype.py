@@ -2,7 +2,9 @@
 
 The JAX ``PipelineConfig`` defaults to ``warp_dtype="bfloat16"`` and
 ``bench.py`` serves it: both windowed crops (``"xla"`` and ``"pallas"``,
-the Pallas kernel in interpret mode) contract bf16 taps with f32 sums. The
+the Pallas kernel in interpret mode) contract bf16 taps with f32 sums, and
+so does the full-frame separable crop (``None``: no ``crop_window``) that
+the evaluation entry ``tools/evaluate_pipeline.py`` serves. The
 port's crop (kernel K1) always samples in float32, the JAX package's exact
 mode. These tests hold that deviation to two bars, on the same seeded uint8
 frames and boxes: the crops within 1 grey of 0-255, and ``HRNET_TINY``'s
@@ -56,6 +58,10 @@ class RawCrops:
 
 
 def _config(impl, warp_dtype="bfloat16"):
+    """impl None: the full-frame crop (crop_window None), the route the JAX
+    evaluation entry serves (pipeline.py:111, the separable crop in bf16)."""
+    if impl is None:
+        return dict(image_size=(64, 64), solver="none", warp_dtype=warp_dtype)
     return dict(image_size=(64, 64), solver="none", crop_window=WINDOWS[impl], crop_window_impl=impl,
                 warp_dtype=warp_dtype)
 
@@ -71,7 +77,7 @@ def setup():
     return dict(frames=frames, jhr=jhr, hr_vars=to_jax(hr_vars), thr=thr)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla", "pallas", None])
 def test_served_bf16_crop_within_one_grey(setup, impl):
     frames = jnp.asarray(setup["frames"])
     want = np.asarray(jpipe.make_landmark_stage(RawCrops(), jpipe.PipelineConfig(**_config(impl)))(
@@ -88,7 +94,7 @@ def test_served_bf16_crop_within_one_grey(setup, impl):
     assert err.max() > 0  # the JAX side did contract in bf16
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla", "pallas", None])
 def test_served_bf16_crop_heatmaps_correlate(setup, impl):
     want = jpipe.make_landmark_stage(setup["jhr"], jpipe.PipelineConfig(**_config(impl)))(
         setup["hr_vars"], jnp.asarray(setup["frames"]), jnp.asarray(BOXES))

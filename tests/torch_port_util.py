@@ -58,3 +58,66 @@ def random_variables(init_fn, seed: int, overrides: dict | None = None) -> dict:
 
 def to_jax(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def jax_gumbel(key, b: int, h: int, num: int) -> np.ndarray:
+    """The noise ``jax.random.choice(replace=False, p=p)`` draws inside the
+    JAX ``pnp_ransac`` for frame i, hypothesis j of a batch run with
+    ``key`` (per-frame keys ``split(key, b)``, per-hypothesis keys
+    ``split(k_i, h)``, then ``gumbel(k_ij, (num,))``): (b, h, num) float32,
+    the port's ``gumbel``."""
+    per_hyp = lambda kb: jax.vmap(lambda kh: jax.random.gumbel(kh, (num,)))(jax.random.split(kb, h))
+    return np.asarray(jax.vmap(per_hyp)(jax.random.split(key, b)))
+
+
+def jax_hypotheses(world, px, conf, K, dist, key, num_hypotheses: int, sample_size: int = 6,
+                   threshold: float = 15.0, min_count: int = 15) -> dict:
+    """The hypotheses of the JAX ``pnp_ransac`` by its own steps
+    (ops/pnp.py:400-420): every point's reprojection error under each,
+    ``err`` (b, H, N); its inliers ``inl`` (b, H, N); the inlier counts
+    ``scores`` (b, H); the chosen hypothesis ``best`` (b,) and its inliers,
+    ``best_inl`` (b, N), the refinement's weights. ``world`` is (N, 3) or
+    (b, N, 3)."""
+    from spacecraft_pose_estimation_tpu.ops import pnp as jpnp
+
+    Kj, dj = jnp.asarray(K), jnp.asarray(dist)
+
+    def frame(w, p, c, k):
+        n_pts = p.shape[0]
+        valid = jpnp.adaptive_confidence_mask(c, min_count=min_count)
+        vf = valid.astype(jnp.float32)
+        prob = jnp.where(jnp.sum(vf) >= sample_size, vf / jnp.maximum(jnp.sum(vf), 1.0),
+                         jnp.full((n_pts,), 1.0 / n_pts))
+
+        def hypothesis(kh):
+            idx = jax.random.choice(kh, n_pts, shape=(sample_size,), replace=False, p=prob)
+            R, tt = jpnp.epnp(w[idx], jpnp._norm_pts(p[idx], Kj, dj), jnp.ones(sample_size))
+            err = jpnp._reproj_err(w, p, Kj, dj, R, tt)
+            return err, (err < threshold) & valid
+
+        err, inl = jax.vmap(hypothesis)(jax.random.split(k, num_hypotheses))
+        scores = jnp.sum(inl, axis=-1)
+        best = jnp.argmax(scores)
+        return dict(err=err, inl=inl, scores=scores, best=best, best_inl=inl[best])
+
+    b = px.shape[0]
+    world = np.broadcast_to(world, (b, *np.shape(world)[-2:]))
+    out = jax.jit(jax.vmap(frame))(jnp.asarray(world), jnp.asarray(px), jnp.asarray(conf), jax.random.split(key, b))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def port_hypotheses(world, px, conf, K, dist, gumbel, sample_size: int = 6, threshold: float = 15.0,
+                    min_count: int = 15) -> dict:
+    """The same quantities as ``jax_hypotheses`` from the port's
+    ``pnp_ransac`` steps on the noise ``gumbel`` (b, H, N), on the CPU."""
+    from spacecraft_pose_estimation_tpu_torch.ops import pnp as tpnp
+
+    px_t = t(px)
+    world_t = t(world).expand(*px_t.shape[:-1], 3)
+    valid = tpnp.adaptive_confidence_mask(t(conf), min_count=min_count)
+    _, _, err = tpnp.ransac_hypotheses(world_t, px_t, t(K), t(dist), valid, t(gumbel), sample_size)
+    inl = (err < threshold) & valid[..., None, :]
+    scores = inl.sum(-1)
+    best = torch.argmax(scores, dim=-1)
+    out = dict(err=err, inl=inl, scores=scores, best=best, best_inl=inl[torch.arange(len(best)), best])
+    return {k: v.numpy() for k, v in out.items()}
