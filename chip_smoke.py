@@ -20,7 +20,8 @@ toolkit. It
    and 1024 boxes with duplicates, ties, zero-area boxes and no valid box;
    then checks the tiny detector + HRNet serving path on the card against
    the same path on the CPU (plain PyTorch versions of the kernels), in
-   the bf16 form and in the int8 form with every fused route on, and the
+   the bf16 form and in the int8 form with every fused route on, the
+   latter also on a tiny grouped trunk (K5a on merged groups), and the
    PnP solvers against a known pose (RANSAC also with 3 of 11 points 200
    px off, and against the CPU on the same noise);
 3. serves full-width clips of both forms: R101-FPN
@@ -54,7 +55,21 @@ toolkit. It
    K1, K2 and K4 launched (counters reset just before, read just after),
    holds K2 and K4 to their plain versions on its inputs, and times its
    stages and frames/s;
-9. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+9. runs the staged evaluation's three stage functions
+   (``tools.export_boxes``, ``tools.test_landmarks``, ``tools.export_poses``
+   with RANSAC at 512 hypotheses) in process on the same frames, which
+   stay on the card, and weights; checks their artifacts, holds their
+   boxes and keypoints to the fused entry's within 1e-3 px, runs the flip
+   test on one batch, checks that K1, K2 and K4 launched, and times each
+   stage;
+10. serves 2 clips of the int8 X101 form (``bench.py``'s
+   ``det_kind="x101_int8"``: ``FASTER_RCNN_X101_SERVING`` on the int8
+   ResNeXt backbone, K5a on grouped convs merged to whole tiles, and the
+   int8 HRNet), holds K5a to its plain version on every grouped conv2 site
+   of a keyframe batch and times them against ``torch._int_mm`` on the
+   dense block-diagonal weights; the tiny grouped int8 trunk is checked
+   against the CPU in step 2;
+11. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -182,12 +197,29 @@ class Capture:
         return b.arguments
 
 
-def tiny_models(torch, m, device, dtype):
-    """RCNN_TINY and HRNET_TINY from seeds, as both tiny checks build them."""
+# a tiny ResNeXt trunk whose grouped 3x3s K5a runs merged: 8 groups of 8
+# channels in res2 (4 to a tile), of 16 in res3 (2 to a tile), 32 and 64 after
+TINY_GROUPED = dict(depth=50, stem_channels=8, res2_out_channels=64, groups=8, width_per_group=8,
+                    stride_in_1x1=False)
+
+
+def reset_counts(m) -> None:
+    """Zero every launch counter: each kernel's, and K5a's grouped one."""
+    for k in m.counters.values():
+        k.launches = 0
+
+
+def read_counts(m) -> dict[str, int]:
+    return {key: k.launches for key, k in m.counters.items()}
+
+
+def tiny_models(torch, m, device, dtype, backbone=None):
+    """RCNN_TINY (on ``backbone`` when given) and HRNET_TINY from seeds, as
+    the tiny checks build them."""
     import dataclasses
 
-    det = m.rcnn.GeneralizedRCNN(m.rcnn.RCNN_TINY, dtype=dtype, device=device,
-                                 generator=torch.Generator().manual_seed(0))
+    det_cfg = m.rcnn.RCNN_TINY if backbone is None else dataclasses.replace(m.rcnn.RCNN_TINY, backbone=backbone)
+    det = m.rcnn.GeneralizedRCNN(det_cfg, dtype=dtype, device=device, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():  # keep raw 0-255 pixels from saturating the random logits
         det.backbone.stem.conv.weight.mul_(1e-2)
     hr = m.hrnet.HRNet(dataclasses.replace(m.hrnet.HRNET_TINY, num_joints=NUM_JOINTS), device=device,
@@ -197,7 +229,8 @@ def tiny_models(torch, m, device, dtype):
 
 def check_tiny_against_cpu(torch, m) -> None:
     """The tiny serving path on the card (kernels) vs the CPU (plain), in
-    both forms, and PnP on the card against a known pose."""
+    both forms and in the int8 form on a grouped trunk, and PnP on the card
+    against a known pose."""
     import numpy as np
 
     pnp, geometry = m.pnp, m.geometry
@@ -207,25 +240,30 @@ def check_tiny_against_cpu(torch, m) -> None:
     K = np.array([[300.0, 0, 96.0], [0, 300.0, 60.0], [0, 0, 1]], np.float32)
     frames_np = rng.integers(0, 255, (4, 120, 192, 3)).astype(np.uint8)
     # one quantization, on the CPU, serves both devices
+    grouped = m.resnet_backbone.ResNetConfig(**TINY_GROUPED)
     det_cpu, hr_cpu = tiny_models(torch, m, "cpu", torch.float32)
     calib = torch.from_numpy(rng.integers(0, 255, (2, 64, 64, 3)).astype(np.float32))
-    qb = m.backbone_int8.quantize_backbone(det_cpu.config.backbone, det_cpu, det_cpu.normalize(calib))
+    qbs = {"int8": m.backbone_int8.quantize_backbone(det_cpu.config.backbone, det_cpu, det_cpu.normalize(calib))}
+    det_x, _ = tiny_models(torch, m, "cpu", torch.float32, grouped)
+    qbs["int8 grouped trunk"] = m.backbone_int8.quantize_backbone(grouped, det_x, det_x.normalize(calib))
     qh = m.hrnet_int8.quantize_hrnet(hr_cpu, m.pipeline.normalize_crops(calib))
     crops = torch.from_numpy(rng.integers(0, 255, (4, 64, 64, 3)).astype(np.float32))
-    for form in ("bf16", "int8"):
+    for form in ("bf16", "int8", "int8 grouped trunk"):
         outs = {}
         for device in ("cpu", "cuda"):
-            det, hr = tiny_models(torch, m, device, torch.float32)
+            det, hr = tiny_models(torch, m, device, torch.float32, grouped if form.endswith("trunk") else None)
             if form == "bf16":
                 server = m.serving.PoseServer(det, hr, lm3d, K, np.zeros(5, np.float32), cfg, det_every=2,
                                               det_size=64)
             else:
                 server = m.serving.build_int8_server(det, hr, lm3d, K, np.zeros(5, np.float32), cfg, det_every=2,
-                                                     det_size=64, backbone_q=qb, hrnet_q=qh, **FUSED)
+                                                     det_size=64, backbone_q=qbs[form], hrnet_q=qh, **FUSED)
+            m.int8_conv.GROUPED.launches = 0
             outs[device] = {k: v.cpu() for k, v in server(torch.from_numpy(frames_np).to(device)).items()}
             with torch.inference_mode():
                 x = crops.to(device)
-                outs[device]["heatmaps"] = server.landmarks(x if form == "int8" else m.pipeline.normalize_crops(x)).cpu()
+                raw = form.startswith("int8")  # the int8 HRNet folds the normalisation into its stem
+                outs[device]["heatmaps"] = server.landmarks(x if raw else m.pipeline.normalize_crops(x)).cpu()
         cpu, gpu = outs["cpu"], outs["cuda"]
         # The crops follow the detected boxes, which differ by ~1e-5 px
         # between the card and the CPU; int8 rounding turns that into a
@@ -246,6 +284,11 @@ def check_tiny_against_cpu(torch, m) -> None:
             f"(limit 0.995); keypoints max_abs_err={(gpu['keypoints'] - cpu['keypoints']).abs().max().item():.3g}")
         if not corr >= 0.995:
             raise RuntimeError(f"tiny {form} serving path: heatmaps correlate {corr} between the card and the CPU")
+        if form.endswith("trunk"):
+            grouped_launches = m.int8_conv.GROUPED.launches  # the card's run: the CPU's launches nothing
+            log(f"tiny {form}: {grouped_launches} K5a launches at a merged group count above 1 (res2-res5 conv2)")
+            if grouped_launches != 16:
+                raise RuntimeError(f"tiny {form}: {grouped_launches} grouped K5a launches, not the 16 conv2 sites")
     # PnP on a scene with a known pose (random keypoints fit no pose)
     world = torch.randn(11, 3, generator=torch.Generator().manual_seed(2))
     R = geometry.quat_to_dcm(torch.tensor([0.8, 0.3, -0.4, 0.2]))
@@ -645,16 +688,28 @@ def single_level_row(torch, m, captures):
     return row, {"K3": launches}
 
 
+def block_diagonal(torch, w, groups):
+    """Compact grouped HWIO weights (k, k, Cin / g, Cout) -> the dense
+    (k, k, Cin, Cout) conv that equals them: zeros off the groups."""
+    k, _, cin_g, cout = w.shape
+    dense = w.new_zeros(k, k, cin_g * groups, cout)
+    cout_g = cout // groups
+    for g in range(groups):
+        dense[:, :, g * cin_g:(g + 1) * cin_g, g * cout_g:(g + 1) * cout_g] = w[..., g * cout_g:(g + 1) * cout_g]
+    return dense
+
+
 def int_mm_call(torch, a):
     """torch._int_mm on the im2col of a K5a call (K and N padded to the
-    multiples of 8 that it needs): the int32 GEMM of the conv, no epilogue.
-    A yardstick only: the port never calls it."""
+    multiples of 8 that it needs): the int32 GEMM of the conv, no epilogue;
+    a grouped conv's weights dense and block-diagonal, one call for the
+    whole conv. A yardstick only: the port never calls it."""
     import torch.nn.functional as F
 
     x, w, s = a["x"], a["w"], a["stride"]
-    k = w.shape[0]
     if a["groups"] != 1:
-        return None
+        w = block_diagonal(torch, w, a["groups"])
+    k = w.shape[0]
     xp = F.pad(x, (0, 0, k // 2, k // 2, k // 2, k // 2))
     cols = xp.unfold(1, k, s).unfold(2, k, s)  # (B, Ho, Wo, C, k, k)
     A = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * x.shape[3])
@@ -682,14 +737,14 @@ def build_server(torch, m, dev, form, det_cfg, hr_cfg, det_size, config):
                               generator=torch.Generator().manual_seed(1))
     lm3d = torch.randn(NUM_JOINTS, 3, generator=torch.Generator().manual_seed(2))
     K = torch.tensor([[2988.6, 0, 960.0], [0, 2988.3, 600.0], [0, 0, 1]])
-    if form != "int8":
+    if not form.endswith("int8"):
         return m.serving.PoseServer(detector, landmarks, lm3d, K, torch.zeros(5), config,
                                     det_every=DET_EVERY, det_size=det_size), lm3d, K
     t0 = time.perf_counter()
     server = m.serving.build_int8_server(detector, landmarks, lm3d, K, torch.zeros(5), config,
                                          det_every=DET_EVERY, det_size=det_size, **FUSED)
     sync()
-    log(f"int8 quantization of R101 + HRNet-W32 (calibration on the card, folding on the host): "
+    log(f"{form}: int8 quantization of the backbone + HRNet-W32 (calibration on the card, folding on the host): "
         f"{time.perf_counter() - t0:.2f} s")
     return server, lm3d, K
 
@@ -719,13 +774,12 @@ def serve(torch, m, dev, form, det_cfg, hr_cfg, frame_hw, det_size, config, clip
     log(f"{form}: the served ROIs per pyramid level P2..P5: "
         f"{torch.bincount(levels, minlength=len(feats)).tolist()} of {boxes.shape[0]}")
 
-    for _, _, k in m.kernels.values():
-        k.launches = 0
+    reset_counts(m)
     t0 = time.perf_counter()
     outs = [server(frames) for frames in clips[1:]]
     sync()
     seconds = time.perf_counter() - t0
-    launches = {key: k.launches for key, (_, _, k) in m.kernels.items()}
+    launches = read_counts(m)
     log(f"serving {form}: {clips_n} clips x {clip} frames of {frame_hw[1]}x{frame_hw[0]} in {seconds:.4f} s = "
         f"{clips_n * clip / seconds:.2f} frames/s (det_batch {DET_BATCH}, det_every {DET_EVERY}, "
         f"det_size {det_size}); launches {json.dumps(launches)}")
@@ -746,7 +800,7 @@ def serve(torch, m, dev, form, det_cfg, hr_cfg, frame_hw, det_size, config, clip
 def stage_times(torch, m, run) -> dict[str, float]:
     """Device time (CUDA events, ms) of each serving stage on one clip."""
     server, frames, config = run.server, run.frames, run.config
-    int8 = run.form == "int8"
+    int8 = run.form.endswith("int8")
     with torch.inference_mode():
         lb, _ = m.serving.letterbox(frames[:: server.det_every], server.det_size)
         _, boxes = server.detect(frames)
@@ -923,6 +977,51 @@ def int8_rows(torch, m, captures):
     return rows
 
 
+def x101_conv_rows(torch, m, run):
+    """K5a's rows on every site of the int8 X101 backbone in one served
+    keyframe batch, captured anew on the clip's letterbox: the grouped 3x3
+    (conv2) sites, the kernel on its merged copy and the plain version on
+    the compact weights at ``groups=32``; and the dense sites (conv1 at the
+    resolution stride-in-3x3 leaves it, conv3, the shortcuts) at X101
+    widths. ``torch._int_mm`` on each site's im2col (a grouped site's
+    weights dense and block-diagonal) is the yardstick. The bound counts
+    the compact work (the merge's zeros are not work)."""
+    server = run.server
+    with torch.inference_mode(), Capture(m.int8_conv, "int8_conv") as cap:
+        lb, _ = m.serving.letterbox(run.frames[:: server.det_every], server.det_size)
+        m.backbone_int8.backbone_int8_apply(server.detector.config.backbone, server.backbone_q,
+                                            server.detector.normalize(lb))
+        sync()
+    calls = [cap.bound(i) for i in range(len(cap.calls))]
+    grouped = [a for a in calls if a["groups"] > 1]
+    dense = [a for a in calls if a["groups"] == 1]
+    merged = sorted({(m.int8_conv.kernel_groups(a["x"].shape[-1], a["wk"].shape), a["groups"]) for a in grouped})
+    log(f"K5a X101 backbone sites: {len(grouped)} grouped and {len(dense)} dense a keyframe batch of "
+        f"{calls[0]['x'].shape[0]}; grouped (kernel groups, compact groups) {merged}; activation bytes read: "
+        f"grouped {sum(a['x'].numel() for a in grouped)}, dense {sum(a['x'].numel() for a in dense)}")
+    if len(grouped) != 33 or not dense:
+        raise RuntimeError(f"x101 int8 backbone: {len(grouped)} grouped and {len(dense)} dense K5a sites")
+    return [conv_sites_row(torch, m, grouped, "K5a grouped", f"X101 grouped conv2 sites: {len(grouped)} a "
+                           "keyframe batch, groups merged to whole 32-channel tiles"),
+            conv_sites_row(torch, m, dense, "K5a dense", f"X101 dense sites: conv1, conv3 and shortcuts, "
+                           f"{len(dense)} a keyframe batch")]
+
+
+def conv_sites_row(torch, m, calls, count, label):
+    """A K5a row on ``calls``, its launches read from counter ``count``."""
+    kernel, plain = m.int8_conv.int8_conv, m.int8_conv.int8_conv_plain
+    run_k = [lambda a=a: kernel(**a) for a in calls]
+    run_p = [lambda a={k: v for k, v in a.items() if k != "wk"}: plain(**a) for a in calls]
+    libs = [int_mm_call(torch, a) for a in calls]
+    totals = [conv_numbers(m, a) for a in calls]
+    return dict(id="K5a", count=count, name=f"int8_conv ({label})",
+                source="spacecraft_pose_estimation_tpu_torch/csrc/int8_conv_requant.cu",
+                replaces="spacecraft_pose_estimation_tpu/models/backbone_int8.py:158",
+                run_k=lambda: [f() for f in run_k], run_p=lambda: [f() for f in run_p],
+                run_lib=(lambda: [f() for f in libs]) if all(libs) else None, tol="int8", peak=INT8_OPS,
+                numbers=(sum(b for b, _ in totals), sum(o for _, o in totals)), calls=len(calls))
+
+
 def workspace_bytes(m, calls) -> int:
     """K6's global workspace over ``calls`` (the bands of every strip)."""
     total = 0
@@ -1027,14 +1126,13 @@ def evaluate_phase(torch, m, dev, r101):
     with tempfile.TemporaryDirectory() as out_dir, contextlib.ExitStack() as stack:
         for c in captures.values():
             stack.enter_context(c)
-        for _, _, k in m.kernels.values():
-            k.launches = 0
+        reset_counts(m)
         t0 = time.perf_counter()
         res = m.evaluate.run_scene(frames, names, out_dir, det, hr, lm3d, cam, batch_size=EVAL_BATCH,
                                    input_size=EVAL_SIZE, config=config,
                                    generator=torch.Generator(device=dev).manual_seed(4))
         t_end = time.perf_counter()
-        launches = {key: k.launches for key, (_, _, k) in m.kernels.items()}
+        launches = read_counts(m)
         check_artifacts(torch, out_dir, EVAL_FRAMES)
     timed = EVAL_FRAMES - EVAL_BATCH
     log(f"evaluate (X101-32x8d bf16 at {EVAL_SIZE}, HRNet-W32 at 512, RANSAC 256): {EVAL_FRAMES} frames of "
@@ -1065,7 +1163,126 @@ def evaluate_phase(torch, m, dev, r101):
     rows.append(pooler_row(torch, m, captures["K2"].calls[-1],
                            f"roi_align_multilevel (evaluate: X101, batch {EVAL_BATCH}, {boxes.shape[0]} ROIs)"))
     rows += nms_rows(torch, m, dev, k4[-2:], "evaluate: X101 ")
-    return rows, launches
+    scene = SimpleNamespace(det=det, hr=hr, lm3d=lm3d, cam=cam, frames=frames.frames, names=names, res=res,
+                            fused_fps=timed / (t_end - frames.asked[EVAL_BATCH]),
+                            k1_params=captures["K1"].calls[-1][0][1])
+    return rows, launches, scene
+
+
+def staged_phase(torch, m, dev, scene) -> None:
+    """The staged evaluation's three stage functions in process, on the
+    evaluate phase's frames (on the card: its machine has no cv2) and
+    weights, their artifacts through a temporary directory as the file
+    contract has them: ``export_boxes`` (real_test.json), ``test_landmarks``
+    (pred.mat; the events preset, flip test off, batch 8) and
+    ``export_poses`` (RANSAC, 512 hypotheses, opencv_poses.json). Boxes and
+    keypoints equal the fused entry's within 1e-3 px; every pose finite;
+    K1, K2 and K4 launched (counters reset just before, read just after);
+    the flip test once on one batch."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    n = len(scene.names)
+    cfg = m.config.apply_overrides(m.config.get_preset("events"),
+                                   ["MODEL.IMAGE_SIZE", "[512, 512]", "TEST.BATCH_SIZE_PER_CHIP", str(EVAL_BATCH)])
+    k1 = Capture(*m.kernels["K1"][:2])
+    with tempfile.TemporaryDirectory() as out_dir, k1:
+        reset_counts(m)
+        sync()
+        t0 = time.perf_counter()
+        boxes, _ = m.export_boxes.export_boxes(scene.frames, scene.names, scene.det, out_dir, NUM_JOINTS,
+                                               EVAL_SIZE, EVAL_BATCH)
+        sync()
+        t1 = time.perf_counter()
+        json_path = os.path.join(out_dir, "real_test.json")
+        frames = {name: scene.frames[i] for i, name in enumerate(scene.names)}
+        examples = m.landmark_dataset.LandmarkExamples(json_path, frames=frames)
+        m.test_landmarks.predict_landmarks([scene.hr], examples, cfg, os.path.join(out_dir, "pred.mat"))
+        sync()
+        t2 = time.perf_counter()
+        preds = m.coco_io.load_pred_mat(os.path.join(out_dir, "pred.mat"))
+        _, Rs, _ = m.export_poses.export_poses(preds, m.coco_io.load_coco(json_path), scene.lm3d, scene.cam,
+                                               out_dir, solver="ransac", hypotheses=512, device=dev,
+                                               generator=torch.Generator(device=dev).manual_seed(4))
+        sync()
+        t3 = time.perf_counter()
+        launches = read_counts(m)
+        check_artifacts(torch, out_dir, n)
+    box_err = float(np.abs(boxes - scene.res["boxes"]).max())
+    kp_err = float(np.abs(preds[..., :2] - scene.res["preds"][..., :2]).max())
+    conf_err = float(np.abs(preds[..., 2] - scene.res["preds"][..., 2]).max())
+    same_crops = torch.equal(k1.calls[-1][0][1], scene.k1_params)
+    batches = -(-n // EVAL_BATCH)
+    log(f"staged (in process, frames on the card): detector stage {(t1 - t0) * 1e3 / batches:.4f} ms a batch of "
+        f"{EVAL_BATCH}, landmark stage {(t2 - t1) * 1e3 / batches:.4f} ms a batch, PnP stage (RANSAC 512) "
+        f"{(t3 - t2) * 1e3:.4f} ms for {n} frames; {n} frames in {t3 - t0:.4f} s = {n / (t3 - t0):.2f} frames/s "
+        f"(artifact writes included; the fused entry in this call: {scene.fused_fps:.2f} frames/s); "
+        f"launches {json.dumps(launches)}")
+    log(f"staged vs fused: boxes max_abs_err {box_err:.3g} px, keypoints {kp_err:.3g} px (limits 1e-3), "
+        f"confidences {conf_err:.3g} (limit 1e-5); last K1 crop parameters equal the fused entry's: {same_crops}; "
+        f"poses finite {bool(np.isfinite(Rs).all())}")
+    if not (box_err <= 1e-3 and kp_err <= 1e-3 and conf_err <= 1e-5):
+        raise RuntimeError(f"staged evaluation differs from the fused entry: boxes {box_err}, keypoints {kp_err}, "
+                           f"confidences {conf_err}")
+    for key in ("K1", "K2", "K4"):
+        if launches[key] == 0:
+            raise RuntimeError(f"kernel {key} was not launched by the staged evaluation")
+    # the flip test on one batch
+    examples.records = examples.records[:EVAL_BATCH]
+    m.warp.KERNEL.launches = 0
+    flipped = m.landmark_loop.validate(scene.hr, examples, EVAL_BATCH, (512, 512), flip_test=True)
+    sync()
+    k1_launches = m.warp.KERNEL.launches
+    moved = float(np.abs(flipped[..., :2] - preds[:EVAL_BATCH, :, :2]).max())
+    ref = flip_reference(torch, m, scene.hr, examples, (512, 512))
+    flip_err = float(np.abs(flipped[..., :2] - ref.keypoints).max())
+    flip_conf_err = float(np.abs(flipped[..., 2] - ref.confidence).max())
+    log(f"flip test on one batch of {EVAL_BATCH}: K1 launches {k1_launches}, keypoints finite "
+        f"{bool(np.isfinite(flipped).all())}, moved up to {moved:.4g} px from the unflipped ones; against "
+        f"(hm + shift(flip(model(flip(x))))) / 2 in plain ops: keypoints {flip_err:.3g} px (limit 1e-3), "
+        f"confidences {flip_conf_err:.3g} (limit 1e-5), the validate step's heatmaps {ref.hm_err:.3g} of peak "
+        f"{ref.peak:.3g} (limit 1e-5 of it); the wrong flips' heatmaps are off by "
+        + json.dumps({k: round(v, 6) for k, v in ref.wrong.items()}))
+    if k1_launches == 0 or not np.isfinite(flipped).all() or not (
+            flip_err <= 1e-3 and flip_conf_err <= 1e-5 and ref.hm_err <= 1e-5 * ref.peak):
+        raise RuntimeError(f"flip test: {k1_launches} K1 launches, finite {bool(np.isfinite(flipped).all())}, "
+                           f"keypoints {flip_err} px, confidences {flip_conf_err} and heatmaps {ref.hm_err} off the "
+                           "plain construction")
+    if not min(ref.wrong.values()) > 1e-5 * ref.peak:
+        raise RuntimeError(f"flip test: a wrong flip's heatmaps lie within the limit of the right one's: {ref.wrong}")
+
+
+def flip_reference(torch, m, model, examples, image_size):
+    """The flip test of ``examples`` built from plain ops on the card: the
+    same crops (K1), then (hm + hm_f) / 2 with hm_f the model's heatmaps of
+    the width-flipped crops flipped back and shifted right one pixel, column
+    0 repeated (a gather, not the validate step's concatenation). Returns
+    its keypoints (N, J, 2) and confidences (N, J), the largest difference
+    of ``make_validate_step``'s flip-test heatmaps on the same crops from
+    it, its peak, and how far three wrong flip tests' heatmaps lie from it
+    (a roll for the shift, no un-flip, the height flipped), for the log."""
+    import numpy as np
+
+    dev = next(model.parameters()).device
+    exs = [examples.example(i) for i in range(len(examples))]
+    images = torch.stack([torch.as_tensor(e["image"]).to(dev) for e in exs])
+    bboxes = torch.from_numpy(np.stack([e["bbox"] for e in exs])).to(dev)
+    centers, scales = m.geometry.bbox_to_center_scale(bboxes)
+    with torch.inference_mode():
+        x = m.pipeline.normalize_crops(m.warp.crop_and_resize(images, centers, scales, image_size))
+        hm = model(x)
+        back = model(x.flip(2)).flip(2)
+        shift = (torch.arange(back.shape[2], device=dev) - 1).clamp_min(0)
+        want = (hm + back[:, :, shift]) / 2
+        kp, conf = m.heatmap.decode_heatmaps(want, centers, scales)
+        _, _, got = m.landmark_loop.make_validate_step(model, flip_test=True)(x, centers, scales)
+        wrong = {"roll": back.roll(1, dims=2), "no un-flip": model(x.flip(2)),
+                 "height flipped": model(x.flip(1)).flip(1)[:, :, shift]}
+        wrong = {name: ((hm + v) / 2 - want).abs().max().item() for name, v in wrong.items()}
+        return SimpleNamespace(keypoints=kp.float().cpu().numpy(), confidence=conf.float().cpu().numpy(),
+                               hm_err=(got - want).abs().max().item(), peak=want.abs().max().item(), wrong=wrong)
 
 
 def evaluate_stage_times(torch, m, det, hr, frames, config, lm3d, cam, r101) -> None:
@@ -1154,7 +1371,7 @@ def kernel_report(rows, launches):
         bound, bound_by = bound_ms(nb, ops, row["peak"])
         entry = {
             "name": name, "id": key, "route": "cuda", "source": row["source"], "replaces": row["replaces"],
-            "launches": launches[key], "max_abs_err": err, "share_off": share,
+            "launches": launches[row.get("count", key)], "max_abs_err": err, "share_off": share,
             "ms": time_ms(row["run_k"], 10),
             "plain_ms": time_ms(row["run_p"], 2), "bound_ms": bound,
             "bound_by": bound_by, "bytes": nb, "ops": ops, "peak_ops_per_s": row["peak"],
@@ -1182,9 +1399,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from spacecraft_pose_estimation_tpu_torch import _cuda, evaluate, models, pipeline, serving
+    from spacecraft_pose_estimation_tpu_torch import _cuda, config, evaluate, models, pipeline, serving
     from spacecraft_pose_estimation_tpu_torch.data import camera
-    from spacecraft_pose_estimation_tpu_torch.models import backbone_int8, hrnet, hrnet_int8, layers, rcnn
+    from spacecraft_pose_estimation_tpu_torch.data import coco_io, landmark_dataset
+    from spacecraft_pose_estimation_tpu_torch.models import (
+        backbone_int8, hrnet, hrnet_int8, layers, rcnn, resnet_backbone,
+    )
+    from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks
+    from spacecraft_pose_estimation_tpu_torch.train import landmark_loop
     from spacecraft_pose_estimation_tpu_torch.ops import (
         geometry, heatmap, int8_blocks, int8_conv, nms, pnp, roi_align, warp,
     )
@@ -1192,7 +1414,10 @@ def main() -> int:
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
                         nms=nms, heatmap=heatmap, int8_conv=int8_conv, int8_blocks=int8_blocks, models=models,
-                        layers=layers, camera=camera, evaluate=evaluate)
+                        layers=layers, camera=camera, evaluate=evaluate, resnet_backbone=resnet_backbone,
+                        coco_io=coco_io, landmark_dataset=landmark_dataset, export_boxes=export_boxes,
+                        test_landmarks=test_landmarks, export_poses=export_poses, landmark_loop=landmark_loop,
+                        config=config)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -1202,6 +1427,7 @@ def main() -> int:
         "K6": (int8_blocks, "bottleneck_chain", int8_blocks.BOTTLENECK),
         "K7": (int8_blocks, "up_exchange", int8_blocks.EXCHANGE),
     }
+    m.counters = {key: k for key, (_, _, k) in m.kernels.items()} | {"K5a grouped": int8_conv.GROUPED}
     t_start = time.perf_counter()
     card = card_line()
     log(card)
@@ -1253,8 +1479,24 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
 
-    eval_rows, eval_launches = evaluate_phase(torch, m, dev, r101)
+    eval_rows, eval_launches, scene = evaluate_phase(torch, m, dev, r101)
     report += kernel_report(eval_rows, eval_launches)
+    staged_phase(torch, m, dev, scene)
+    del scene
+    torch.cuda.empty_cache()
+
+    # bench.py's det_kind="x101_int8" point: the int8 ResNeXt backbone (K5a on
+    # merged grouped convs), the int8 HRNet, GN PnP
+    launches, _, run = serve(torch, m, dev, "x101 int8", *x101_args, 2, expect=("K1", "K2", "K4") + INT8_IDS)
+    # at one group: the backbone's dense sites and the int8 HRNet's
+    launches["K5a dense"] = launches["K5a"] - launches["K5a grouped"]
+    log(f"x101 int8: K5a launches at a merged group count above 1 in the 2 served clips: "
+        f"{launches['K5a grouped']} (33 conv2 sites a keyframe batch); at one group {launches['K5a dense']}")
+    if launches["K5a grouped"] != 2 * 33:
+        raise RuntimeError(f"x101 int8: {launches['K5a grouped']} grouped K5a launches in 2 clips, not 2 x 33")
+    stage_times(torch, m, run)
+    report += kernel_report(x101_conv_rows(torch, m, run), launches)
+    del run
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

@@ -1,10 +1,11 @@
 """The experiment config tree and its presets (a copy of the JAX package's ``config.py``).
 
 One frozen-dataclass tree (``ExperimentConfig``) with dotted ``KEY VALUE``
-override lists (:func:`apply_overrides`, the reference's CLI ``opts``) and
-the named presets (:func:`get_preset`). The YAML loader, ``LazyCall`` /
-``instantiate`` and ``auto_scale_workers`` are not copied; PyYAML is
-imported only when an override gives a sequence as text.
+override lists (:func:`apply_overrides`, the reference's CLI ``opts``), YAML
+files of the same keys (:func:`load_yaml`) and the named presets
+(:func:`get_preset`). ``LazyCall`` / ``instantiate`` and
+``auto_scale_workers`` are not copied. PyYAML is imported only to read a
+YAML file or an override that gives a sequence as text.
 """
 
 from __future__ import annotations
@@ -158,6 +159,33 @@ def apply_overrides(cfg: ExperimentConfig, opts: list[str]) -> ExperimentConfig:
         raise ValueError("opts must be KEY VALUE pairs")
     for key, value in zip(opts[::2], opts[1::2]):
         cfg = _replace_path(cfg, key, value)
+    return cfg
+
+
+def load_yaml(cfg: ExperimentConfig, path: str) -> ExperimentConfig:
+    """Merge a YAML file of dotted or nested keys into the config; keys the
+    tree does not have are skipped, as the JAX loader skips the reference
+    yaml's keys it folds elsewhere."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise RuntimeError(f"reading the config file {path} needs PyYAML, which is not installed") from e
+    with open(path) as f:
+        tree = yaml.safe_load(f) or {}
+
+    def walk(prefix, node):
+        for k, v in node.items():
+            dotted = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, dict):
+                yield from walk(dotted, v)
+            else:
+                yield dotted, v
+
+    for dotted, v in walk("", tree):
+        try:
+            cfg = _replace_path(cfg, dotted, v)
+        except KeyError:
+            continue
     return cfg
 
 

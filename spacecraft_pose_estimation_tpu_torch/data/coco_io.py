@@ -1,12 +1,14 @@
-"""The file contract the evaluation entry writes: COCO json, pred.mat, poses.
+"""The file contract of the evaluation entry and its stages: COCO json, pred.mat, poses.
 
 A copy of the subset of the JAX package's ``data/coco_io.py`` that
-``evaluate.py`` uses:
+``evaluate.py`` and the stage tools (``tools/``) use:
 
 * predicted-box export (``real_test.json``): one annotation per image,
-  the best box, keypoints all 2.0 dummies;
+  the best box (the whole frame when nothing is detected), keypoints all
+  2.0 dummies; read back as per-annotation example records;
 * ``pred.mat`` keypoints {'preds': (B, J, 3) [x, y, maxval]};
-* ``opencv_poses.json`` [{image_name, T (3x1), rotation_matrix (3x3)}];
+* ``opencv_poses.json`` [{image_name, T (3x1), rotation_matrix (3x3)}] and
+  the landmarks' projection for its overlays;
 * the 3-D landmark CSV, read by its ``x,y,z`` header with the ``csv``
   module (the JAX package reads it with pandas).
 
@@ -114,16 +116,68 @@ def detections_to_coco(
     return build_coco_dict(images, anns, num_keypoints)
 
 
+def fallback_full_frame_box(width: int, height: int) -> np.ndarray:
+    """Zero-detection graceful degradation: the whole frame as the XYXY box."""
+    return np.array([0.0, 0.0, float(width), float(height)])
+
+
+def project_landmarks(landmarks: np.ndarray, R: np.ndarray, t: np.ndarray, K: np.ndarray,
+                      dist: np.ndarray | None = None) -> np.ndarray:
+    """K @ [R|t] projection with optional Brown distortion -> (N, 2) pixels."""
+    p_cam = landmarks @ np.asarray(R).T + np.asarray(t)
+    xy = p_cam[:, :2] / p_cam[:, 2:3]
+    if dist is not None and np.any(dist):
+        k1, k2, p1, p2, k3 = np.asarray(dist, np.float64)[:5]
+        x, y = xy[:, 0], xy[:, 1]
+        r2 = x * x + y * y
+        radial = 1 + k1 * r2 + k2 * r2**2 + k3 * r2**3
+        xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        xy = np.stack([xd, yd], axis=1)
+    u = K[0, 0] * xy[:, 0] + K[0, 2]
+    v = K[1, 1] * xy[:, 1] + K[1, 2]
+    return np.stack([u, v], axis=1)
+
+
 def save_coco(coco: dict, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         f.write(json.dumps(coco, indent=2))
 
 
+def load_coco(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def coco_to_examples(coco: dict) -> list[dict]:
+    """COCO dict -> flat per-annotation records: joints (J, 2), joint
+    visibility weights (COCO vis - 1), bbox xywh, file name, image size."""
+    image_by_id = {im["id"]: im for im in coco["images"]}
+    out = []
+    for ann in coco["annotations"]:
+        im = image_by_id[ann["image_id"]]
+        kp = np.asarray(ann["keypoints"], np.float64).reshape(-1, 3)
+        out.append({
+            "file_name": im["file_name"],
+            "image_id": ann["image_id"],
+            "width": im["width"],
+            "height": im["height"],
+            "bbox": np.asarray(ann["bbox"], np.float64),
+            "joints": kp[:, :2],
+            "joints_vis": kp[:, 2] - 1.0,  # detectron vis -> 0/1 weight
+        })
+    return out
+
+
 def save_pred_mat(preds: np.ndarray, path: str) -> None:
     """(B, J, 3) [x, y, maxval] -> pred.mat {'preds': ...}."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     scipy.io.savemat(path, mdict={"preds": np.asarray(preds)})
+
+
+def load_pred_mat(path: str) -> np.ndarray:
+    return np.array(scipy.io.loadmat(path)["preds"])
 
 
 def save_opencv_poses(

@@ -1,14 +1,16 @@
-"""The fused evaluation entry: scenes of frames in, the reference's three artifacts out.
+"""The evaluation entry: scenes of frames in, the reference's three artifacts out.
 
-Port of the fused mode of ``tools/evaluate_pipeline.py``. Per batch of
+Port of ``tools/evaluate_pipeline.py``. The fused mode, per batch of
 frames: BGR letterbox -> detector -> best box -> RGB crop -> heatmap
 model -> decode -> RANSAC PnP; per scene it writes ``real_test.json``
 (the best boxes), ``pred.mat`` (keypoints and confidences) and
-``opencv_poses.json`` (R, T), as the JAX entry does.
+``opencv_poses.json`` (R, T), as the JAX entry does. ``--staged`` runs
+the three stage commands of ``tools/`` as separate processes on the same
+file contract (``export_boxes``, ``test_landmarks``, ``export_poses``).
 
     python -m spacecraft_pose_estimation_tpu_torch.evaluate \\
         --scenes-dir DIR --landmarks-file landmarks.csv --calibration-file calibration.json \\
-        --detector-checkpoint det.npz --landmark-checkpoint hrnet.npz --output-dir OUT [--device cpu]
+        --detector-checkpoint det.npz --landmark-checkpoint hrnet.npz --output-dir OUT [--device cpu] [--staged]
 
 Checkpoints are ``.npz`` files of the Flax variable trees with
 ``/``-joined keys (``params/backbone/stem/conv/kernel``,
@@ -20,6 +22,8 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import subprocess
+import sys
 from typing import Callable, Sequence
 
 import numpy as np
@@ -29,6 +33,7 @@ from . import config as C
 from .convert import flax_to_state_dict
 from .data import coco_io
 from .data.camera import CameraModel
+from .device import resolve_device
 from .models import build_landmark_model
 from .models.rcnn import FASTER_RCNN_X101_SERVING, FASTER_RCNN_X101_SPACECRAFT, RCNN_TINY, GeneralizedRCNN, \
     select_best_box
@@ -125,6 +130,81 @@ class SceneFrames:
         return np.stack(frames)
 
 
+def require_cv2():
+    """OpenCV, which reading frames from files needs."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("reading frames from files needs OpenCV (cv2), which is not installed") from e
+    return cv2
+
+
+def load_detector(path: str, tiny: bool, serving: bool, dtype, device) -> GeneralizedRCNN:
+    """The entry's detector (``RCNN_TINY``, or X101-32x8d in its serving or
+    evaluation preset) with the ``params`` of a ``.npz`` checkpoint."""
+    cfg = RCNN_TINY if tiny else (FASTER_RCNN_X101_SERVING if serving else FASTER_RCNN_X101_SPACECRAFT)
+    detector = GeneralizedRCNN(cfg, dtype=dtype, device=device)
+    detector.load_state_dict(flax_to_state_dict({"params": load_npz_variables(path)["params"]}))
+    return detector
+
+
+def load_landmark_model(path: str, name: str, num_joints: int, dtype, device):
+    """``build_landmark_model(name)`` with the variables of a ``.npz`` checkpoint."""
+    model = build_landmark_model(name, num_joints, device=device, dtype=dtype)
+    model.load_state_dict(flax_to_state_dict(load_npz_variables(path)))
+    return model
+
+
+def scene_list(args) -> list[str]:
+    return args.scenes or sorted(
+        d for d in os.listdir(args.scenes_dir) if os.path.isdir(os.path.join(args.scenes_dir, d))
+    )
+
+
+def run_staged(args, logger) -> None:
+    """The three stages per scene, each a separate process of the port's
+    stage commands on the reference's file contract (the JAX
+    ``evaluate_pipeline.run_staged``): detector -> real_test.json,
+    landmarks -> pred.mat, PnP -> opencv_poses.json. Each stage gets
+    ``--device``; ``--serving`` does not reach the detector stage, as in
+    the JAX entry."""
+    cv2 = require_cv2()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+
+    def run(tool: str, cmd: list[str]) -> None:
+        cmd = [sys.executable, "-m", f"{__package__}.tools.{tool}", *cmd, "--device", args.device]
+        logger.info("staged: %s", " ".join(cmd))
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env)
+        if r.returncode != 0:
+            raise RuntimeError(f"stage failed: {cmd}\nstdout:{r.stdout[-3000:]}\nstderr:{r.stderr[-3000:]}")
+
+    num_landmarks = coco_io.load_landmarks_csv(args.landmarks_file).shape[0]
+    for scene in scene_list(args):
+        scene_dir = os.path.join(args.scenes_dir, scene)
+        out_dir = os.path.join(args.output_dir, scene)
+        os.makedirs(out_dir, exist_ok=True)
+        files = sorted(f for f in os.listdir(scene_dir) if f.lower().endswith(FRAME_EXTENSIONS))
+        if not files:
+            logger.warning("scene %s: no frames, skipping", scene)
+            continue
+        h, w = cv2.imread(os.path.join(scene_dir, files[0])).shape[:2]
+        run("export_boxes", ["--image-dir", scene_dir, "--checkpoint", args.detector_checkpoint,
+                             "--output-dir", out_dir, "--image-width", str(w), "--image-height", str(h),
+                             "--input-size", str(args.input_size), "--landmarks-count", str(num_landmarks),
+                             "--batch-size", str(args.batch_size), "--no-debug-images"]
+            + (["--tiny"] if args.tiny else []))
+        run("test_landmarks", ["--preset", args.preset, "--test-json", os.path.join(out_dir, "real_test.json"),
+                               "--image-dir", scene_dir, "--checkpoint", args.landmark_checkpoint,
+                               "--output", out_dir, "--pred-name", "pred", *args.opts])
+        run("export_poses", ["--frames-dir", scene_dir,
+                             "--detection-annotations", os.path.join(out_dir, "real_test.json"),
+                             "--pose-annotations", os.path.join(out_dir, "pred.mat"),
+                             "--landmarks-file", args.landmarks_file, "--calibration-file", args.calibration_file,
+                             "--output-dir", out_dir, "--no-render"])
+        logger.info("scene %s done (staged) -> %s", scene, out_dir)
+
+
 def main(argv: Sequence[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scenes-dir", required=True, help="dir with per-scene frame folders")
@@ -141,7 +221,8 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--serving", action="store_true",
                     help="the serving detector preset (512/256 proposals; the same weights and topology)")
     ap.add_argument("--staged", action="store_true",
-                    help="the three stages as separate processes (not ported yet)")
+                    help="the three stages (tools/export_boxes, test_landmarks, export_poses) as separate "
+                         "processes on the file contract")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("opts", nargs="*", help="KEY VALUE config override pairs")
     args = ap.parse_args(argv)
@@ -149,30 +230,20 @@ def main(argv: Sequence[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO)
     logger = logging.getLogger("evaluate")
     if args.staged:
-        raise NotImplementedError("--staged (export_boxes.py, test_landmarks.py, export_poses.py) is not ported "
-                                  "yet (ROADMAP.md)")
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError("the evaluation entry reads frames with OpenCV (cv2), which is not installed") from e
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+        resolve_device(args.device)
+        return run_staged(args, logger)
+    device = resolve_device(args.device)
+    cv2 = require_cv2()
 
     cfg = C.apply_overrides(C.get_preset(args.preset), args.opts)
     cam = CameraModel.from_calibration_json(args.calibration_file)
     landmarks = coco_io.load_landmarks_csv(args.landmarks_file)
-    det_cfg = RCNN_TINY if args.tiny else (FASTER_RCNN_X101_SERVING if args.serving else FASTER_RCNN_X101_SPACECRAFT)
-    detector = GeneralizedRCNN(det_cfg, dtype=torch.bfloat16, device=device)
-    detector.load_state_dict(flax_to_state_dict({"params": load_npz_variables(args.detector_checkpoint)["params"]}))
-    landmark_model = build_landmark_model(cfg.model.name, landmarks.shape[0], device=device, dtype=torch.bfloat16)
-    landmark_model.load_state_dict(flax_to_state_dict(load_npz_variables(args.landmark_checkpoint)))
+    detector = load_detector(args.detector_checkpoint, args.tiny, args.serving, torch.bfloat16, device)
+    landmark_model = load_landmark_model(args.landmark_checkpoint, cfg.model.name, landmarks.shape[0],
+                                         torch.bfloat16, device)
     config = PipelineConfig(image_size=tuple(cfg.model.image_size), solver="ransac")
 
-    scenes = args.scenes or sorted(
-        d for d in os.listdir(args.scenes_dir) if os.path.isdir(os.path.join(args.scenes_dir, d))
-    )
-    for scene in scenes:
+    for scene in scene_list(args):
         scene_dir = os.path.join(args.scenes_dir, scene)
         out_dir = os.path.join(args.output_dir, scene)
         os.makedirs(out_dir, exist_ok=True)

@@ -9,11 +9,13 @@ bf16 and its output is requantized; the res2..res5 outputs dequantize to
 bf16 for the FPN, which ``GeneralizedRCNN.forward(precomputed_feats=...)``
 takes in place of the bf16 backbone's.
 
-Every int8 conv is kernel K5a (``ops/int8_conv.py``), which reads each
-site's K-major ``w8k``: the holder of the tree packs it once
-(``int8_conv.with_kmajor``, as ``serving.PoseServer`` does). Only the dense
-Caffe2 trunk (``groups=1``, stride in the 1x1) is quantized here; the
-grouped ResNeXt trunk raises (the int8 X101 is not ported yet).
+Both trunks: the dense Caffe2 one (``groups=1``, stride in the 1x1) and
+the ResNeXt one (X101-32x8d: grouped 3x3s with the stride on them). Every
+int8 conv is kernel K5a (``ops/int8_conv.py``), which reads each site's
+K-major ``w8k``: the holder of the tree packs it once
+(:func:`pack_backbone`, as ``serving.PoseServer`` does), merging a grouped
+3x3's groups into whole kernel tiles. The quantized tree stays the JAX
+package's (compact ``w8``, no ``w8k``).
 """
 
 from __future__ import annotations
@@ -34,9 +36,6 @@ _EPS = 1e-5
 def _structure(cfg: ResNetConfig):
     """(stage_name, block_name, stride, has_shortcut) rows in execution
     order, mirroring ResNetBackbone.forward."""
-    if cfg.groups != 1 or not cfg.stride_in_1x1:
-        raise NotImplementedError("the int8 backbone takes the dense Caffe2 trunk only; the int8 ResNeXt "
-                                  "(grouped 3x3, stride in the 3x3) is not ported yet (ROADMAP.md)")
     rows = []
     for si, n_blocks in enumerate(RESNET_STAGE_BLOCKS[cfg.depth]):
         stride = 1 if si == 0 else 2
@@ -116,6 +115,17 @@ def quantize_backbone(cfg: ResNetConfig, model, calib_x: Tensor) -> dict:
     return q
 
 
+def pack_backbone(cfg: ResNetConfig, q: dict) -> dict:
+    """``q`` with K5a's K-major ``w8k`` beside each conv's ``w8`` that has
+    none: each grouped 3x3 (conv2) merged into whole kernel tiles
+    (``int8_conv.pack_grouped_kmajor`` at ``cfg.groups``), the others as
+    they are. Other leaves are the same objects."""
+    convs = {site: c if "w8k" in c else
+             dict(c, w8k=int8_conv.pack_grouped_kmajor(c["w8"], cfg.groups if site.endswith("/conv2") else 1))
+             for site, c in q["convs"].items()}
+    return dict(q, convs=convs)
+
+
 def max_pool_i8(x: Tensor) -> Tensor:
     """3x3 / 2 max-pool with padding 1 of an int8 NHWC tensor, padded with
     -inf as flax's ``max_pool``; through float32, which holds int8 exactly."""
@@ -123,10 +133,14 @@ def max_pool_i8(x: Tensor) -> Tensor:
     return y.to(torch.int8).permute(0, 2, 3, 1).contiguous()
 
 
-def backbone_int8_apply(cfg: ResNetConfig, q: dict, x_norm: Tensor) -> dict[str, Tensor]:
+def backbone_int8_apply(cfg: ResNetConfig, q: dict, x_norm: Tensor, fold_residual: bool = False) -> dict[str, Tensor]:
     """x_norm: (B, H, W, 3) f32 normalized images (what the backbone sees
     inside GeneralizedRCNN), on the device of ``q``. Returns {res2..res5:
-    (B, h, w, C) bf16 NHWC features} for the FPN."""
+    (B, h, w, C) bf16 NHWC features} for the FPN.
+
+    ``fold_residual``: conv3 and the shortcut feed the residual add as f32
+    (K5a's ``out_f32``), not requantized first (the JAX option of the same
+    name: close to the walk, not bit-equal to it)."""
     stem = q["stem"]
     y = F.conv2d(x_norm.permute(0, 3, 1, 2).to(torch.bfloat16), stem["w_bf16"].permute(3, 2, 0, 1),
                  stride=2, padding=3)
@@ -136,15 +150,17 @@ def backbone_int8_apply(cfg: ResNetConfig, q: dict, x_norm: Tensor) -> dict[str,
     feats = {}
     for stage, blk, stride, has_sc in _structure(cfg):
         c1, c2, c3 = (convs[f"{blk}/conv{i}"] for i in (1, 2, 3))
-        h1 = int8_conv.int8_conv(x, c1["w8"], c1["m"], c1["b"], stride=stride, relu=True,  # stride in the 1x1
-                                 wk=c1.get("w8k"))
-        h2 = int8_conv.int8_conv(h1, c2["w8"], c2["m"], c2["b"], relu=True, wk=c2.get("w8k"))
-        # conv3 and the shortcut are requantized before the add, as the
-        # JAX walk's _requant(f) does without fold_residual
-        r3 = int8_conv.int8_conv(h2, c3["w8"], c3["m"], c3["b"], wk=c3.get("w8k"))
+        s1, s3 = (stride, 1) if cfg.stride_in_1x1 else (1, stride)
+        h1 = int8_conv.int8_conv(x, c1["w8"], c1["m"], c1["b"], stride=s1, relu=True, wk=c1.get("w8k"))
+        h2 = int8_conv.int8_conv(h1, c2["w8"], c2["m"], c2["b"], stride=s3, groups=cfg.groups, relu=True,
+                                 wk=c2.get("w8k"))
+        # without fold_residual conv3 and the shortcut are requantized before
+        # the add, as the JAX walk's _requant(f) does
+        r3 = int8_conv.int8_conv(h2, c3["w8"], c3["m"], c3["b"], out_f32=fold_residual, wk=c3.get("w8k"))
         if has_sc:
             sc = convs[f"{blk}/shortcut"]
-            r = int8_conv.int8_conv(x, sc["w8"], sc["m"], sc["b"], stride=stride, wk=sc.get("w8k"))
+            r = int8_conv.int8_conv(x, sc["w8"], sc["m"], sc["b"], stride=stride, out_f32=fold_residual,
+                                    wk=sc.get("w8k"))
         else:
             r = x
         coeffs = q["blocks"][blk]["coeffs"]

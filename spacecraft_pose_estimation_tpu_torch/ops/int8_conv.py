@@ -12,14 +12,22 @@ Layouts are the JAX package's: NHWC activations, HWIO weights. The
 kernel multiplies on the int8 tensor cores, which take both operands
 K-major, so it reads a second copy of the weights, (Cout, k, k, Cin / groups)
 (:func:`pack_kmajor`), that the model packs once when it is built
-(:func:`with_kmajor`) and hands over as ``wk``. A grouped conv is a plain
-``groups=g`` conv: the JAX backbone's expansion to 128-wide block-diagonal
-groups packs TPU lanes with zeros that change nothing.
+(:func:`with_kmajor`) and hands over as ``wk``.
+
+A grouped conv's plain version is a plain ``groups=g`` conv on the compact
+weight. The kernel's tiles hold whole groups of at least
+``TILE_CHANNELS`` output channels, so its copy merges adjacent groups
+block-diagonally until a merged group fills whole tiles
+(:func:`pack_grouped_kmajor`; X101's res2 groups of 8 channels 4 to a
+tile, res3's of 16 two to a tile), as the JAX backbone merges them into
+128-wide groups for TPU lanes. The zeros change no int32 sum, so both
+agree bit for bit; the kernel reads its group count off ``wk``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +40,9 @@ KERNEL = _cuda.Kernel(
     "int8_conv_requant", "int8_conv_requant.cu",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
 )
+# K5a's launches at a (merged) group count above 1, the grouped 3x3 sites:
+# counted where they launch, beside KERNEL.launches, which counts them all
+GROUPED = SimpleNamespace(launches=0)
 TILE_CHANNELS = 32  # the narrowest tile's output channels; a grouped conv's groups hold whole tiles
 
 
@@ -39,6 +50,52 @@ def pack_kmajor(w: Tensor) -> Tensor:
     """HWIO (..., k, k, Cin, Cout) int8 weights -> K-major (..., Cout, k, k, Cin),
     contiguous: each output channel's k * k * Cin weights in a row."""
     return w.movedim(-1, -4).contiguous()
+
+
+def merged_groups(groups: int, cout_g: int) -> int:
+    """The kernel's group count for a conv of ``groups`` groups of ``cout_g``
+    output channels: the fewest adjacent groups merged that fill whole
+    ``TILE_CHANNELS`` tiles (and divide ``groups``), or one dense group
+    where no merge does."""
+    for m in range(1, groups + 1):
+        if groups % m == 0 and (m * cout_g) % TILE_CHANNELS == 0:
+            return groups // m
+    return 1
+
+
+def pack_grouped_kmajor(w: Tensor, groups: int) -> Tensor:
+    """Compact grouped HWIO weights (k, k, Cin / groups, Cout) -> the kernel's
+    K-major copy (Cout, k, k, Cin / g) at ``g = merged_groups(...)``: the
+    block-diagonal merge of each ``m = groups / g`` adjacent groups (merged
+    group G's input channels are its groups' in turn, and group G m + p
+    reads only the p-th of them), packed by :func:`pack_kmajor`."""
+    k, k2, cin_g, cout = w.shape
+    g = merged_groups(groups, cout // groups)
+    m = groups // g
+    if m == 1:
+        return pack_kmajor(w)
+    w5 = w.reshape(k, k2, cin_g, groups, cout // groups)
+    merged = w.new_zeros(k, k2, m, cin_g, groups, cout // groups)
+    for p in range(m):
+        merged[:, :, p, :, p::m] = w5[:, :, :, p::m]
+    return pack_kmajor(merged.reshape(k, k2, m * cin_g, cout))
+
+
+def kernel_groups(cin: int, wk_shape) -> int:
+    """The group count K5a runs a conv of ``cin`` input channels at: read off
+    its K-major weights (Cout, k, k, Cin / g). Raises for what the kernel
+    does not take: Cin / g not a multiple of 4, or groups of output
+    channels that do not fill whole ``TILE_CHANNELS`` tiles."""
+    cout, k, k2, cin_g = wk_shape
+    groups = cin // cin_g if cin_g else 0
+    if k != k2 or groups * cin_g != cin or cout % groups:
+        raise ValueError(f"int8_conv: {cin} input channels and wk {tuple(wk_shape)} disagree")
+    if cin_g % 4:
+        raise ValueError(f"int8_conv: the kernel needs input channels per group a multiple of 4, got {cin_g}")
+    if groups > 1 and (cout // groups) % TILE_CHANNELS:
+        raise ValueError(f"int8_conv: grouped convs need output groups of a multiple of {TILE_CHANNELS} "
+                         f"channels, got {cout // groups} (pack_grouped_kmajor merges them)")
+    return groups
 
 
 def unpack_kmajor(wk: Tensor) -> Tensor:
@@ -91,36 +148,34 @@ def int8_conv(x: Tensor, w: Tensor, m: Tensor, b: Tensor, stride: int = 1, group
     emitted as int8 ``clip(rint(f), -127, 127)`` or, with ``out_f32``, as f32.
 
     x (B, H, W, Cin) int8 NHWC; w (k, k, Cin / groups, Cout) int8 HWIO;
-    m, b (Cout,) f32; wk ``pack_kmajor(w)``. CPU tensors take the plain
-    version on ``w``; CUDA tensors launch K5a on ``wk``, which they require,
-    with Cin / groups a multiple of 4 and, with groups > 1, Cout / groups a
-    multiple of 32.
+    m, b (Cout,) f32; wk ``pack_grouped_kmajor(w, groups)``. CPU tensors
+    take the plain version on ``w`` and ``groups``; CUDA tensors launch K5a
+    on ``wk``, which they require, at the group count it holds
+    (:func:`kernel_groups`).
     """
     if x.device.type == "cpu":
         return int8_conv_plain(x, w, m, b, stride, groups, relu, out_f32)
-    return _launch(x, wk, m, b, stride, groups, relu, out_f32)
+    return _launch(x, wk, m, b, stride, relu, out_f32)
 
 
-def _launch(x, wk, m, b, stride, groups, relu, out_f32):
+def _launch(x, wk, m, b, stride, relu, out_f32):
     if wk is None:
-        raise ValueError("int8_conv: the CUDA kernel needs the K-major weights wk = pack_kmajor(w), "
-                         "packed once when the model is built (with_kmajor)")
+        raise ValueError("int8_conv: the CUDA kernel needs the K-major weights wk = pack_grouped_kmajor(w, groups), "
+                         "packed once when the model is built (with_kmajor, backbone_int8.pack_backbone)")
     _cuda.check_cuda_tensor("x", x, torch.int8, 4)
     _cuda.check_word_aligned("x", x)
     _cuda.check_cuda_tensor("wk", wk, torch.int8, 4)
     _cuda.check_cuda_tensor("m", m, torch.float32, 1)
     _cuda.check_cuda_tensor("b", b, torch.float32, 1)
     bsz, h, wd, cin = x.shape
-    cout, k, k2, cin_g = wk.shape
-    if k != k2 or cin_g * groups != cin or cout % groups or m.shape[0] != cout or b.shape[0] != cout:
-        raise ValueError(f"int8_conv: x {tuple(x.shape)}, wk {tuple(wk.shape)}, groups {groups} disagree")
-    if cin_g % 4:
-        raise ValueError(f"int8_conv: the kernel needs input channels per group a multiple of 4, got {cin_g}")
-    if groups > 1 and (cout // groups) % TILE_CHANNELS:
-        raise ValueError(f"int8_conv: grouped convs need output groups of a multiple of {TILE_CHANNELS} "
-                         f"channels, got {cout // groups}")
+    cout, k = wk.shape[:2]
+    groups = kernel_groups(cin, wk.shape)
+    if m.shape[0] != cout or b.shape[0] != cout:
+        raise ValueError(f"int8_conv: wk {tuple(wk.shape)}, m {tuple(m.shape)}, b {tuple(b.shape)} disagree")
     ho, wo = out_size(h, k, stride), out_size(wd, k, stride)
     out = torch.empty((bsz, ho, wo, cout), dtype=torch.float32 if out_f32 else torch.int8, device=x.device)
     KERNEL.launch(_cuda.ptr(x), _cuda.ptr(wk), _cuda.ptr(m), _cuda.ptr(b), _cuda.ptr(out),
                   bsz, h, wd, cin, ho, wo, cout, k, stride, groups, int(relu), int(out_f32))
+    if groups > 1:
+        GROUPED.launches += 1
     return out

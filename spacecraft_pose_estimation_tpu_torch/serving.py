@@ -18,10 +18,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .models.backbone_int8 import backbone_int8_apply, quantize_backbone
+from .models.backbone_int8 import backbone_int8_apply, pack_backbone, quantize_backbone
 from .models.hrnet_int8 import HRNetInt8, quantize_hrnet, tree_map
 from .models.rcnn import select_best_box
-from .ops.int8_conv import with_kmajor
 from .pipeline import PipelineConfig, make_pose_pipeline, normalize_crops
 
 Tensor = torch.Tensor
@@ -77,7 +76,7 @@ class PoseServer:
         self.detector = detector
         self.det_every, self.det_size = det_every, det_size
         # int8 backbone tree, on the detector's device, with its kernel weights packed once
-        self.backbone_q = with_kmajor(backbone_q) if backbone_q is not None else None
+        self.backbone_q = pack_backbone(detector.config.backbone, backbone_q) if backbone_q is not None else None
         self.landmarks = landmark_model
         self.pose = make_pose_pipeline(landmark_model, landmarks_3d, K, dist, config)
 
@@ -118,7 +117,9 @@ def build_int8_server(detector, landmark_model, landmarks_3d, K, dist,
                       config: PipelineConfig = SERVING_PIPELINE, det_every: int = 16, det_size: int = 768,
                       backbone_q: dict | None = None, hrnet_q: dict | None = None,
                       **hrnet_flags) -> PoseServer:
-    """The int8 serving form of ``bench.py`` (``det_kind="r101_1obj_int8"``).
+    """The int8 serving forms of ``bench.py``: ``det_kind="r101_1obj_int8"``
+    (the R101 presets) and ``"x101_int8"`` (``FASTER_RCNN_X101_SERVING``),
+    picked by the detector's config.
 
     The detector runs on its backbone quantized by ``quantize_backbone``; the
     landmark model is ``HRNetInt8(fold_normalize=True)`` over the quantized
@@ -127,7 +128,9 @@ def build_int8_server(detector, landmark_model, landmarks_3d, K, dist,
     ones are calibrated as ``bench.py`` does, on uniform random pixels drawn
     from seed 0: two letterboxed images for the backbone, then four crops
     for the HRNet. ``hrnet_flags`` go to ``HRNetInt8`` (``fused_blocks``,
-    ``layer1_strips``, ``fused_min_width``, ``fuse_exchange``).
+    ``layer1_strips``, ``fused_min_width``, ``fuse_exchange``). The
+    backbone's ``fold_residual`` is not served: ``bench.py`` couples it to
+    HRNet's (``BENCH_FOLD``), which is not ported.
     """
     device = next(detector.parameters()).device
     rng = np.random.default_rng(0)

@@ -283,16 +283,19 @@ def test_main_writes_the_artifacts_of_run_scene(setup, tmp_path):
 
 
 def test_main_refuses_staged_and_orbax(setup, tmp_path):
+    """An orbax checkpoint directory is refused, naming the .npz format: by
+    the fused entry, and by the staged one, whose detector stage (a
+    separate process) fails and stops the run with its output."""
     s = setup
     _write_scene(s, tmp_path)
     base = ["--scenes-dir", str(tmp_path / "scenes"), "--landmarks-file", str(tmp_path / "landmarks.csv"),
             "--calibration-file", str(tmp_path / "calibration.json"), "--landmark-checkpoint",
             str(tmp_path / "hrnet.npz"), "--output-dir", str(tmp_path / "out"), "--tiny", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate.main(base + ["--detector-checkpoint", str(tmp_path / "det.npz"), "--staged"])
     (tmp_path / "orbax_ckpt").mkdir()
     with pytest.raises(ValueError, match=r"\.npz"):
         evaluate.main(base + ["--detector-checkpoint", str(tmp_path / "orbax_ckpt")])
+    with pytest.raises(RuntimeError, match=r"stage failed(.|\n)*export_boxes(.|\n)*\.npz"):
+        evaluate.main(base + ["--detector-checkpoint", str(tmp_path / "orbax_ckpt"), "--staged"])
 
 
 def test_help_runs_without_jax():

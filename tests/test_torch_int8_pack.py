@@ -6,6 +6,12 @@ K-major, so every int8 site also holds its weights as (Cout, k, k, Cin)
 public functions and the plain versions keep the JAX package's HWIO
 layout; on CUDA tensors the wrappers require the packed copy and raise
 without it, before any launch.
+
+A grouped conv's copy merges adjacent groups block-diagonally until a
+merged group's outputs fill whole 32-channel kernel tiles
+(``pack_grouped_kmajor``); K5a reads its group count off that copy
+(``kernel_groups``), so the plain conv at the merged group count on the
+unpacked copy must equal the compact grouped conv bit for bit.
 """
 
 import dataclasses
@@ -184,3 +190,77 @@ def test_plain_versions_ignore_the_packed_weights():
     want = int8_blocks.up_exchange_plain(yi, [], ups, coeffs)
     got = int8_blocks.up_exchange(yi, [], ups, coeffs, wks=[int8_conv.pack_kmajor(w[:1, :1])])
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("width,groups,merged", [(4, 8, 1), (8, 8, 2), (8, 32, 8), (16, 8, 4), (32, 4, 4),
+                                                 (64, 2, 2)],
+                         ids=["w4-dense", "w8", "w8-x101-res2", "w16", "w32", "w64"])
+def test_grouped_pack_equals_compact_conv(width, groups, merged):
+    """Groups of ``width`` channels: merged m = 32 / width to a tile (none at
+    32 and 64; all into one dense group where the conv is narrower than a
+    tile), block-diagonal with exact zeros; the conv on the merged copy
+    equals the compact grouped conv bit for bit, strided as X101's first
+    blocks."""
+    rng = np.random.default_rng(6)
+    c = width * groups
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, width, c)).astype(np.int8))
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 11, 9, c)).astype(np.int8))
+    m, b = torch.from_numpy(rng.uniform(1e-4, 1e-3, c).astype(np.float32)), torch.zeros(c)
+    wk = int8_conv.pack_grouped_kmajor(w, groups)
+    assert int8_conv.merged_groups(groups, width) == merged == int8_conv.kernel_groups(c, wk.shape)
+    assert wk.shape == (c, 3, 3, c // merged) and wk.is_contiguous()
+    dense = int8_conv.unpack_kmajor(wk)
+    m_per = groups // merged
+    for o in range(c):  # output channel o of group o // width sees only its own group's inputs
+        p = (o // width) % m_per
+        inside = slice(p * width, (p + 1) * width)
+        torch.testing.assert_close(dense[..., inside, o], w[..., o], rtol=0, atol=0)
+        assert not dense[..., :p * width, o].any() and not dense[..., (p + 1) * width:, o].any()
+    for stride in (1, 2):
+        want = int8_conv.int8_conv_plain(x, w, m, b, stride=stride, groups=groups, relu=True)
+        got = int8_conv.int8_conv_plain(x, dense, m, b, stride=stride, groups=merged, relu=True)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        want32 = int8_conv.int8_conv_plain(x, w, m, b, stride=stride, groups=groups, out_f32=True)
+        torch.testing.assert_close(int8_conv.int8_conv_plain(x, dense, m, b, stride=stride, groups=merged,
+                                                             out_f32=True), want32, rtol=0, atol=0)
+
+
+def test_kernel_groups_read_from_wk():
+    """The launch's group count is Cin over wk's last dimension, whatever
+    the caller's ``groups``; what the kernel does not take raises."""
+    assert int8_conv.kernel_groups(256, (256, 3, 3, 32)) == 8
+    assert int8_conv.kernel_groups(64, (128, 1, 1, 64)) == 1  # the HRNet and dense sites: unchanged
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int8_conv.kernel_groups(256, (256, 3, 3, 8))  # compact X101 res2 weights, unmerged
+    with pytest.raises(ValueError, match="multiple of 4"):
+        int8_conv.kernel_groups(6, (8, 3, 3, 6))
+    with pytest.raises(ValueError, match="disagree"):
+        int8_conv.kernel_groups(60, (64, 3, 3, 16))
+
+
+def test_int8_backbone_packs_grouped_sites():
+    """``PoseServer`` packs an int8 ResNeXt tree once: each conv2 merged to
+    whole tiles (8 groups of 8 -> 2 of 32 in res2), the other sites as
+    ``pack_kmajor``; the quantizer's tree keeps the compact ``w8`` and no
+    ``w8k``."""
+    from spacecraft_pose_estimation_tpu_torch.models.resnet_backbone import ResNetConfig
+
+    backbone = ResNetConfig(depth=50, stem_channels=8, res2_out_channels=64, groups=8, width_per_group=8,
+                            stride_in_1x1=False)
+    det = rcnn.GeneralizedRCNN(dataclasses.replace(rcnn.RCNN_TINY, backbone=backbone), device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+    calib = torch.from_numpy(np.random.default_rng(2).integers(0, 255, (1, 64, 64, 3)).astype(np.float32))
+    qb = backbone_int8.quantize_backbone(backbone, det, det.normalize(calib))
+    assert all("w8k" not in site for site in qb["convs"].values())
+    hr = hrnet.HRNet(dataclasses.replace(hrnet.HRNET_TINY, num_joints=J), device="cpu",
+                     generator=torch.Generator().manual_seed(1))
+    cfg = pipeline.PipelineConfig(image_size=(64, 64), solver="gn", refine_iters=2, crop_window=(112, 112))
+    server = serving.PoseServer(det, hr, np.zeros((J, 3), np.float32), np.eye(3, dtype=np.float32),
+                                np.zeros(5, np.float32), cfg, det_size=64, backbone_q=qb)
+    groups_at = {"res2": 2, "res3": 4, "res4": 8, "res5": 8}
+    for name, site in server.backbone_q["convs"].items():
+        cin = site["w8"].shape[2] * (backbone.groups if name.endswith("/conv2") else 1)
+        want = groups_at[name[:4]] if name.endswith("/conv2") else 1
+        assert int8_conv.kernel_groups(cin, site["w8k"].shape) == want, name
+        if not name.endswith("/conv2"):
+            torch.testing.assert_close(site["w8k"], hwio_transposed(site["w8"]), rtol=0, atol=0)

@@ -12,6 +12,10 @@ to JAX in ``test_torch_hrnet_int8.py`` and ``test_torch_backbone_int8.py``),
 on the same frames; the port's ``build_int8_server`` runs on the CPU,
 per-op and with every fused kernel route on.
 
+The int8 X101 form (``det_kind="x101_int8"``: ``FASTER_RCNN_X101_SERVING``'s
+grouped trunk with the stride in its 3x3s) runs the same composition on
+``RCNN_TINY`` with the JAX tests' ``TINY_X`` trunk and X101's pixel std.
+
 Bounds, as ``test_torch_serving.py`` (boxes 1e-3 px, keypoints 1e-2 px,
 R, t, q 1e-4) and on the same scene with one exact pose (one frame
 repeated, landmarks lifted from its keypoints). The int8 sites are
@@ -53,12 +57,31 @@ T_TRUE = np.array([0.3, -0.2, 1.5], np.float32)
 FUSED = dict(fused_blocks=True, layer1_strips=True, fuse_exchange=True)
 
 
+TINY_X = dict(groups=4, width_per_group=4, stride_in_1x1=False)
+
+
 @pytest.fixture(scope="module")
 def setup():
+    return _make_setup({}, {})
+
+
+@pytest.fixture(scope="module")
+def setup_x():
+    from spacecraft_pose_estimation_tpu_torch.models.resnet_backbone import RESNET_TINY
+
+    jx = dict(backbone=dataclasses.replace(jrcnn.RCNN_TINY.backbone, **TINY_X), pixel_std=jrcnn.X101_PIXEL_STD)
+    tx = dict(backbone=dataclasses.replace(RESNET_TINY, **TINY_X), pixel_std=trcnn.X101_PIXEL_STD)
+    return _make_setup(jx, tx)
+
+
+def _make_setup(j_fields, t_fields):
+    """Both sides' models, trees and served outputs, the detectors' configs
+    RCNN_TINY with ``j_fields`` / ``t_fields`` replaced."""
     rng = np.random.default_rng(7)
     frames = np.repeat(rng.integers(0, 255, (1, *FRAMES_HW, 3)).astype(np.uint8), CLIP, axis=0)
     j_det_cfg = dataclasses.replace(
-        jrcnn.RCNN_TINY, roi=dataclasses.replace(jrcnn.RCNN_TINY.roi, pooler_impl="pallas", pooler_window=32))
+        jrcnn.RCNN_TINY, roi=dataclasses.replace(jrcnn.RCNN_TINY.roi, pooler_impl="pallas", pooler_window=32),
+        **j_fields)
     jdet = jrcnn.GeneralizedRCNN(config=j_det_cfg)
     det_vars = random_variables(
         lambda: jdet.init({"params": jax.random.key(0)}, jnp.zeros((1, DET_SIZE, DET_SIZE, 3)), train=False),
@@ -68,7 +91,8 @@ def setup():
     hr_vars = random_variables(lambda: jhr.init(jax.random.key(0), jnp.zeros((1, 64, 64, 3)), train=False),
                                seed=4, overrides={"final_layer": 0.1})
     tdet = trcnn.GeneralizedRCNN(
-        dataclasses.replace(trcnn.RCNN_TINY, roi=dataclasses.replace(trcnn.RCNN_TINY.roi, pooler_window=32)),
+        dataclasses.replace(trcnn.RCNN_TINY, roi=dataclasses.replace(trcnn.RCNN_TINY.roi, pooler_window=32),
+                            **t_fields),
         device="cpu")
     tdet.load_state_dict(flax_to_state_dict(det_vars))
     thr = HRNet(HRNET_TINY.with_joints(J), device="cpu")
@@ -147,6 +171,14 @@ def test_int8_server_matches_jax_serving_graph(setup, flags):
         np.testing.assert_allclose(n(got[key]), want[key], atol=1e-4, rtol=1e-4, err_msg=key)
     np.testing.assert_allclose(n(got["R"]), np.broadcast_to(R_TRUE, (CLIP, 3, 3)), atol=1e-3)
     np.testing.assert_allclose(n(got["t"]), np.broadcast_to(T_TRUE, (CLIP, 3)), atol=1e-2)
+
+
+@pytest.mark.parametrize("flags", [{}, FUSED], ids=["per_op", "fused"])
+def test_x101_int8_server_matches_jax_serving_graph(setup_x, flags):
+    """``bench.py``'s ``det_kind="x101_int8"`` at this size: the grouped int8
+    trunk (stride in the 3x3s) under the same detector heads and int8 HRNet."""
+    assert setup_x["tdet"].config.backbone.groups == 4 and not setup_x["tdet"].config.backbone.stride_in_1x1
+    test_int8_server_matches_jax_serving_graph(setup_x, flags)
 
 
 def test_int8_server_calibrates_its_own_trees(setup):

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,6 +50,12 @@ def test_entry_points_need_cuda_or_an_explicit_device():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GeneralizedRCNN(RCNN_TINY)
     assert next(HRNet(HRNET_TINY, device="cpu").parameters()).device.type == "cpu"
+    # CUDA named explicitly raises the same way, where a card is missing
+    from spacecraft_pose_estimation_tpu_torch.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
     from spacecraft_pose_estimation_tpu_torch import evaluate
     from spacecraft_pose_estimation_tpu_torch.models import build_landmark_model
 
@@ -58,6 +65,18 @@ def test_entry_points_need_cuda_or_an_explicit_device():
     with pytest.raises(RuntimeError, match="--device cpu"):
         evaluate.main(["--scenes-dir", ".", "--landmarks-file", "l.csv", "--calibration-file", "c.json",
                        "--detector-checkpoint", "d.npz", "--landmark-checkpoint", "h.npz", "--output-dir", "."])
+    # so do the staged evaluation's stage commands, and the PnP stage's function
+    from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks
+
+    for tool, args in ((export_boxes, ["--image-dir", ".", "--checkpoint", "d.npz", "--output-dir", "."]),
+                       (test_landmarks, ["--test-json", "t.json", "--image-dir", ".", "--checkpoint", "h.npz"]),
+                       (export_poses, ["--frames-dir", ".", "--detection-annotations", "t.json",
+                                       "--pose-annotations", "p.mat", "--landmarks-file", "l.csv",
+                                       "--calibration-file", "c.json", "--output-dir", "."])):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            tool.main(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_poses.solve_poses(np.zeros((1, 11, 3), np.float32), np.zeros((11, 3)), None)
 
 
 def test_wrappers_launch_or_raise_off_the_cpu():
