@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and evaluation paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation and training paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -69,7 +69,20 @@ toolkit. It
    of a keyframe batch and times them against ``torch._int_mm`` on the
    dense block-diagonal weights; the tiny grouped int8 trunk is checked
    against the CPU in step 2;
-11. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+11. trains: first ``HRNET_TINY`` in float32 on the card against the CPU
+   (the training transform on the same draws, then 3 Adam updates on the
+   same batch); then ``tools.train_landmarks.train`` with the ``events``
+   preset at full width (HRNet-W32, 512 -> 128, batch 24, bf16 activations
+   over float32 weights, Adam 1e-3) on 96 seeded 1280x720 uint8 frames on
+   the card with 11 projected landmarks, 2 epochs of 4 steps, the device
+   cache on and a validation json of 16 frames (K1's counter reset just
+   before, read just after; K1 held to its plain version on the last
+   validation batch); checks the losses and parameters finite, the final
+   ``.npz`` through ``evaluate.load_landmark_model`` (heatmaps 0 apart
+   from the trained model's) and that 30 updates on one repeated batch
+   lower its loss; prints step ms, images/s, transform, epoch and
+   validation times and the peak memory;
+12. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -831,23 +844,29 @@ def stage_times(torch, m, run) -> dict[str, float]:
 
 
 def profile_clip(torch, run) -> None:
-    """torch.profiler over one served clip: device time by kernel and the
-    device's busy share of the clip's wall time."""
+    """torch.profiler over one served clip."""
+    profile_call(torch, lambda: run.server(run.frames), run.form)
+
+
+def profile_call(torch, fn, label: str) -> None:
+    """torch.profiler over one call of ``fn``: device time by kernel, the
+    kernels launched, and the device's busy share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run.server(run.frames)
+        fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     table = prof.key_averages()
     log(table.table(sort_by="self_cuda_time_total", row_limit=15))
     # every kernel's own device time: the port's kernels are launched through
     # ctypes, under no torch op, so a sum over host ops would miss them
-    busy_us = sum(e.self_device_time_total for e in table if e.device_type == DeviceType.CUDA)
-    log(f"profile {run.form}: device busy {busy_us:.0f} us of {wall_us:.0f} us wall (profiler on) = "
-        f"{busy_us / wall_us:.4f}")
+    kernels = [e for e in table if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"profile {label}: device busy {busy_us:.0f} us of {wall_us:.0f} us wall (profiler on) = "
+        f"{busy_us / wall_us:.4f}; {sum(e.count for e in kernels)} kernel launches")
 
 
 def check_fused_against_per_op(torch, m, run, captures) -> None:
@@ -1330,6 +1349,248 @@ def evaluate_stage_times(torch, m, det, hr, frames, config, lm3d, cam, r101) -> 
         f"X101 takes {r101_rate / x101_rate:.2f}x R101's time per FLOP")
 
 
+TRAIN_HW = (720, 1280)  # the events dataset's frames
+TRAIN_FRAMES, TRAIN_VAL_FRAMES, TRAIN_REPEATS = 96, 16, 30
+
+
+class Timed:
+    """Time every call to ``module.name`` on the card (synchronized before
+    and after) while active; ``factory``: ``name`` makes the function to
+    time (the trainer's ``make_train_step``). ``keep`` keeps the results."""
+
+    def __init__(self, module, name: str, factory: bool = False, keep: bool = False):
+        self.module, self.name, self.factory, self.keep = module, name, factory, keep
+        self.orig, self.ms, self.results = getattr(module, name), [], []
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            if self.keep:
+                self.results.append(out)
+            return out
+
+        return call
+
+    def __enter__(self):
+        patched = (lambda *a, **k: self._timed(self.orig(*a, **k))) if self.factory else self._timed(self.orig)
+        setattr(self.module, self.name, patched)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def landmark_scene(torch, m, dev, n: int, seed: int, out_dir: str, split: str):
+    """``n`` seeded uint8 BGR 1280x720 frames on the card (dim noise, the 11
+    landmarks of a random body drawn as 7x7 white squares at their
+    projections under seeded poses) and their COCO json ->
+    ``LandmarkExamples`` over the frames in memory."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lm3d = rng.normal(0, 0.5, (NUM_JOINTS, 3))
+    K = np.array([[1100.0, 0, 640.0], [0, 1100.0, 360.0], [0, 0, 1]])
+    h, w = TRAIN_HW
+    frames = torch.randint(0, 48, (n, h, w, 3), dtype=torch.uint8, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    images, anns = [], []
+    for i in range(n):
+        q = np.concatenate([[1.0], rng.normal(0, 0.3, 3)])
+        R = m.geometry.quat_to_dcm(torch.tensor(q / np.linalg.norm(q), dtype=torch.float32)).double().numpy()
+        t = np.array([rng.normal(0, 0.3), rng.normal(0, 0.2), rng.uniform(6.0, 10.0)])
+        uv = m.coco_io.project_landmarks(lm3d, R, t, K)
+        for x, y in np.rint(uv).astype(int):
+            frames[i, max(y - 3, 0):max(y + 4, 0), max(x - 3, 0):max(x + 4, 0)] = 255
+        lo, hi = uv.min(0) - 20, uv.max(0) + 20
+        images.append(m.coco_io.image_record(f"{split}{i:04d}.png", w, h, i))
+        kps = np.concatenate([uv, np.full((NUM_JOINTS, 1), 2.0)], 1)
+        anns.append(m.coco_io.keypoint_annotation(kps, [lo[0], lo[1], hi[0] - lo[0], hi[1] - lo[1]], i, i))
+    path = os.path.join(out_dir, f"{split}.json")
+    m.coco_io.save_coco(m.coco_io.build_coco_dict(images, anns, NUM_JOINTS), path)
+    return m.landmark_dataset.LandmarkExamples(path, frames={im["file_name"]: frames[i]
+                                                             for i, im in enumerate(images)})
+
+
+def check_train_tiny_against_cpu(torch, m) -> None:
+    """``HRNET_TINY`` in float32 (TF32 off) on the card against the CPU:
+    the training transform from the same draws (crops within 1e-3 grey,
+    targets 1e-6, weights equal; boxes inside the frames, the frame's edge
+    being held on the CPU by the tests), then 3 Adam updates on the same
+    batch from the same weights (losses and grad norms 1e-4 relative, BN
+    statistics 1e-5, parameters within 1 lr and at most 1% of them beyond
+    1e-3 lr: Adam moves an entry whose gradient is near its eps by up to lr
+    on a rounding)."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    b, lr = 4, 1e-3
+    x = torch.nn.functional.avg_pool2d(torch.rand(b, 3, 96, 128, generator=torch.Generator().manual_seed(5)) * 255,
+                                       7, 1, 3, count_include_pad=False)
+    frames = ((x - x.mean()) / x.std() * 50 + 128).clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1)
+    bboxes = torch.from_numpy(np.concatenate([rng.uniform(50, 60, (b, 2)), rng.uniform(14, 20, (b, 2))], 1)
+                              .astype(np.float32))
+    joints = bboxes[:, None, :2] + torch.from_numpy(rng.uniform(0, 1, (b, NUM_JOINTS, 2)).astype(np.float32)) \
+        * bboxes[:, None, 2:]
+    vis = torch.ones(b, NUM_JOINTS)
+    draws = m.landmark_dataset.sample_draws(torch.Generator().manual_seed(6), b, 0.25, 30.0, half_body=False)
+    kw = dict(image_size=(64, 64), heatmap_size=(16, 16), sigma=2.0, draws=draws)
+    cpu = m.landmark_dataset.device_transform(frames, bboxes, joints, vis, **kw)
+    gpu = m.landmark_dataset.device_transform(frames.cuda(), bboxes.cuda(), joints.cuda(), vis.cuda(), **kw)
+    std = torch.tensor(m.pipeline.IMAGENET_STD) * 255.0
+    crop_err = ((gpu["image"].cpu() - cpu["image"]) * std).abs().max().item()
+    tgt_err = (gpu["target"].cpu() - cpu["target"]).abs().max().item()
+    tw_same = torch.equal(gpu["target_weight"].cpu(), cpu["target_weight"])
+    log(f"tiny train transform, card vs CPU: crops max_abs_err {crop_err:.3g} grey (limit 1e-3), targets "
+        f"{tgt_err:.3g} (limit 1e-6), target weights equal {tw_same}; rotations {draws['rots'].tolist()}")
+    if not (crop_err <= 1e-3 and tgt_err <= 1e-6 and tw_same):
+        raise RuntimeError(f"tiny train transform: crops {crop_err}, targets {tgt_err}, weights equal {tw_same}")
+    cfg = dataclasses.replace(m.hrnet.HRNET_TINY, num_joints=NUM_JOINTS)
+    states = {}
+    for device in ("cpu", "cuda"):
+        model = m.hrnet.HRNet(cfg, device=device, generator=torch.Generator().manual_seed(1))
+        opt = m.optim.build_optimizer("adam", model.parameters(), m.optim.multistep_schedule(lr, [2]),
+                                      weight_decay=1e-4)
+        states[device] = (m.train_state.TrainState(model, opt), [])
+    step = m.train_state.make_train_step(True)
+    for _ in range(3):
+        for device, (state, mets) in states.items():
+            batch = {k: cpu[k].to(device) for k in ("image", "target", "target_weight")}
+            mets.append({k: v.item() for k, v in step(state, batch).items()})
+    (sc, mc), (sg, mg) = states["cpu"], states["cuda"]
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(mc, mg))
+    gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(a["grad_norm"]) for a, b in zip(mc, mg))
+    sd_c, sd_g = sc.model.state_dict(), sg.model.state_dict()
+    stats_err = max((sd_g[k].cpu() - v).abs().max().item() for k, v in sd_c.items() if k.endswith((".mean", ".var")))
+    dp = torch.cat([((sd_g[k].cpu() - v).abs() / lr).flatten() for k, v in sd_c.items()
+                    if not k.endswith((".mean", ".var"))])
+    share = (dp > 1e-3).float().mean().item()
+    log(f"tiny train steps, card vs CPU (3 Adam updates, f32): losses {[round(a['loss'], 6) for a in mg]}, "
+        f"relative err {loss_err:.3g} (limit 1e-4), grad norms {gn_err:.3g} (limit 1e-4), BN statistics "
+        f"{stats_err:.3g} (limit 1e-5), parameters max {dp.max().item():.3g} lr (limit 1), share beyond 1e-3 lr "
+        f"{share:.3g} (limit 0.01) of {dp.numel()}")
+    if not (loss_err <= 1e-4 and gn_err <= 1e-4 and stats_err <= 1e-5 and dp.max().item() <= 1.0 and share <= 0.01):
+        raise RuntimeError(f"tiny train steps differ between the card and the CPU: loss {loss_err}, grad norm "
+                           f"{gn_err}, BN statistics {stats_err}, parameters {dp.max().item()} lr, share {share}")
+
+
+def train_phase(torch, m, dev, card):
+    """``tools.train_landmarks.train`` at the events preset's full width on
+    the card; returns K1's row on the last validation batch and the phase's
+    launch counts."""
+    import os
+    import tempfile
+
+    check_train_tiny_against_cpu(torch, m)
+    cfg = m.config.apply_overrides(m.config.get_preset("events"), ["TRAIN.END_EPOCH", "2"])
+    log(f"train_landmarks config: {cfg.model.name} {cfg.model.image_size} -> {cfg.model.heatmap_size}, batch "
+        f"{cfg.train.batch_size_per_chip}, {cfg.model.compute_dtype}, {cfg.train.optimizer} lr {cfg.train.lr}, "
+        f"lr_step {cfg.train.lr_step}, {TRAIN_FRAMES} frames of {TRAIN_HW[1]}x{TRAIN_HW[0]}, validation "
+        f"{TRAIN_VAL_FRAMES} frames in batches of {cfg.test.batch_size_per_chip}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        train_ex = landmark_scene(torch, m, dev, TRAIN_FRAMES, 11, out_dir, "train")
+        val_ex = landmark_scene(torch, m, dev, TRAIN_VAL_FRAMES, 12, out_dir, "val")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        steps = Timed(m.train_landmarks, "make_train_step", factory=True, keep=True)
+        transform = Timed(m.landmark_loop, "device_transform")
+        validate = Timed(m.landmark_loop, "validate")
+        epochs = Timed(m.landmark_loop, "train_epoch")
+        k1 = Capture(*m.kernels["K1"][:2])
+        with steps, transform, validate, epochs, k1:
+            reset_counts(m)
+            t0 = time.perf_counter()
+            state = m.train_landmarks.train(cfg, train_ex, out_dir, dev, val_ex)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = read_counts(m)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [met["loss"].item() for met in steps.results]
+        finite = all(math.isfinite(v) for v in losses) and all(
+            bool(torch.isfinite(v).all()) for v in state.model.state_dict().values())
+        per_epoch = len(steps.ms) // 2
+        step_ms = median(steps.ms[per_epoch:])  # after one warm-up epoch
+        batch = cfg.train.batch_size_per_chip
+        log(f"train_landmarks ({cfg.model.name} {cfg.model.image_size} -> {cfg.model.heatmap_size}, batch {batch}, "
+            f"{cfg.model.compute_dtype} over float32, {TRAIN_FRAMES} frames, "
+            f"2 epochs of {per_epoch} steps, validation of {TRAIN_VAL_FRAMES} after each) on {card}: {wall:.4f} s in "
+            f"all; train step {step_ms:.4f} ms (median of the {len(steps.ms) - per_epoch} steps after the warm-up "
+            f"epoch; all {[round(v, 4) for v in steps.ms]}) = {batch / step_ms * 1e3:.2f} images/s; transform "
+            f"{median(transform.ms):.4f} ms a batch (all {[round(v, 4) for v in transform.ms]}); epochs "
+            f"{[round(v, 4) for v in epochs.ms]} ms; validate {[round(v, 4) for v in validate.ms]} ms; peak memory "
+            f"{peak_gb:.4f} GB (torch.cuda.max_memory_allocated); losses {[round(v, 5) for v in losses]}; launches "
+            f"{json.dumps(launches)}")
+        if not finite:
+            raise RuntimeError(f"train_landmarks: a loss or a parameter is not finite: losses {losses}")
+        if launches["K1"] == 0:
+            raise RuntimeError("kernel K1 was not launched by the trainer's validation")
+        # the final checkpoint's .npz through the evaluation loader: the same heatmaps
+        npz = os.path.join(out_dir, "checkpoints", str(state.step), "model.npz")
+        loaded = m.evaluate.load_landmark_model(npz, cfg.model.name, NUM_JOINTS, torch.bfloat16, dev)
+        frames, bboxes, _, _ = m.landmark_dataset.DeviceDatasetCache(val_ex, dev).gather(range(TRAIN_VAL_FRAMES))
+        centers, scales = m.geometry.bbox_to_center_scale(bboxes)
+        crops = m.pipeline.normalize_crops(m.warp.crop_bilinear_plain(
+            frames, m.warp.crop_params(centers, scales, (512, 512)), (512, 512)))
+        state.model.eval()
+        with torch.inference_mode():
+            npz_err = (loaded(crops) - state.model(crops)).abs().max().item()
+        log(f"train_landmarks: the final .npz ({os.path.getsize(npz)} bytes) through evaluate.load_landmark_model: "
+            f"heatmaps on {TRAIN_VAL_FRAMES} validation crops {npz_err} from the trained model's (limit 0)")
+        if npz_err != 0:
+            raise RuntimeError(f"the trained model's .npz gives other heatmaps: {npz_err}")
+        k1_row = crop_row(torch, m, dev, k1.calls[-1],
+                          f"crop_bilinear (train_landmarks validate: batch {cfg.test.batch_size_per_chip})")
+        del state, loaded, crops
+        repeated_batch(torch, m, dev, cfg, train_ex, card)
+    return k1_row, launches
+
+
+def repeated_batch(torch, m, dev, cfg, examples, card) -> None:
+    """30 updates of a fresh W32 on one augmented batch of 24: the mean loss
+    of the last 5 must be below the first; the steps after the fifth timed."""
+    model = m.models.build_landmark_model(cfg.model.name, NUM_JOINTS, device=dev, dtype=torch.bfloat16,
+                                          generator=torch.Generator().manual_seed(0))
+    opt = m.optim.build_optimizer("adam", model.parameters(), cfg.train.lr)
+    state = m.train_state.TrainState(model, opt)
+    step = m.train_state.make_train_step(True)
+    b = cfg.train.batch_size_per_chip
+    images, bboxes, joints, vis = m.landmark_dataset.DeviceDatasetCache(examples, dev).gather(range(b))
+    batch = m.landmark_dataset.device_transform(
+        images, bboxes, joints, vis, m.landmark_loop.step_generator(1, 0), image_size=tuple(cfg.model.image_size),
+        heatmap_size=tuple(cfg.model.heatmap_size), sigma=cfg.model.sigma)
+    losses, ms, enqueue_ms = [], [], []
+    for _ in range(TRAIN_REPEATS):
+        sync()
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)  # the host's share: nothing in the step waits
+        losses.append(metrics["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    last = sum(losses[-5:]) / 5
+    step_ms = median(ms[5:])
+    log(f"train step on one repeated batch of {b} ({cfg.model.name} {cfg.model.image_size}, bf16, Adam "
+        f"{cfg.train.lr}) on {card}: losses "
+        f"{[round(v, 6) for v in losses]}; first {losses[0]:.6f}, mean of the last 5 {last:.6f} (must be lower); "
+        f"step {step_ms:.4f} ms (median of steps 6-{TRAIN_REPEATS}; all {[round(v, 4) for v in ms]}) = "
+        f"{b / step_ms * 1e3:.2f} images/s; the host returned from the step after {median(enqueue_ms[5:]):.4f} ms "
+        f"(median)")
+    if not (all(math.isfinite(v) for v in losses) and last < losses[0]):
+        raise RuntimeError(f"30 updates on one batch did not lower its loss: {losses}")
+    profile_call(torch, lambda: step(state, batch), f"train step (batch {b})")
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -1405,8 +1666,9 @@ def main() -> int:
     from spacecraft_pose_estimation_tpu_torch.models import (
         backbone_int8, hrnet, hrnet_int8, layers, rcnn, resnet_backbone,
     )
-    from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks
-    from spacecraft_pose_estimation_tpu_torch.train import landmark_loop
+    from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks, train_landmarks
+    from spacecraft_pose_estimation_tpu_torch.train import landmark_loop, optim
+    from spacecraft_pose_estimation_tpu_torch.train import state as train_state
     from spacecraft_pose_estimation_tpu_torch.ops import (
         geometry, heatmap, int8_blocks, int8_conv, nms, pnp, roi_align, warp,
     )
@@ -1417,7 +1679,7 @@ def main() -> int:
                         layers=layers, camera=camera, evaluate=evaluate, resnet_backbone=resnet_backbone,
                         coco_io=coco_io, landmark_dataset=landmark_dataset, export_boxes=export_boxes,
                         test_landmarks=test_landmarks, export_poses=export_poses, landmark_loop=landmark_loop,
-                        config=config)
+                        config=config, train_landmarks=train_landmarks, optim=optim, train_state=train_state)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -1497,6 +1759,11 @@ def main() -> int:
     stage_times(torch, m, run)
     report += kernel_report(x101_conv_rows(torch, m, run), launches)
     del run
+    torch.cuda.empty_cache()
+
+    # tools/train_landmarks.py's events preset at full width, and K1 in its validation
+    k1_row, train_launches = train_phase(torch, m, dev, card)
+    report += kernel_report([k1_row], train_launches)
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

@@ -1,4 +1,4 @@
-"""Weight bridges from the JAX package: variable trees and quantized trees.
+"""Weight bridges to and from the JAX package: variable trees and quantized trees.
 
 The port's module names mirror the Flax trees of ``HRNet`` and
 ``GeneralizedRCNN`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
@@ -13,7 +13,9 @@ port's quantizers return the same keys and layouts.
 
 The input is nested dicts of numpy arrays, e.g. what
 ``jax.tree_util.tree_map(np.asarray, variables)`` gives; this module
-imports no JAX.
+imports no JAX. :func:`state_dict_to_flax` is the way back, for the
+landmark models: what the port trains becomes the same tree, which its
+``.npz`` checkpoints hold and the JAX ``HRNet`` loads.
 """
 
 from __future__ import annotations
@@ -53,6 +55,40 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
                 np.ascontiguousarray(arr, dtype=np.float32)
             )
     return out
+
+
+BATCH_STATS = ("mean", "var")  # BatchNorm buffers, Flax's ``batch_stats`` collection
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`flax_to_state_dict` for a model whose BatchNorm
+    statistics are Flax ``batch_stats`` (``HRNet``): {"params": ...,
+    "batch_stats": ...} of nested dicts of float32 numpy arrays, conv
+    kernels back to HWIO and dense kernels to (in, out). The arrays are
+    copies, so later updates of the model leave them as they were."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, value in state_dict.items():
+        *modules, leaf = name.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        collection = "batch_stats" if leaf in BATCH_STATS else "params"
+        if leaf == "weight":
+            leaf = "kernel"
+            if arr.ndim == 4:  # (out, in, kh, kw) -> (kh, kw, in, out)
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                arr = arr.T
+        node = out[collection]
+        for mod in modules:
+            node = node.setdefault(mod, {})
+        node[leaf] = np.array(arr, order="C")  # a copy: never a view of the live tensors
+    return out
+
+
+def flatten_variables(tree: Mapping, sep: str = "/") -> dict[str, np.ndarray]:
+    """Nested variables -> {"params/stem1/conv/kernel": array, ...}, the
+    keys of the port's ``.npz`` checkpoints (``flax.traverse_util.flatten_dict``
+    with ``sep="/"``)."""
+    return {sep.join(path): arr for path, arr in _leaves(tree)}
 
 
 def quantized_to_torch(q: Mapping):

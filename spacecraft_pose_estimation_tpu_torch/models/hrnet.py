@@ -172,7 +172,9 @@ class HRNet(nn.Module):
     normalized; output (B, H/4, W/4, J) float32 heatmaps.
 
     ``dtype`` is the compute dtype (bfloat16 for serving); parameters are
-    float32. ``device`` defaults to CUDA (see ``resolve_device``).
+    float32. ``device`` defaults to CUDA (see ``resolve_device``). Built in
+    eval mode; under ``.train()`` its BatchNorms take the batch statistics
+    and update the running ones.
     """
 
     consumes_raw_pixels = False
@@ -209,6 +211,7 @@ class HRNet(nn.Module):
         with torch.no_grad():  # the heatmap head starts at N(0, 0.001), as in the JAX package
             self.final_layer.weight.normal_(0.0, 0.001, generator=generator)
         self.to(resolve_device(device))
+        self.eval()
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)

@@ -1,11 +1,13 @@
-"""Conv building blocks in eval mode (port of ``models/layers.py``).
+"""Conv building blocks (port of ``models/layers.py``).
 
 Module and parameter names mirror the Flax modules of the JAX package
 (``conv``, ``bn`` with ``scale``/``bias``/``mean``/``var``, ``conv1``...,
 ``down``), so ``convert.py`` maps a Flax variable tree onto a
 ``state_dict`` by name. Tensors inside the modules are NCHW; the compute
 dtype is the input's (the models cast once at their entry), parameters
-stay float32 and are cast per call.
+stay float32 and are cast per call. ``BatchNorm`` follows the module's
+mode: running statistics under ``.eval()``, batch statistics under
+``.train()``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # Flax's momentum: running = 0.9 * running + 0.1 * batch
 
 
 class Conv(nn.Module):
@@ -44,11 +47,22 @@ class Linear(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm: y = (x - mean) / sqrt(var + eps) * scale + bias,
-    applied as one per-channel affine in the input's dtype."""
+    """BatchNorm over NCHW. Eval mode: y = (x - mean) / sqrt(var + eps) *
+    scale + bias with the running statistics, applied as one per-channel
+    affine in the input's dtype. Train mode, as Flax's ``nn.BatchNorm``
+    (``force_float32_reductions``): the batch mean and biased variance over
+    N, H, W in float32 for any input dtype, the normalization in float32
+    cast to the input's dtype, gradients through the statistics (PyTorch's
+    fused ``native_batch_norm`` and its backward; Flax computes the
+    variance as E[x^2] - E[x]^2, this kernel by Welford's sums: the same
+    quantity, rounded differently); then the running statistics
+    ``0.9 * running + 0.1 * batch`` with the biased variance, not the
+    unbiased one ``nn.BatchNorm2d`` would store. It is built in eval mode,
+    so the port's models serve as built; ``model.train()`` switches it."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
+        self.training = False
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -56,6 +70,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x):
+        if self.training:
+            # no running statistics handed in: the kernel would update them with the unbiased variance
+            y, mean, invstd = torch.ops.aten.native_batch_norm(x, self.scale, self.bias, None, None, True, 0.0,
+                                                               self.eps)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * (invstd.pow(-2) - self.eps))
+            return y
         mul = self.scale * torch.rsqrt(self.var + self.eps)
         add = self.bias - self.mean * mul
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]

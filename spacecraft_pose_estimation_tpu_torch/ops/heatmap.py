@@ -1,6 +1,13 @@
-"""Sub-pixel heatmap peak decoding (lib/core/inference.py:18-79).
+"""Gaussian heatmap targets and sub-pixel peak decoding.
 
-Port of the decoding half of ``spacecraft_pose_estimation_tpu/ops/heatmap.py``.
+Port of ``spacecraft_pose_estimation_tpu/ops/heatmap.py``:
+
+* :func:`generate_target`, the reference's ``lib/dataset/JointsDataset.py:264-332``
+  with its quirks: the peak cell is ``int(x / stride + 0.5)`` (truncation),
+  cells outside the 6 sigma + 1 box are exact zeros, and a joint whose box
+  misses the map gets target weight 0;
+* the decode, ``lib/core/inference.py:18-79``.
+
 Heatmaps are channels-last (B, H, W, J).
 """
 
@@ -11,6 +18,35 @@ import torch
 from . import geometry
 
 Tensor = torch.Tensor
+
+
+def generate_target(joints: Tensor, joints_vis: Tensor, image_size: tuple[int, int],
+                    heatmap_size: tuple[int, int], sigma: float) -> tuple[Tensor, Tensor]:
+    """Unnormalized per-joint Gaussians (peak 1) on the heatmap grid.
+
+    ``joints`` (..., J, 2) in model-input pixels, ``joints_vis`` (..., J)
+    (1 visible, 0 not); sizes are (width, height); ``sigma`` in heatmap
+    pixels. Returns the targets (..., Hh, Wh, J) float32 and the weights
+    (..., J): 0 where a joint is invisible or its box misses the map.
+    """
+    wh, hh = int(heatmap_size[0]), int(heatmap_size[1])
+    stride_x = image_size[0] / heatmap_size[0]
+    stride_y = image_size[1] / heatmap_size[1]
+    tmp_size = int(sigma * 3)
+    joints = joints.float()
+    mu_x = torch.trunc(joints[..., 0] / stride_x + 0.5)  # int(x / stride + 0.5), C truncation
+    mu_y = torch.trunc(joints[..., 1] / stride_y + 0.5)
+    in_bounds = ~((mu_x - tmp_size >= wh) | (mu_y - tmp_size >= hh)
+                  | (mu_x + tmp_size + 1 < 0) | (mu_y + tmp_size + 1 < 0))
+    weight = joints_vis.float() * in_bounds.float()
+    xs = torch.arange(wh, dtype=torch.float32, device=joints.device)
+    ys = torch.arange(hh, dtype=torch.float32, device=joints.device)
+    dx = xs[:, None] - mu_x[..., None, None, :]  # (..., 1, Wh, J)
+    dy = ys[:, None, None] - mu_y[..., None, None, :]  # (..., Hh, 1, J)
+    g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma**2))
+    box = (dx.abs() <= tmp_size) & (dy.abs() <= tmp_size)
+    target = torch.where(box & (weight[..., None, None, :] > 0.5), g, 0.0)
+    return target, weight
 
 
 def get_max_preds(heatmaps: Tensor) -> tuple[Tensor, Tensor]:

@@ -8,6 +8,13 @@ to the window's coverage (:func:`clamp_scales_to_window`). So the port has
 one crop, kernel K1 (``csrc/crop_bilinear.cu``), which samples the frame
 directly; :func:`crop_bilinear_plain` is the same function in eager
 PyTorch, taken for CPU tensors.
+
+Training crops at a random rotation, which is not separable: that is the
+JAX package's gather path (``ops/warp.affine_warp`` and the rotated
+``crop_and_resize``, which ``batched_crop_and_resize`` takes whenever the
+rotations are traced), an XLA gather and not a Pallas kernel. Here it is
+:func:`affine_warp` and :func:`rotated_crop_and_resize`, plain tensor
+code on any device.
 """
 
 from __future__ import annotations
@@ -113,3 +120,40 @@ def crop_and_resize(
 ) -> Tensor:
     """Batched rot=0 crop of a center/scale box to ``out_size`` (w, h), float32."""
     return crop_bilinear(frames, crop_params(centers, scales, out_size), out_size)
+
+
+def affine_warp(images: Tensor, M_inv: Tensor, out_size: tuple[int, int]) -> Tensor:
+    """Bilinear warp of (B, H, W, C) images by (B, 2, 3) ``M_inv`` (output
+    pixel -> source pixel) to (B, OH, OW, C) float32, cv2's
+    ``warpAffine(INTER_LINEAR, BORDER_CONSTANT 0)``: each of the four taps
+    off the frame is zeroed before the bilinear sum."""
+    b, h, w, _ = images.shape
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    dev = images.device
+    M = M_inv.to(torch.float32)[:, :, :, None, None]  # (B, 2, 3, 1, 1)
+    xd = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    yd = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    xs = M[:, 0, 0] * xd + M[:, 0, 1] * yd + M[:, 0, 2]  # (B, OH, OW)
+    ys = M[:, 1, 0] * xd + M[:, 1, 1] * yd + M[:, 1, 2]
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    wx, wy = (xs - x0)[..., None], (ys - y0)[..., None]
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    bi = torch.arange(b, device=dev)[:, None, None]
+
+    def tap(yi, xi):
+        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        v = images[bi, yi.clamp(0, h - 1), xi.clamp(0, w - 1)].to(torch.float32)
+        return v * inb[..., None]
+
+    return (tap(y0i, x0i) * (1 - wx) * (1 - wy) + tap(y0i, x0i + 1) * wx * (1 - wy)
+            + tap(y0i + 1, x0i) * (1 - wx) * wy + tap(y0i + 1, x0i + 1) * wx * wy)
+
+
+def rotated_crop_and_resize(frames: Tensor, centers: Tensor, scales: Tensor, rots: Tensor,
+                            out_size: tuple[int, int]) -> Tensor:
+    """Batched crop of a center/scale box rotated by ``rots`` degrees,
+    resampled to ``out_size`` (w, h): (B, H, W, 3) frames of any dtype ->
+    (B, OH, OW, 3) float32. The training transform's crop, at any angle;
+    the axis-aligned serving crop is :func:`crop_and_resize` (K1)."""
+    M_inv = geometry.crop_affine_matrix(centers, scales, rots, out_size, inv=True)
+    return affine_warp(frames, M_inv, out_size)

@@ -1,1 +1,1 @@
-"""Evaluation-side parts of the JAX package's ``train/``: the validation pass and heatmap ensembles."""
+"""The landmark stage's training (state, step, optimizer, checkpoints, metrics) and validation pass, and heatmap ensembles."""

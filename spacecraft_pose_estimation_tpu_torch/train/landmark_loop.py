@@ -1,8 +1,9 @@
-"""The landmark stage's validation pass: crops -> heatmaps -> keypoints -> pred.mat.
+"""The landmark stage's train epoch and validation pass.
 
-Port of ``make_validate_step``, ``validate`` and ``oks_metrics`` of the
-JAX package's ``train/landmark_loop.py`` (the reference's
-``lib/core/function.py`` validate): batches of a fixed size with the tail
+Port of the JAX package's ``train/landmark_loop.py`` (the reference's
+``lib/core/function.py``). :func:`train_epoch` runs the training transform
+and the train step over a batch stream. The validation pass
+(``make_validate_step``, ``validate``, ``oks_metrics``) takes batches of a fixed size with the tail
 padded by its last example, the full-frame crop of each box (kernel K1,
 ``ops/warp.crop_and_resize``, the JAX package's exact mode), an optional
 flip test, the sub-pixel decode back to frame pixels, and ``pred.mat``.
@@ -17,9 +18,10 @@ import numpy as np
 import torch
 
 from ..data import coco_io
-from ..data.landmark_dataset import LandmarkExamples
+from ..data.landmark_dataset import LandmarkExamples, device_transform
 from ..ops import geometry, heatmap, warp
 from ..pipeline import normalize_crops
+from .metrics import MetricStorage
 
 logger = logging.getLogger(__name__)
 Tensor = torch.Tensor
@@ -60,7 +62,9 @@ def validate(model, examples: LandmarkExamples, batch_size: int, image_size: tup
              shift_heatmap: bool = True) -> np.ndarray:
     """The validation pass over ``examples`` in their order -> (N, J, 3)
     [x, y, maxval] float32, written to ``output_path`` as pred.mat when
-    given. The frames go to K1 as uint8 on the model's device."""
+    given. The frames go to K1 as uint8 on the model's device. The model
+    is put in eval mode (its running BN statistics)."""
+    model.eval()
     step = make_validate_step(model, post_process, flip_test, shift_heatmap)
     device = _device(model)
     n = len(examples)
@@ -80,6 +84,46 @@ def validate(model, examples: LandmarkExamples, batch_size: int, image_size: tup
         coco_io.save_pred_mat(all_preds, output_path)
         logger.info("wrote %s", output_path)
     return all_preds
+
+
+def step_generator(base_seed: int, step: int) -> torch.Generator:
+    """The augmentation draws of update ``step``: a CPU generator seeded from
+    (``base_seed``, ``step``), so a resumed run draws what an uninterrupted one
+    would (the JAX package folds the step into its key)."""
+    seed = int(np.random.SeedSequence((base_seed, step)).generate_state(1, np.uint64)[0])
+    return torch.Generator().manual_seed(seed)
+
+
+def train_epoch(train_step: Callable, state, data_iter, steps: int, storage: MetricStorage,
+                transform_kwargs: dict, base_seed: int, print_freq: int = 20, cache=None):
+    """One epoch of ``steps`` updates: a batch from ``data_iter`` (example
+    indices into ``cache`` when it is given, else whole batches), the
+    training transform on the model's device with the draws of
+    :func:`step_generator`, the train step. The metrics stay on the device
+    until the epoch's end, then go into ``storage`` step by step."""
+    device = _device(state.model)
+    step0 = state.step
+    collected = []
+    for i in range(steps):
+        raw = next(data_iter)
+        if cache is not None:
+            images, bboxes, joints, vis = cache.gather(raw)
+        else:
+            images, bboxes, joints, vis = (torch.as_tensor(raw[k]).to(device)
+                                           for k in ("image", "bbox", "joints", "joints_vis"))
+        batch = device_transform(images, bboxes, joints, vis, step_generator(base_seed, step0 + i),
+                                 **transform_kwargs)
+        collected.append(train_step(state, batch))
+    if not collected:
+        return state
+    names = list(collected[0])
+    values = torch.stack([torch.stack([m[k].float() for k in names]) for m in collected]).cpu().tolist()
+    for j, row in enumerate(values):
+        storage.step = step0 + j + 1
+        storage.put_scalars(**dict(zip(names, row)))
+        if (j + 1) % print_freq == 0:
+            logger.info("step %d loss %.5f acc %.3f", step0 + j + 1, storage.avg("loss"), storage.avg("acc"))
+    return state
 
 
 def oks_metrics(all_preds: np.ndarray, examples: LandmarkExamples, sigmas=None) -> dict:

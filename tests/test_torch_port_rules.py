@@ -66,10 +66,11 @@ def test_entry_points_need_cuda_or_an_explicit_device():
         evaluate.main(["--scenes-dir", ".", "--landmarks-file", "l.csv", "--calibration-file", "c.json",
                        "--detector-checkpoint", "d.npz", "--landmark-checkpoint", "h.npz", "--output-dir", "."])
     # so do the staged evaluation's stage commands, and the PnP stage's function
-    from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks
+    from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks, train_landmarks
 
     for tool, args in ((export_boxes, ["--image-dir", ".", "--checkpoint", "d.npz", "--output-dir", "."]),
                        (test_landmarks, ["--test-json", "t.json", "--image-dir", ".", "--checkpoint", "h.npz"]),
+                       (train_landmarks, ["--train-json", "t.json", "--image-dir", "."]),
                        (export_poses, ["--frames-dir", ".", "--detection-annotations", "t.json",
                                        "--pose-annotations", "p.mat", "--landmarks-file", "l.csv",
                                        "--calibration-file", "c.json", "--output-dir", "."])):
@@ -77,6 +78,11 @@ def test_entry_points_need_cuda_or_an_explicit_device():
             tool.main(args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         export_poses.solve_poses(np.zeros((1, 11, 3), np.float32), np.zeros((11, 3)), None)
+    # and the trainer's function
+    from spacecraft_pose_estimation_tpu_torch import config
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_landmarks.train(config.get_preset("events"), None, ".")
 
 
 def test_wrappers_launch_or_raise_off_the_cpu():
