@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation and training paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training and domain-adaptation paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -82,7 +82,24 @@ toolkit. It
    from the trained model's) and that 30 updates on one repeated batch
    lower its loss; prints step ms, images/s, transform, epoch and
    validation times and the peak memory;
-12. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+12. adapts domains: first ``hrnet_tiny_cms`` and a (1, 1, 1, 1)
+   discriminator in float32 on the card against the CPU, phase by phase
+   over 3 DA updates; then ``tools.train_landmarks_da.train`` with the
+   ``lightbox_cms`` preset at full width (HRNet-W32 CMS heads, 768 ->
+   768^2, bf16 generator over float32, float32 ResNet-34 discriminator,
+   2 source + 3 target images a step, d_loss_mode 2) on seeded 1920x1200
+   frames on the card (8 source, 12 target, 16 target-domain validation),
+   2 epochs of 4 steps and validation at the last (K1's counter reset just
+   before, read just after; K1 held to its plain version on the 768^2
+   validation batch); checks the losses finite, the generator's ``.npz``
+   through ``tools.test_landmarks`` (0 apart) and that 10 DA updates on
+   one batch lower its hm_loss; prints the step ms, images/s, the
+   phases' split by CUDA events, the discriminator's share, a profiled
+   step and the peak memory; runs ``sunlamp_cms`` (384^2 heatmaps) for an
+   epoch of 2 steps, its step split and profiled too; and runs
+   ``evaluate.run_scene`` with the trained CMS
+   model on 8 frames (K1, K2 and K4 held to their plain versions);
+13. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -1389,10 +1406,10 @@ def median(xs):
     return xs[len(xs) // 2]
 
 
-def landmark_scene(torch, m, dev, n: int, seed: int, out_dir: str, split: str):
-    """``n`` seeded uint8 BGR 1280x720 frames on the card (dim noise, the 11
-    landmarks of a random body drawn as 7x7 white squares at their
-    projections under seeded poses) and their COCO json ->
+def landmark_scene(torch, m, dev, n: int, seed: int, out_dir: str, split: str, hw=None):
+    """``n`` seeded uint8 BGR frames of ``hw`` (default 1280x720) on the
+    card (dim noise, the 11 landmarks of a random body drawn as 7x7 white
+    squares at their projections under seeded poses) and their COCO json ->
     ``LandmarkExamples`` over the frames in memory."""
     import os
 
@@ -1400,8 +1417,9 @@ def landmark_scene(torch, m, dev, n: int, seed: int, out_dir: str, split: str):
 
     rng = np.random.default_rng(seed)
     lm3d = rng.normal(0, 0.5, (NUM_JOINTS, 3))
-    K = np.array([[1100.0, 0, 640.0], [0, 1100.0, 360.0], [0, 0, 1]])
-    h, w = TRAIN_HW
+    h, w = hw or TRAIN_HW
+    f = 1100.0 * w / 1280
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
     frames = torch.randint(0, 48, (n, h, w, 3), dtype=torch.uint8, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(seed))
     images, anns = [], []
@@ -1591,6 +1609,358 @@ def repeated_batch(torch, m, dev, cfg, examples, card) -> None:
     profile_call(torch, lambda: step(state, batch), f"train step (batch {b})")
 
 
+DA_SOURCE, DA_TARGET, DA_VAL, DA_REPEATS = 8, 12, 16, 10
+DA_TINY_BETA = 0.5  # the adversarial gradient weighs in the tiny check's generator update
+# the repeated batch's Adam: at the preset's 1e-3 the first update overshoots
+# the heads' N(0, 0.001) start (on an H100, hm_loss 0.010312 -> 0.011854,
+# back to only 0.010301 after 10 updates)
+DA_REPEAT_LR = 1e-4
+
+
+def param_drift(torch, sd_a, sd_b, lr) -> tuple[float, float, float, int]:
+    """|a - b| of every parameter entry (BN statistics left out) in units of
+    ``lr``: (max, share beyond 0.1 lr, share beyond 1e-3 lr, entries)."""
+    d = torch.cat([((sd_a[k].float().cpu() - v.float().cpu()).abs() / lr).flatten() for k, v in sd_b.items()
+                   if not k.endswith((".mean", ".var"))])
+    return d.max().item(), (d > 0.1).float().mean().item(), (d > 1e-3).float().mean().item(), d.numel()
+
+
+def stats_err(sd_a, sd_b) -> float:
+    return max((sd_a[k].float().cpu() - v.float().cpu()).abs().max().item() for k, v in sd_b.items()
+               if k.endswith((".mean", ".var")))
+
+
+def check_da_tiny_against_cpu(torch, m) -> None:
+    """``hrnet_tiny_cms`` and ``MultiScaleDiscriminator(stage_blocks=(1, 1, 1,
+    1))`` at 64x64, float32 (TF32 off), d_loss_mode 2, 3 updates on one
+    batch of 2 source and 3 target images, held phase by phase card
+    against CPU (as ``tests/test_torch_adversarial.py`` holds the port to
+    JAX): before each update the card takes the CPU's state (both models,
+    both Adam states); phase 1 is held (d_loss 1e-4 relative, the
+    discriminator's BN statistics 1e-5, its parameters within 4 lr and at
+    most 1% beyond 0.1 lr); the card takes the CPU's updated
+    discriminator; phase 2 is held (loss, hm_loss, adv_loss 1e-4 relative,
+    the generator's statistics and parameters likewise). Free-running
+    float32 runs part within 3 updates: the first Adam update sets an entry
+    whose gradient sign is rounding 2 lr apart. The parameter bounds are
+    wider than the CPU tests' against JAX (2 lr, 0.1%): cuDNN runs float32
+    convolutions by FFT and GEMM algorithms that round unlike the CPU's
+    direct ones (measured on an H100: 1.8 lr, 0.073% beyond 0.1 lr), and
+    after the first update Adam's step on a rounding-signed gradient
+    reaches (1 - b1) / sqrt(1 - b2) = 3.2 lr."""
+    import copy
+    import dataclasses
+
+    A, size, lr = m.adversarial, 64, 1e-3
+    cfg = dataclasses.replace(m.hrnet.HRNET_TINY, num_joints=NUM_JOINTS, head="cms")
+    g = torch.Generator().manual_seed(7)
+    batch = {"source_image": torch.randn(2, size, size, 3, generator=g),
+             "target_image": torch.randn(3, size, size, 3, generator=g)}
+    joints, vis = torch.rand(2, NUM_JOINTS, 2, generator=g) * size, torch.ones(2, NUM_JOINTS)
+    for idx, div in enumerate((1, 2, 4, 8)):
+        suffix = "" if idx == 0 else str(idx + 1)
+        batch[f"target{suffix}"], batch[f"target_weight{suffix}"] = m.heatmap.generate_target(
+            joints, vis, (size, size), (size // div, size // div), 4.0 / (idx + 1))
+    states = {}
+    for device in ("cpu", "cuda"):
+        gen = m.hrnet.HRNet(cfg, device=device, generator=torch.Generator().manual_seed(1))
+        disc = m.discriminator.MultiScaleDiscriminator(NUM_JOINTS, stage_blocks=(1, 1, 1, 1), device=device,
+                                                       generator=torch.Generator().manual_seed(2))
+        sched = m.optim.multistep_schedule(lr, [2])
+        states[device] = A.DAState(gen, disc, m.optim.build_optimizer("adam", gen.parameters(), sched,
+                                                                        weight_decay=1e-4),
+                                   m.optim.build_optimizer("adam", disc.parameters(), sched))
+    cpu, card = states["cpu"], states["cuda"]
+    batches = {d: {k: v.to(d) for k, v in batch.items()} for d in states}
+    worst = {"loss": 0.0, "d_stats": 0.0, "g_stats": 0.0, "d_max": 0.0, "g_max": 0.0, "d_01": 0.0, "g_01": 0.0}
+    losses = []
+    for k in range(3):
+        step_lr = lr * (0.1 if k >= 2 else 1.0)
+        card.load_state_dict(copy.deepcopy(cpu.state_dict()))  # no tensor shared with the CPU's optimizer
+        phase = {}
+        for d, st in states.items():
+            domain = A.domain_labels(batches[d])
+            outs = A.generator_forward(st, batches[d])
+            phase[d] = (domain, outs, A.discriminator_update(st, outs, domain).item())
+        worst["loss"] = max(worst["loss"], abs(phase["cuda"][2] - phase["cpu"][2]) / abs(phase["cpu"][2]))
+        sd_c, sd_g = cpu.discriminator.state_dict(), card.discriminator.state_dict()
+        worst["d_stats"] = max(worst["d_stats"], stats_err(sd_g, sd_c))
+        mx, s01, s3, n_d = param_drift(torch, sd_g, sd_c, step_lr)
+        worst["d_max"], worst["d_01"] = max(worst["d_max"], mx), max(worst["d_01"], s01)
+        card.discriminator.load_state_dict(sd_c)
+        out = {}
+        for d, st in states.items():
+            domain, outs, _ = phase[d]
+            out[d] = [v.item() for v in A.generator_update(st, outs, batches[d], domain, DA_TINY_BETA, 2)]
+            st.step += 1
+        losses.append(out["cuda"] + [phase["cuda"][2]])
+        worst["loss"] = max(worst["loss"], *(abs(a - b) / abs(b) for a, b in zip(out["cuda"], out["cpu"])))
+        sd_c, sd_g = cpu.generator.state_dict(), card.generator.state_dict()
+        worst["g_stats"] = max(worst["g_stats"], stats_err(sd_g, sd_c))
+        mx, s01, s3g, n_g = param_drift(torch, sd_g, sd_c, step_lr)
+        worst["g_max"], worst["g_01"] = max(worst["g_max"], mx), max(worst["g_01"], s01)
+        log(f"tiny DA update {k}: share beyond 1e-3 lr: discriminator {s3:.4g} of {n_d}, generator {s3g:.4g} of {n_g}")
+    log(f"tiny DA steps, card vs CPU phase by phase (hrnet_tiny_cms + discriminator (1, 1, 1, 1) at 64^2, f32, "
+        f"d_loss_mode 2, beta {DA_TINY_BETA}, 3 Adam updates): [loss, hm_loss, adv_loss, d_loss] "
+        f"{[[round(v, 6) for v in row] for row in losses]}; worst: losses {worst['loss']:.3g} relative (limit 1e-4), "
+        f"BN statistics discriminator {worst['d_stats']:.3g} / generator {worst['g_stats']:.3g} (limit 1e-5), "
+        f"parameters max {worst['d_max']:.3g} / {worst['g_max']:.3g} lr (limit 4), share beyond 0.1 lr "
+        f"{worst['d_01']:.3g} / {worst['g_01']:.3g} (limit 1e-2)")
+    if not (worst["loss"] <= 1e-4 and max(worst["d_stats"], worst["g_stats"]) <= 1e-5
+            and max(worst["d_max"], worst["g_max"]) <= 4.0 and max(worst["d_01"], worst["g_01"]) <= 1e-2):
+        raise RuntimeError(f"tiny DA steps differ between the card and the CPU: {worst}")
+
+
+def da_batch(torch, m, dev, cfg, source, target, preset: str) -> dict:
+    """One DA batch on the card, as ``train_landmarks_da.train`` builds it:
+    the first source and target examples, the draws of step 0."""
+    T = m.train_landmarks_da
+    src_draws, tgt_draws = T.sample_step_draws(m.landmark_loop.step_generator(cfg.seed + 2, 0), cfg, preset)
+    image_size, hm_size = tuple(cfg.model.image_size), tuple(cfg.model.heatmap_size)
+    sigmas = (cfg.model.sigma, cfg.model.sigma2, cfg.model.sigma3, cfg.model.sigma4)
+    src = m.landmark_dataset.DeviceDatasetCache(source, dev).gather(range(cfg.train.batch_size_per_chip))
+    tgt = m.landmark_dataset.DeviceDatasetCache(target, dev).gather(range(cfg.train.batch_size_adversarial))
+    batch = T.multi_scale_targets(*src, src_draws, image_size, hm_size, sigmas, T.photo_ranges(preset)["erase_p"])
+    batch["target_image"] = m.landmark_dataset.device_transform(
+        *tgt, image_size=image_size, heatmap_size=hm_size, sigma=cfg.model.sigma, draws=tgt_draws)["image"]
+    return batch
+
+
+def fresh_da_state(torch, m, dev, cfg, lr):
+    """The trainer's models from its seeds on the card, Adam at ``lr`` for both."""
+    dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
+    gen = m.models.build_landmark_model(cfg.model.name, NUM_JOINTS, device=dev, dtype=dtype,
+                                        generator=torch.Generator().manual_seed(cfg.seed))
+    disc = m.discriminator.MultiScaleDiscriminator(NUM_JOINTS, device=dev,
+                                                   generator=torch.Generator().manual_seed(cfg.seed + 1))
+    return m.adversarial.DAState(gen, disc, m.optim.build_optimizer("adam", gen.parameters(), lr),
+                                 m.optim.build_optimizer("adam", disc.parameters(), lr))
+
+
+def da_split(torch, m, state, batch, cfg, card) -> None:
+    """CUDA events around the DA step's three phases (3 steps, the last
+    reported), the discriminator's own part of phase 2 (its eval forward
+    and the gradient to its inputs) timed alone, and torch.profiler over
+    one more step."""
+    A = m.adversarial
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    spans = []
+    for _ in range(3):
+        domain = A.domain_labels(batch)
+        ev[0].record()
+        outs = A.generator_forward(state, batch)
+        ev[1].record()
+        A.discriminator_update(state, outs, domain)
+        ev[2].record()
+        A.generator_update(state, outs, batch, domain, cfg.train.beta, cfg.train.d_loss_mode)
+        ev[3].record()
+        state.step += 1
+        sync()
+        spans.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    with torch.no_grad():
+        outs = [o.detach().requires_grad_(True) for o in A.generator_forward(state, batch)]
+    disc = state.discriminator
+    disc.eval()
+    disc.requires_grad_(False)
+    disc_ms = []
+    for _ in range(3):
+        ev[0].record()
+        A.softmax_ce(disc(*outs), domain).backward()
+        ev[1].record()
+        sync()
+        disc_ms.append(ev[0].elapsed_time(ev[1]))
+    disc.requires_grad_(True)
+    fwd, d_phase, g_phase = spans[-1]
+    total = fwd + d_phase + g_phase
+    log(f"DA step split by CUDA events ({cfg.model.name} -> {cfg.model.heatmap_size}) on {card} (all "
+        f"{[[round(v, 4) for v in r] for r in spans]}): generator "
+        f"forward {fwd:.4f} ms, discriminator phase (train-mode forward, backward, Adam) {d_phase:.4f} ms, generator "
+        f"phase (losses, eval-mode discriminator forward and input gradient, generator backward, Adam) "
+        f"{g_phase:.4f} ms; the discriminator's eval forward + input gradient alone {median(disc_ms):.4f} ms "
+        f"(all {[round(v, 4) for v in disc_ms]}); the discriminator's share of the step "
+        f"{(d_phase + median(disc_ms)) / total:.4f}")
+    step = A.make_da_train_step(beta=cfg.train.beta, d_loss_mode=cfg.train.d_loss_mode)
+    profile_call(torch, lambda: step(state, batch), f"DA step ({cfg.model.name}, {cfg.train.batch_size_per_chip} "
+                                                    f"source + {cfg.train.batch_size_adversarial} target)")
+
+
+def da_train_run(torch, m, dev, cfg, preset, source, target, val, out_dir, card):
+    """``train_landmarks_da.train`` on the card with its steps, validation and
+    K1 calls recorded (counters reset just before, read just after)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = Timed(m.train_landmarks_da, "make_da_train_step", factory=True, keep=True)
+    validate = Timed(m.landmark_loop, "validate")
+    k1 = Capture(*m.kernels["K1"][:2])
+    with steps, validate, k1:
+        reset_counts(m)
+        t0 = time.perf_counter()
+        state = m.train_landmarks_da.train(cfg, source, target, out_dir, dev, val, preset)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_counts(m)
+    metrics = [{k: v.item() for k, v in met.items()} for met in steps.results]
+    finite = all(math.isfinite(v) for met in metrics for v in met.values()) and all(
+        bool(torch.isfinite(v).all()) for part in (state.generator, state.discriminator)
+        for v in part.state_dict().values())
+    per_epoch = max(len(steps.ms) // max(cfg.train.end_epoch, 1), 1)
+    warm_up = per_epoch if cfg.train.end_epoch > 1 else 1  # the first epoch, or the first step of one
+    timed = steps.ms[warm_up:] or steps.ms
+    step_ms = median(timed)
+    images = cfg.train.batch_size_per_chip + cfg.train.batch_size_adversarial
+    log(f"train_landmarks_da --preset {preset} ({cfg.model.name} {cfg.model.image_size} -> "
+        f"{cfg.model.heatmap_size}, {cfg.train.batch_size_per_chip} source + {cfg.train.batch_size_adversarial} "
+        f"target images a step, {cfg.model.compute_dtype} generator over float32, float32 discriminator "
+        f"(3, 4, 6, 3), beta {cfg.train.beta}, d_loss_mode {cfg.train.d_loss_mode}, {len(source)} source / "
+        f"{len(target)} target frames, {cfg.train.end_epoch} epochs of {per_epoch} steps, validation of "
+        f"{0 if val is None else len(val)} at the last) on {card}: {wall:.4f} s in all; DA step {step_ms:.4f} ms "
+        f"(median of the {len(timed)} after the first {warm_up}; all "
+        f"{[round(v, 4) for v in steps.ms]}) = {images / step_ms * 1e3:.2f} images/s; validate "
+        f"{[round(v, 4) for v in validate.ms]} ms; peak memory {torch.cuda.max_memory_allocated() / 1e9:.4f} GB "
+        f"(torch.cuda.max_memory_allocated); [loss, hm_loss, d_loss, adv_loss] "
+        f"{[[round(met[k], 6) for k in ('loss', 'hm_loss', 'd_loss', 'adv_loss')] for met in metrics]}; launches "
+        f"{json.dumps(launches)}")
+    if not finite:
+        raise RuntimeError(f"train_landmarks_da --preset {preset}: a loss or a parameter is not finite: {metrics}")
+    return state, k1, launches
+
+
+def da_repeated_batch(torch, m, dev, cfg, batch, card) -> None:
+    """10 DA updates of fresh models on one batch, Adam at ``DA_REPEAT_LR``:
+    the mean hm_loss of the last 3 must be below the first."""
+    state = fresh_da_state(torch, m, dev, cfg, DA_REPEAT_LR)
+    step = m.adversarial.make_da_train_step(beta=cfg.train.beta, d_loss_mode=cfg.train.d_loss_mode)
+    hm, ms = [], []
+    for _ in range(DA_REPEATS):
+        sync()
+        t0 = time.perf_counter()
+        hm.append(step(state, batch)["hm_loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    last = sum(hm[-3:]) / 3
+    log(f"DA updates on one repeated batch ({cfg.model.name}, Adam {DA_REPEAT_LR} for both) on {card}: hm_loss "
+        f"{[round(v, 6) for v in hm]}; first {hm[0]:.6f}, mean of the last 3 {last:.6f} (must be lower); step ms "
+        f"{[round(v, 4) for v in ms]}")
+    if not (all(math.isfinite(v) for v in hm) and last < hm[0]):
+        raise RuntimeError(f"{DA_REPEATS} DA updates on one batch did not lower its hm_loss: {hm}")
+
+
+def cms_evaluate(torch, m, dev, hr, out_dir):
+    """``evaluate.run_scene`` with a CMS landmark model (768 crops, 768^2
+    heatmaps) on one batch of 8 seeded 1920x1200 frames, the evaluation
+    phase's X101-32x8d detector and camera; poses finite. Returns the K1,
+    K2 and K4 rows on its inputs and its launch counts."""
+    import numpy as np
+
+    det = m.rcnn.GeneralizedRCNN(m.rcnn.FASTER_RCNN_X101_SPACECRAFT, dtype=torch.bfloat16, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    lm3d = np.random.default_rng(2).normal(0, 0.8, (NUM_JOINTS, 3))
+    cam = m.camera.CameraModel(K=np.array([[2988.6, 0, 960.0], [0, 2988.3, 600.0], [0, 0, 1]]),
+                               dist=np.array(EVAL_DIST), width=FRAME_HW[1], height=FRAME_HW[0])
+    config = m.pipeline.PipelineConfig(image_size=(768, 768), solver="ransac")
+    frames = torch.randint(0, 256, (EVAL_BATCH, *FRAME_HW, 3), dtype=torch.uint8, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    names = [f"img{i:06d}.png" for i in range(EVAL_BATCH)]
+    captures = {key: Capture(*m.kernels[key][:2]) for key in ("K1", "K2", "K4")}
+    with contextlib.ExitStack() as stack:
+        for c in captures.values():
+            stack.enter_context(c)
+        reset_counts(m)
+        t0 = time.perf_counter()
+        res = m.evaluate.run_scene(frames, names, out_dir, det, hr, lm3d, cam, batch_size=EVAL_BATCH,
+                                   input_size=EVAL_SIZE, config=config,
+                                   generator=torch.Generator(device=dev).manual_seed(6))
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_counts(m)
+    check_artifacts(torch, out_dir, EVAL_BATCH)
+    finite = bool(np.isfinite(res["R"]).all() and np.isfinite(res["t"]).all())
+    log(f"evaluate with the CMS landmark model (X101-32x8d bf16 at {EVAL_SIZE}, {type(hr).__name__} "
+        f"{hr.config.head} at 768 -> 768^2 heatmaps, RANSAC 256): {EVAL_BATCH} frames in {wall:.4f} s (one batch, "
+        f"no warm-up); poses finite {finite}; launches {json.dumps(launches)}; first t {res['t'][0].tolist()}")
+    if not finite:
+        raise RuntimeError("evaluate with the CMS landmark model gave a pose that is not finite")
+    for key in ("K1", "K2", "K4"):
+        if launches[key] == 0:
+            raise RuntimeError(f"kernel {key} was not launched by the CMS evaluation")
+    boxes = captures["K2"].calls[-1][0][1]
+    rows = [crop_row(torch, m, dev, captures["K1"].calls[-1], f"crop_bilinear (evaluate, CMS: 768^2 crops, batch "
+                                                                 f"{EVAL_BATCH})"),
+            pooler_row(torch, m, captures["K2"].calls[-1],
+                       f"roi_align_multilevel (evaluate, CMS: X101, batch {EVAL_BATCH}, {boxes.shape[0]} ROIs)")]
+    rows += nms_rows(torch, m, dev, captures["K4"].calls[-2:], "evaluate, CMS: X101 ")
+    return rows, launches
+
+
+def da_phase(torch, m, dev, card):
+    """The CMS models and the adversarial domain adaptation at full width:
+    the tiny card-vs-CPU check; ``tools.train_landmarks_da.train`` with the
+    ``lightbox_cms`` preset (HRNet-W32 CMS at 768 -> 768^2, 11 joints, bf16
+    generator over float32, float32 ResNet-34 discriminator, 2 source + 3
+    target images a step, Adam 1e-3 for both, beta 2e-4, d_loss_mode 2) on
+    seeded 1920x1200 frames on the card (8 source, 12 target, 16
+    target-domain validation), 2 epochs of 4 steps and validation at the
+    last (K1's counter reset just before, read just after); the generator's
+    ``.npz`` through ``tools.test_landmarks``; K1 on the validation batch;
+    the step's split, profile and a repeated batch; ``sunlamp_cms``
+    (``hrnet_cms_384``, 384^2 heatmaps) for an epoch of 2 steps, with its
+    step's split and profile; and
+    ``evaluate.run_scene`` with the trained CMS model. Returns (rows,
+    launches) of the DA run's validation and of the CMS evaluation."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    check_da_tiny_against_cpu(torch, m)
+    cfg = m.config.apply_overrides(m.config.get_preset("lightbox_cms"), ["TRAIN.END_EPOCH", "2"])
+    with tempfile.TemporaryDirectory() as out_dir:
+        source = landmark_scene(torch, m, dev, DA_SOURCE, 21, out_dir, "source", FRAME_HW)
+        target = landmark_scene(torch, m, dev, DA_TARGET, 22, out_dir, "target", FRAME_HW)
+        val = landmark_scene(torch, m, dev, DA_VAL, 23, out_dir, "target_val", FRAME_HW)
+        state, k1, da_launches = da_train_run(torch, m, dev, cfg, "lightbox_cms", source, target, val,
+                                              os.path.join(out_dir, "lightbox"), card)
+        if da_launches["K1"] == 0:
+            raise RuntimeError("kernel K1 was not launched by the DA trainer's validation")
+        # the generator's checkpoint, as tools/test_landmarks reads it
+        npz = os.path.join(out_dir, "lightbox", "checkpoints", str(state.step), "model.npz")
+        loaded = m.evaluate.load_landmark_model(npz, cfg.model.name, NUM_JOINTS, state.generator.dtype, dev)
+        frames, bboxes, _, _ = m.landmark_dataset.DeviceDatasetCache(val, dev).gather(range(DA_VAL))
+        centers, scales = m.geometry.bbox_to_center_scale(bboxes)
+        size = tuple(cfg.model.image_size)
+        crops = m.pipeline.normalize_crops(m.warp.crop_bilinear_plain(
+            frames, m.warp.crop_params(centers, scales, size), size))
+        state.generator.eval()
+        with torch.inference_mode():
+            npz_err = (loaded(crops) - state.generator(crops)).abs().max().item()
+        preds = [m.test_landmarks.predict_landmarks([model], val, cfg) for model in (loaded, state.generator)]
+        pred_err = float(abs(preds[0] - preds[1]).max())
+        log(f"train_landmarks_da: the generator's .npz ({os.path.getsize(npz)} bytes) through "
+            f"evaluate.load_landmark_model: heatmaps on {DA_VAL} validation crops {npz_err} from the trained "
+            f"model's (limit 0); tools.test_landmarks.predict_landmarks {pred_err} apart (limit 0)")
+        if npz_err != 0 or pred_err != 0:
+            raise RuntimeError(f"the DA generator's .npz gives other heatmaps: {npz_err}, predictions {pred_err}")
+        k1_row = crop_row(torch, m, dev, k1.calls[-1], f"crop_bilinear (train_landmarks_da validate: batch "
+                                                       f"{cfg.test.batch_size_per_chip} of 768^2)")
+        del crops, frames
+        batch = da_batch(torch, m, dev, cfg, source, target, "lightbox_cms")
+        da_split(torch, m, state, batch, cfg, card)
+        del state
+        torch.cuda.empty_cache()
+        da_repeated_batch(torch, m, dev, cfg, batch, card)
+        del batch
+        torch.cuda.empty_cache()
+        sun_cfg = m.config.apply_overrides(m.config.get_preset("sunlamp_cms"), ["TRAIN.END_EPOCH", "1"])
+        sun_source = landmark_scene(torch, m, dev, 2 * sun_cfg.train.batch_size_per_chip, 24, out_dir,
+                                    "sun_source", FRAME_HW)
+        state, _, _ = da_train_run(torch, m, dev, sun_cfg, "sunlamp_cms", sun_source, target, None,
+                                   os.path.join(out_dir, "sunlamp"), card)
+        da_split(torch, m, state, da_batch(torch, m, dev, sun_cfg, sun_source, target, "sunlamp_cms"), sun_cfg, card)
+        del state
+        torch.cuda.empty_cache()
+        eval_rows, eval_launches = cms_evaluate(torch, m, dev, loaded, os.path.join(out_dir, "evaluate"))
+    log(f"DA phase: {time.perf_counter() - t0:.1f} s")
+    return ([k1_row], da_launches), (eval_rows, eval_launches)
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -1666,8 +2036,11 @@ def main() -> int:
     from spacecraft_pose_estimation_tpu_torch.models import (
         backbone_int8, hrnet, hrnet_int8, layers, rcnn, resnet_backbone,
     )
-    from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks, train_landmarks
-    from spacecraft_pose_estimation_tpu_torch.train import landmark_loop, optim
+    from spacecraft_pose_estimation_tpu_torch.models import discriminator
+    from spacecraft_pose_estimation_tpu_torch.tools import (
+        export_boxes, export_poses, test_landmarks, train_landmarks, train_landmarks_da,
+    )
+    from spacecraft_pose_estimation_tpu_torch.train import adversarial, landmark_loop, optim
     from spacecraft_pose_estimation_tpu_torch.train import state as train_state
     from spacecraft_pose_estimation_tpu_torch.ops import (
         geometry, heatmap, int8_blocks, int8_conv, nms, pnp, roi_align, warp,
@@ -1679,7 +2052,8 @@ def main() -> int:
                         layers=layers, camera=camera, evaluate=evaluate, resnet_backbone=resnet_backbone,
                         coco_io=coco_io, landmark_dataset=landmark_dataset, export_boxes=export_boxes,
                         test_landmarks=test_landmarks, export_poses=export_poses, landmark_loop=landmark_loop,
-                        config=config, train_landmarks=train_landmarks, optim=optim, train_state=train_state)
+                        config=config, train_landmarks=train_landmarks, optim=optim, train_state=train_state,
+                        train_landmarks_da=train_landmarks_da, adversarial=adversarial, discriminator=discriminator)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -1764,6 +2138,12 @@ def main() -> int:
     # tools/train_landmarks.py's events preset at full width, and K1 in its validation
     k1_row, train_launches = train_phase(torch, m, dev, card)
     report += kernel_report([k1_row], train_launches)
+    torch.cuda.empty_cache()
+
+    # the lightbox_cms / sunlamp_cms presets: tools/train_landmarks_da.py at full
+    # width, K1 in its validation, and the evaluation entry on the CMS model
+    for rows, launches in da_phase(torch, m, dev, card):
+        report += kernel_report(rows, launches)
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

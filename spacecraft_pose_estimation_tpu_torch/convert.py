@@ -3,8 +3,10 @@
 The port's module names mirror the Flax trees of ``HRNet`` and
 ``GeneralizedRCNN`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
 ``backbone.res2_b0.shortcut``, ``roi_heads.box_head.fc1`` ...), so the map
-is by name: conv kernels go from HWIO to OIHW, dense kernels are
-transposed, and everything else (biases, BN scale/bias, and the
+is by name: conv kernels go from HWIO to OIHW, transposed-conv kernels
+(the modules named ``deconv``, ``deconv0`` ...: the CMS heads' and
+PoseResNet's) are flipped in space and laid out (in, out, kh, kw), dense
+kernels are transposed, and everything else (biases, BN scale/bias, and the
 ``batch_stats`` or frozen ``mean``/``var``) is copied as it is.
 
 :func:`quantized_to_torch` carries an int8 quantized tree
@@ -20,6 +22,7 @@ landmark models: what the port trains becomes the same tree, which its
 
 from __future__ import annotations
 
+import re
 from collections.abc import Iterator, Mapping
 
 import numpy as np
@@ -34,10 +37,20 @@ def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()) -> Iterator[tuple[tuple
             yield prefix + (str(key),), np.asarray(value)
 
 
+_DECONV = re.compile(r"deconv\d*")
+
+
+def _is_deconv(modules: list[str]) -> bool:
+    """A Flax ``nn.ConvTranspose`` by its module name (see ``layers.ConvTranspose``)."""
+    return bool(modules) and _DECONV.fullmatch(modules[-1]) is not None
+
+
 def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     """Map {"params": ..., "batch_stats": ...} onto ``state_dict`` names.
 
-    Works for both ``models.hrnet.HRNet`` and ``models.rcnn.GeneralizedRCNN``;
+    Works for ``models.hrnet.HRNet``, ``models.pose_resnet.PoseResNet``,
+    ``models.discriminator.MultiScaleDiscriminator`` and
+    ``models.rcnn.GeneralizedRCNN``;
     load the result with ``load_state_dict(..., strict=True)`` so that a
     name the two sides disagree on raises.
     """
@@ -47,7 +60,9 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
             *modules, leaf = path
             if leaf == "kernel":
                 leaf = "weight"
-                if arr.ndim == 4:  # (kh, kw, in, out) -> (out, in, kh, kw)
+                if arr.ndim == 4 and _is_deconv(modules):  # flipped, (kh, kw, in, out) -> (in, out, kh, kw)
+                    arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+                elif arr.ndim == 4:  # (kh, kw, in, out) -> (out, in, kh, kw)
                     arr = arr.transpose(3, 2, 0, 1)
                 elif arr.ndim == 2:  # (in, out) -> (out, in)
                     arr = arr.T
@@ -62,7 +77,8 @@ BATCH_STATS = ("mean", "var")  # BatchNorm buffers, Flax's ``batch_stats`` colle
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The inverse of :func:`flax_to_state_dict` for a model whose BatchNorm
-    statistics are Flax ``batch_stats`` (``HRNet``): {"params": ...,
+    statistics are Flax ``batch_stats`` (``HRNet``, ``PoseResNet``, the
+    discriminator): {"params": ...,
     "batch_stats": ...} of nested dicts of float32 numpy arrays, conv
     kernels back to HWIO and dense kernels to (in, out). The arrays are
     copies, so later updates of the model leave them as they were."""
@@ -73,7 +89,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         collection = "batch_stats" if leaf in BATCH_STATS else "params"
         if leaf == "weight":
             leaf = "kernel"
-            if arr.ndim == 4:  # (out, in, kh, kw) -> (kh, kw, in, out)
+            if arr.ndim == 4 and _is_deconv(modules):  # (in, out, kh, kw) -> (kh, kw, in, out), unflipped
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif arr.ndim == 4:  # (out, in, kh, kw) -> (kh, kw, in, out)
                 arr = arr.transpose(2, 3, 1, 0)
             elif arr.ndim == 2:
                 arr = arr.T

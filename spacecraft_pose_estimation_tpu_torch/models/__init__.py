@@ -1,23 +1,28 @@
-"""Models of the port: HRNet and the Faster R-CNN detector (eval mode), and their int8 forms."""
+"""Models of the port: the landmark nets, the domain discriminator and the Faster R-CNN detector, and their int8 forms."""
 
 from __future__ import annotations
 
-import torch
+import dataclasses
 
-_NOT_PORTED = ("hrnet_cms", "hrnet_cms_384", "hrnet_tiny_cms", "hrnet_golden", "pose_resnet")
+import torch
 
 
 def build_landmark_model(name: str, num_joints: int, device=None, dtype=torch.float32,
                          generator: torch.Generator | None = None):
-    """A landmark model by the reference's name: ``pose_hrnet`` (HRNet-W32)
-    or ``hrnet_tiny``, with ``num_joints`` heatmaps, weights from
-    ``generator`` (see ``hrnet.HRNet``)."""
-    from .hrnet import HRNET_TINY, POSE_HRNET_W32, HRNet
+    """A landmark model by the reference's name, with ``num_joints``
+    heatmaps and weights from ``generator``: ``pose_hrnet`` (HRNet-W32),
+    ``hrnet_cms`` / ``hrnet_cms_384`` (W32 with the CMS heads at full / half
+    the input's resolution), ``hrnet_tiny``, ``hrnet_golden``,
+    ``hrnet_tiny_cms`` and ``pose_resnet`` (SimpleBaseline ResNet-50); see
+    ``hrnet.HRNet`` and ``pose_resnet.PoseResNet``."""
+    from .hrnet import HRNET_CMS, HRNET_CMS_384, HRNET_GOLDEN, HRNET_TINY, POSE_HRNET_W32, HRNet
+    from .pose_resnet import PoseResNet, PoseResNetConfig
 
-    configs = {"pose_hrnet": POSE_HRNET_W32, "hrnet_tiny": HRNET_TINY}
+    configs = {"pose_hrnet": POSE_HRNET_W32, "hrnet_cms": HRNET_CMS, "hrnet_cms_384": HRNET_CMS_384,
+               "hrnet_tiny": HRNET_TINY, "hrnet_golden": HRNET_GOLDEN,
+               "hrnet_tiny_cms": dataclasses.replace(HRNET_TINY, head="cms")}
     if name in configs:
         return HRNet(configs[name].with_joints(num_joints), dtype=dtype, device=device, generator=generator)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"landmark model {name!r} is not ported yet (the CMS heads and the other "
-                                  "landmark nets are on ROADMAP.md's queue); have 'pose_hrnet', 'hrnet_tiny'")
+    if name == "pose_resnet":
+        return PoseResNet(PoseResNetConfig(num_joints=num_joints), dtype=dtype, device=device, generator=generator)
     raise ValueError(f"unknown landmark model: {name}")

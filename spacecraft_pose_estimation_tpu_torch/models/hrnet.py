@@ -1,9 +1,16 @@
-"""HRNet with the classic 1/4-resolution heatmap head (port of ``models/hrnet.py``).
+"""HRNet with the classic 1/4-resolution heatmap head or the CMS heads (port of ``models/hrnet.py``).
 
-Configs are the JAX package's (``POSE_HRNET_W32``, ``HRNET_TINY``); module
-names mirror its Flax tree (``stem1``, ``layer1.block0``, ``transition1``,
-``stage2_m0.branch0``, ``stage2_m0.fuse.up0_1`` ...). The CMS heads are
-not ported yet.
+Configs are the JAX package's (``POSE_HRNET_W32``, ``HRNET_CMS``,
+``HRNET_CMS_384``, ``HRNET_GOLDEN``, ``HRNET_TINY``); module names mirror
+its Flax tree (``stem1``, ``layer1.block0``, ``transition1``,
+``stage2_m0.branch0``, ``stage2_m0.fuse.up0_1``, ``head0.deconv`` ...).
+
+``head="classic"``: one conv on branch 0, (B, H/4, W/4, J) heatmaps.
+``head="cms"`` / ``"cms_half"``: stage 4 keeps its four branches, each gets
+a transposed conv (stride 4, k 5 / stride 2, k 3) and a conv up to the
+input's (half) resolution, and the four heads are fused top-down with
+bilinear x2 upsampling; in train mode (or with ``return_all_scales``) the
+four fused maps come back, finest first.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .layers import BLOCKS, Conv, ConvBN, init_params, upsample_nearest
+from .layers import BLOCKS, Conv, ConvBN, ConvTranspose, init_params, upsample_bilinear, upsample_nearest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,12 +46,24 @@ class HRNetConfig:
     stage3: StageSpec = StageSpec(4, 3, (4, 4, 4), (32, 64, 128))
     stage4: StageSpec = StageSpec(3, 4, (4, 4, 4, 4), (32, 64, 128, 256))
     final_conv_kernel: int = 1
+    head: str = "classic"  # classic | cms | cms_half
+    head_deconv_channels: int = 32
 
     def with_joints(self, num_joints: int) -> "HRNetConfig":
         return dataclasses.replace(self, num_joints=num_joints)
 
 
-POSE_HRNET_W32 = HRNetConfig()
+POSE_HRNET_W32 = HRNetConfig(head="classic")
+HRNET_CMS = HRNetConfig(head="cms")
+HRNET_CMS_384 = HRNetConfig(head="cms_half")
+# the golden-parity harness: the torch reference's hard-coded stem and layer1, small stages
+HRNET_GOLDEN = HRNetConfig(
+    stem_channels=64,
+    stage1_blocks=4,
+    stage2=StageSpec(1, 2, (1, 1), (8, 16)),
+    stage3=StageSpec(1, 3, (1, 1, 1), (8, 16, 32)),
+    stage4=StageSpec(1, 4, (1, 1, 1, 1), (8, 16, 32, 64)),
+)
 HRNET_TINY = HRNetConfig(
     stem_channels=8,
     stage1_blocks=1,
@@ -167,9 +186,27 @@ class Transition(nn.Module):
         return outs
 
 
+class CMSHead(nn.Module):
+    """A transposed conv (stride 4, k 5 or stride 2, k 3; padding (k - 2,
+    k - 1) per side, torch's ``padding=1, output_padding=1``) and a conv,
+    lifting one branch to (half) the input's resolution."""
+
+    def __init__(self, cin: int, num_joints: int, stride: int, deconv_channels: int, final_kernel: int):
+        super().__init__()
+        k = 5 if stride == 4 else 3
+        self.deconv = ConvTranspose(cin, deconv_channels, k, stride, (k - 2, k - 1))
+        self.conv = Conv(deconv_channels, num_joints, final_kernel, 1, final_kernel // 2)
+
+    def forward(self, x):
+        return self.conv(self.deconv(x))
+
+
 class HRNet(nn.Module):
-    """HRNet trunk + classic head. Input (B, H, W, 3) NHWC, already
-    normalized; output (B, H/4, W/4, J) float32 heatmaps.
+    """HRNet trunk + the config's head. Input (B, H, W, 3) NHWC, already
+    normalized; output float32 NHWC heatmaps: (B, H/4, W/4, J) from the
+    classic head; from the CMS heads the fused finest map, or in train mode
+    or with ``return_all_scales`` the four fused maps (x1, x2, x3, x4),
+    each half the resolution of the one before.
 
     ``dtype`` is the compute dtype (bfloat16 for serving); parameters are
     float32. ``device`` defaults to CUDA (see ``resolve_device``). Built in
@@ -197,7 +234,7 @@ class HRNet(nn.Module):
             modules = []
             chans = widths
             for m in range(spec.num_modules):
-                multi = not (si == 2 and m == spec.num_modules - 1)
+                multi = not (si == 2 and m == spec.num_modules - 1 and config.head == "classic")
                 mod = HRModule(spec, chans, multi_scale_output=multi)
                 self.add_module(f"stage{si + 2}_m{m}", mod)
                 modules.append(mod)
@@ -205,15 +242,28 @@ class HRNet(nn.Module):
             self.stages.append((trans, modules))
             widths_prev = chans
         k = config.final_conv_kernel
-        self.final_layer = Conv(widths_prev[0], config.num_joints, k, 1, k // 2, bias=True)
+        if config.head == "classic":
+            self.final_layer = Conv(widths_prev[0], config.num_joints, k, 1, k // 2, bias=True)
+            head_weights = [self.final_layer.weight]
+        elif config.head in ("cms", "cms_half"):
+            stride = 4 if config.head == "cms" else 2
+            self.heads = []
+            for i, cin in enumerate(widths_prev):
+                h = CMSHead(cin, config.num_joints, stride, config.head_deconv_channels, k)
+                self.add_module(f"head{i}", h)
+                self.heads.append(h)
+            head_weights = [w for h in self.heads for w in (h.deconv.weight, h.conv.weight)]
+        else:
+            raise ValueError(f"unknown HRNet head {config.head!r}")
         generator = generator if generator is not None else torch.Generator().manual_seed(0)
         init_params(self, generator)
-        with torch.no_grad():  # the heatmap head starts at N(0, 0.001), as in the JAX package
-            self.final_layer.weight.normal_(0.0, 0.001, generator=generator)
+        with torch.no_grad():  # the heatmap heads start at N(0, 0.001), as in the JAX package
+            for w in head_weights:
+                w.normal_(0.0, 0.001, generator=generator)
         self.to(resolve_device(device))
         self.eval()
 
-    def forward(self, x):
+    def forward(self, x, return_all_scales: bool = False):
         x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
         x = self.layer1(self.stem2(self.stem1(x)))
         xs = [x]
@@ -221,4 +271,13 @@ class HRNet(nn.Module):
             xs = trans(xs)
             for mod in modules:
                 xs = mod(xs)
-        return self.final_layer(xs[0]).float().permute(0, 2, 3, 1)
+        if self.config.head == "classic":
+            return self.final_layer(xs[0]).float().permute(0, 2, 3, 1)
+        h1, h2, h3, h4 = (head(x).float() for head, x in zip(self.heads, xs))
+        # top-down fusion: each coarser map upsampled x2 into the next finer one
+        x3 = h3 + upsample_bilinear(h4, 2)
+        x2 = h2 + upsample_bilinear(x3, 2)
+        x1 = h1 + upsample_bilinear(x2, 2)
+        if self.training or return_all_scales:
+            return tuple(o.permute(0, 2, 3, 1) for o in (x1, x2, x3, h4))
+        return x1.permute(0, 2, 3, 1)

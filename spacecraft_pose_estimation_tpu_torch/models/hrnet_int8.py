@@ -352,6 +352,8 @@ def quantize_hrnet(model: HRNet, calib_x: Tensor, s2d: bool = False) -> dict:
     """Calibrate over ``calib_x`` (normalized (B, H, W, 3) crops on the
     model's device) and quantize. Returns the JAX package's tree
     ({convs, convs_raw, adds, final, in_scale}) of CPU tensors."""
+    if model.config.head != "classic":
+        raise NotImplementedError("int8 path covers the classic head only")  # as the JAX quantizer
     if s2d:
         raise NotImplementedError("the space-to-depth branch 0 (s2d) is not ported yet")
     scales = _collect_scales(model, calib_x)

@@ -36,6 +36,32 @@ class Conv(nn.Module):
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding, 1, self.groups)
 
 
+class ConvTranspose(nn.Module):
+    """Flax's ``nn.ConvTranspose`` (``transpose_kernel=False``) with an
+    explicit ``(lo, hi)`` padding per side: the input dilated by ``stride``,
+    padded by ``lo`` before and ``hi`` after on each spatial axis, then
+    convolved with the kernel as Flax stores it. ``weight`` is that kernel
+    in ``F.conv_transpose2d``'s form, flipped in space and laid out
+    (in, out, kh, kw): Flax ``kernel[a, b, i, o]`` is
+    ``weight[i, o, kh - 1 - a, kw - 1 - b]`` (``convert.py`` maps it). In
+    torch's terms the padding is ``k - 1 - lo`` and the output padding
+    ``hi - lo``."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, padding: tuple[int, int],
+                 bias: bool = True):
+        super().__init__()
+        lo, hi = padding
+        if not (0 <= lo <= kernel - 1 and 0 <= hi - lo < stride):
+            raise ValueError(f"padding {padding} has no torch form for kernel {kernel}, stride {stride}")
+        self.stride, self.padding, self.output_padding = stride, kernel - 1 - lo, hi - lo
+        self.weight = nn.Parameter(torch.empty(cin, cout, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride, self.padding, self.output_padding)
+
+
 class Linear(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -138,13 +164,22 @@ def upsample_nearest(x, factor: int):
     return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
+def upsample_bilinear(x, factor: int):
+    """Bilinear x``factor`` upsample of NCHW with half-pixel centres
+    (``jax.image.resize(..., "bilinear")``, upsampling only: the source
+    coordinate is clamped at the edges, where ``jax.image.resize`` keeps the
+    one tap inside the image, the same value)."""
+    return F.interpolate(x, scale_factor=factor, mode="bilinear", align_corners=False)
+
+
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: N(0, 1/fan_in) for conv and linear
-    weights (Flax's lecun scale), zero biases; BN keeps its identity init."""
+    """Random weights from ``generator``: N(0, 1/fan_in) for conv, transposed
+    conv and linear weights (Flax's lecun scale), zero biases; BN keeps its
+    identity init."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (Conv, Linear)):
-                fan_in = m.weight[0].numel()
+            if isinstance(m, (Conv, ConvTranspose, Linear)):
+                fan_in = (m.weight[:, 0] if isinstance(m, ConvTranspose) else m.weight[0]).numel()
                 w = torch.randn(m.weight.shape, generator=generator) * fan_in**-0.5
                 m.weight.copy_(w)
                 if m.bias is not None:

@@ -3,5 +3,7 @@
 ``python -m spacecraft_pose_estimation_tpu_torch.tools.<name>``: the staged
 evaluation's three stages, ``export_boxes`` (detector -> real_test.json),
 ``test_landmarks`` (landmark model -> pred.mat) and ``export_poses`` (PnP ->
-opencv_poses.json); and ``train_landmarks``, the landmark trainer.
+opencv_poses.json); ``train_landmarks``, the landmark trainer; and
+``train_landmarks_da``, the adversarial domain-adaptation trainer of the
+CMS models.
 """

@@ -8,9 +8,12 @@ value in ``best.json`` and keeps its state apart in ``best/``, and each
 step's metadata (epoch, ...) rides in ``meta_{step}.json``.
 
 The format is the port's own. Step ``s`` is a directory ``{s}/`` holding
-``state.pt`` (``torch.save`` of the model's ``state_dict``, the optimizer's
-state and the step) and ``model.npz``, the model's Flax variable tree with
-``/``-joined keys (``convert.state_dict_to_flax``), which
+``state.pt`` (``torch.save`` of the state's ``state_dict()``: for a
+``TrainState`` the model, the optimizer's state and the step; for the
+domain adaptation's ``DAState`` both models, both optimizers and the step)
+and ``model.npz``, the Flax variable tree of the state's ``model`` (the
+generator of a ``DAState``) with ``/``-joined keys
+(``convert.state_dict_to_flax``), which
 ``tools/test_landmarks --checkpoint`` and ``evaluate
 --landmark-checkpoint`` read. The port does not read the JAX package's
 orbax directories.
@@ -57,13 +60,12 @@ class CheckpointManager:
         return os.path.join(self.directory, str(step), NPZ_FILE)
 
     def save(self, step: int, state, metadata: dict | None = None) -> None:
-        """Write step ``step`` of ``state`` (a ``TrainState``), its ``.npz``
+        """Write step ``step`` of ``state`` (a ``TrainState`` or a ``DAState``), its ``.npz``
         and its metadata, then drop the oldest steps beyond ``max_to_keep``."""
         d = os.path.join(self.directory, str(step))
         os.makedirs(d, exist_ok=True)
         tmp = os.path.join(d, STATE_FILE + ".tmp")
-        torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                    "step": int(state.step)}, tmp)
+        torch.save(state.state_dict(), tmp)
         save_npz(state.model, os.path.join(d, NPZ_FILE))
         os.replace(tmp, os.path.join(d, STATE_FILE))
         with open(os.path.join(self.directory, f"meta_{step}.json"), "w") as f:
@@ -99,21 +101,15 @@ class CheckpointManager:
         return CheckpointManager(best_dir, max_to_keep=1).restore(state)
 
     def restore(self, state, step: int | None = None):
-        """Load step ``step`` (default the latest) into ``state`` in place ->
-        (state, metadata, step), or None when nothing is saved. Where the
-        saved optimizer state does not fit ``state``'s optimizer (e.g. a
-        placeholder one), only the model and the step are taken."""
+        """Load step ``step`` (default the latest) into ``state`` in place
+        (its ``load_state_dict``) -> (state, metadata, step), or None when
+        nothing is saved."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
         payload = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
                              map_location=next(state.model.parameters()).device, weights_only=True)
-        state.model.load_state_dict(payload["model"])
-        try:
-            state.optimizer.load_state_dict(payload["optimizer"])
-        except (ValueError, KeyError):
-            pass
-        state.step = int(payload["step"])
+        state.load_state_dict(payload)
         metadata = {}
         meta_path = os.path.join(self.directory, f"meta_{step}.json")
         if os.path.exists(meta_path):

@@ -31,6 +31,20 @@ class TrainState:
     optimizer: Optimizer
     step: int = 0
 
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": int(self.step)}
+
+    def load_state_dict(self, payload: dict) -> None:
+        """Load a :meth:`state_dict`. Where the saved optimizer state does not
+        fit this optimizer (e.g. a placeholder one), only the model and the
+        step are taken."""
+        self.model.load_state_dict(payload["model"])
+        try:
+            self.optimizer.load_state_dict(payload["optimizer"])
+        except (ValueError, KeyError):
+            pass
+        self.step = int(payload["step"])
+
 
 def make_train_step(use_target_weight: bool = True) -> Callable[[TrainState, dict], dict]:
     """Returns step(state, batch) -> metrics, updating ``state`` in place.

@@ -240,7 +240,7 @@ def test_run_scene_matches_jax_entry(setup):
     np.testing.assert_allclose(Rp[0], R_TRUE, atol=1e-3)  # the frame the landmarks fit
 
 
-def _write_scene(s, root):
+def _write_scene(s, root, hr_vars=None):
     scene = root / "scenes" / "scene_a"
     scene.mkdir(parents=True)
     for name, im in zip(s["names"], s["frames"]):
@@ -248,27 +248,37 @@ def _write_scene(s, root):
     (root / "landmarks.csv").write_text("x,y,z\n" + "".join(f"{x!r},{y!r},{z!r}\n" for x, y, z in s["lm3d"].tolist()))
     (root / "calibration.json").write_text(json.dumps(
         {"intrinsics": {"camera_matrix": CAM.K.tolist(), "distortion_coefficients": CAM.dist.tolist()}}))
-    for name, tree in (("det", s["det_vars"]), ("hrnet", s["hr_vars"])):
+    for name, tree in (("det", s["det_vars"]), ("hrnet", s["hr_vars"] if hr_vars is None else hr_vars)):
         flat = {"/".join(str(k.key) for k in path): np.asarray(v)
                 for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
         np.savez(root / f"{name}.npz", **flat)
 
 
-def test_main_writes_the_artifacts_of_run_scene(setup, tmp_path):
+def cms_variables():
+    """A numpy-seeded tree of ``hrnet_tiny_cms``: the CMS heads give 64x64 heatmaps of a 64x64 crop."""
+    jhr = JHRNet(config=dataclasses.replace(J_HR_TINY.with_joints(J), head="cms"))
+    return random_variables(lambda: jhr.init(jax.random.key(0), jnp.zeros((1, 64, 64, 3)), train=False),
+                            seed=4, overrides={"head": 0.1})
+
+
+@pytest.mark.parametrize("landmark_model", ["hrnet_tiny", "hrnet_tiny_cms"])
+def test_main_writes_the_artifacts_of_run_scene(setup, tmp_path, landmark_model):
     """main() on a scene of PNGs from .npz weights equals run_scene on the
-    same frames with models built from the same trees in bf16."""
+    same frames with models built from the same trees in bf16; with the
+    classic head and with the CMS heads."""
     s = setup
-    _write_scene(s, tmp_path)
+    hr_vars = s["hr_vars"] if landmark_model == "hrnet_tiny" else cms_variables()
+    _write_scene(s, tmp_path, hr_vars)
     args = ["--scenes-dir", str(tmp_path / "scenes"), "--landmarks-file", str(tmp_path / "landmarks.csv"),
             "--calibration-file", str(tmp_path / "calibration.json"),
             "--detector-checkpoint", str(tmp_path / "det.npz"), "--landmark-checkpoint", str(tmp_path / "hrnet.npz"),
             "--output-dir", str(tmp_path / "out"), "--tiny", "--batch-size", str(BATCH),
-            "--input-size", str(SIZE), "--device", "cpu", "MODEL.NAME", "hrnet_tiny", "MODEL.IMAGE_SIZE", "[64, 64]"]
+            "--input-size", str(SIZE), "--device", "cpu", "MODEL.NAME", landmark_model, "MODEL.IMAGE_SIZE", "[64, 64]"]
     evaluate.main(args)
     det = trcnn.GeneralizedRCNN(trcnn.RCNN_TINY, dtype=torch.bfloat16, device="cpu")
     det.load_state_dict(flax_to_state_dict({"params": s["det_vars"]["params"]}))
-    hr = build_landmark_model("hrnet_tiny", J, device="cpu", dtype=torch.bfloat16)
-    hr.load_state_dict(flax_to_state_dict(s["hr_vars"]))
+    hr = build_landmark_model(landmark_model, J, device="cpu", dtype=torch.bfloat16)
+    hr.load_state_dict(flax_to_state_dict(hr_vars))
     cam = CameraModel.from_calibration_json(str(tmp_path / "calibration.json"))
     evaluate.run_scene(s["frames"], s["names"], str(tmp_path / "direct"), det, hr, np.array(s["lm3d"], np.float64),
                        cam, batch_size=BATCH, input_size=SIZE, config=CONFIG)

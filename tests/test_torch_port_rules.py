@@ -66,11 +66,15 @@ def test_entry_points_need_cuda_or_an_explicit_device():
         evaluate.main(["--scenes-dir", ".", "--landmarks-file", "l.csv", "--calibration-file", "c.json",
                        "--detector-checkpoint", "d.npz", "--landmark-checkpoint", "h.npz", "--output-dir", "."])
     # so do the staged evaluation's stage commands, and the PnP stage's function
-    from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks, train_landmarks
+    from spacecraft_pose_estimation_tpu_torch.tools import (
+        export_boxes, export_poses, test_landmarks, train_landmarks, train_landmarks_da,
+    )
 
     for tool, args in ((export_boxes, ["--image-dir", ".", "--checkpoint", "d.npz", "--output-dir", "."]),
                        (test_landmarks, ["--test-json", "t.json", "--image-dir", ".", "--checkpoint", "h.npz"]),
                        (train_landmarks, ["--train-json", "t.json", "--image-dir", "."]),
+                       (train_landmarks_da, ["--train-json", "t.json", "--image-dir", ".", "--target-json", "t.json",
+                                             "--target-image-dir", "."]),
                        (export_poses, ["--frames-dir", ".", "--detection-annotations", "t.json",
                                        "--pose-annotations", "p.mat", "--landmarks-file", "l.csv",
                                        "--calibration-file", "c.json", "--output-dir", "."])):
@@ -83,6 +87,12 @@ def test_entry_points_need_cuda_or_an_explicit_device():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_landmarks.train(config.get_preset("events"), None, ".")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_landmarks_da.train(config.get_preset("lightbox_cms"), None, None, ".")
+    from spacecraft_pose_estimation_tpu_torch.models.discriminator import MultiScaleDiscriminator
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiScaleDiscriminator(11)
 
 
 def test_wrappers_launch_or_raise_off_the_cpu():

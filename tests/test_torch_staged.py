@@ -165,19 +165,36 @@ def _jax_examples(scene):
     return jld.LandmarkExamples(scene["json"], str(scene["scene_dir"]))
 
 
-@pytest.mark.parametrize("flip", [False, True], ids=["plain", "flip_test"])
-def test_validate_matches_jax(scene, flip):
-    want = jloop.validate(scene["jhr"], to_jax(scene["hr_vars"][0]), _jax_examples(scene), BATCH, (64, 64),
+def cms_pair():
+    """``hrnet_tiny_cms`` in both packages from one numpy-seeded tree: its
+    heatmaps are the crop's size, 64x64, not a quarter of it."""
+    jhr = JHRNet(config=dataclasses.replace(J_HR_TINY.with_joints(J), head="cms"))
+    variables = random_variables(lambda: jhr.init(jax.random.key(0), jnp.zeros((1, 64, 64, 3)), train=False),
+                                 seed=6, overrides={"head": 0.1})
+    thr = build_landmark_model("hrnet_tiny_cms", J, device="cpu")
+    thr.load_state_dict(flax_to_state_dict(variables))
+    return jhr, variables, thr
+
+
+@pytest.mark.parametrize("flip,landmark_model", [(False, "hrnet_tiny"), (True, "hrnet_tiny"),
+                                                  (False, "hrnet_tiny_cms"), (True, "hrnet_tiny_cms")],
+                         ids=["plain", "flip_test", "plain-cms", "flip_test-cms"])
+def test_validate_matches_jax(scene, flip, landmark_model):
+    if landmark_model == "hrnet_tiny":
+        jhr, variables, thr = scene["jhr"], scene["hr_vars"][0], scene["thrs"][0]
+    else:
+        jhr, variables, thr = cms_pair()
+    want = jloop.validate(jhr, to_jax(variables), _jax_examples(scene), BATCH, (64, 64),
                           flip_test=flip, shift_heatmap=True)
     examples = LandmarkExamples(scene["json"], str(scene["scene_dir"]))
-    got = landmark_loop.validate(scene["thrs"][0], examples, BATCH, (64, 64), flip_test=flip, shift_heatmap=True)
+    got = landmark_loop.validate(thr, examples, BATCH, (64, 64), flip_test=flip, shift_heatmap=True)
     assert got.shape == want.shape == (N_FRAMES, J, 3) and got.dtype == np.float32
     np.testing.assert_allclose(got[..., :2], want[..., :2], atol=1e-2)
     np.testing.assert_allclose(got[..., 2], want[..., 2], atol=1e-4)
     # frames in memory (a mapping of names to BGR frames, as the card's machine hands them over) give the same
     frames = dict(zip(scene["names"], map(torch.from_numpy, scene["frames"])))
     in_memory = LandmarkExamples(scene["json"], frames=frames)
-    np.testing.assert_array_equal(landmark_loop.validate(scene["thrs"][0], in_memory, BATCH, (64, 64),
+    np.testing.assert_array_equal(landmark_loop.validate(thr, in_memory, BATCH, (64, 64),
                                                          flip_test=flip, shift_heatmap=True), got)
 
 

@@ -18,7 +18,6 @@ random draws) to the JAX function and to its port on the CPU:
 * ``index_iterator``: the same order, index for index.
 """
 
-import cv2
 import numpy as np
 import pytest
 import torch
@@ -34,19 +33,9 @@ from spacecraft_pose_estimation_tpu_torch.data import landmark_dataset as tld
 from spacecraft_pose_estimation_tpu_torch.ops import geometry as tgeo, heatmap as thm, warp as twarp
 from spacecraft_pose_estimation_tpu_torch.train import accuracy as tacc, landmark_loop, loss as tloss
 
-from torch_port_util import n, t
+from torch_port_util import n, smooth_frames, t
 
 B, J, IMG, HM = 4, 11, (64, 64), (16, 16)
-
-
-def smooth_frames(seed, b, h, w):
-    """Seeded uint8 frames, noise blurred over ~3 px (a camera image is smooth)."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(b):
-        im = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3)).astype(np.float32), (0, 0), 3.0)
-        out.append(np.clip(np.rint((im - im.mean()) / im.std() * 50 + 128), 0, 255).astype(np.uint8))
-    return np.stack(out)
 
 
 def assert_crops_close(got, want, M_got, M_want, frame_hw, grey=1e-3):

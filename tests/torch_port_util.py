@@ -7,10 +7,23 @@ JAX package and its PyTorch port, which runs on the CPU.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
+
+
+@pytest.fixture(scope="module")
+def few_threads():
+    """Two intra-op threads for PyTorch while a module's tests run: the test
+    workers share the host's cores, and a worker whose PyTorch spreads over
+    all of them slows every other (the heavy DA files ran 5-50x slower
+    under six workers than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(x, dtype=None) -> torch.Tensor:
@@ -24,6 +37,18 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def smooth_frames(seed, b, h, w):
+    """Seeded uint8 frames, noise blurred over ~3 px (a camera image is smooth)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(b):
+        im = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3)).astype(np.float32), (0, 0), 3.0)
+        out.append(np.clip(np.rint((im - im.mean()) / im.std() * 50 + 128), 0, 255).astype(np.uint8))
+    return np.stack(out)
 
 
 def random_variables(init_fn, seed: int, overrides: dict | None = None) -> dict:
