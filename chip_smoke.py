@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training and domain-adaptation paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation and detector-training paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -10,14 +10,16 @@ toolkit. It
    (one nvcc per source, in parallel) and reads the SASS of the four int8
    kernels K5a, K5, K6 and K7: integer tensor-core instructions (IGMMA),
    no dp4a;
-2. holds K2 to its plain version on seeded boxes that the served
-   proposals may not reach (every pyramid level, the image's edges, boxes
-   larger than the read window; f32 and bf16 features, 256 and 16
-   channels), K3 likewise on maps larger and smaller than its read window
+2. holds K2 and its backward (``roi_align_multilevel_backward.cu``, in
+   both read windows) to their plain versions on seeded boxes that the
+   served proposals may not reach (every pyramid level, the image's edges,
+   boxes larger than the read window, level boundaries; f32 and bf16
+   features, 256 and 16 channels), K3 likewise on maps larger and smaller than its read window
    at spatial scales 0.25, 0.3 and 1/12 (boxes across every edge, larger
    than the window, zero-area, wholly outside the map; a CUDA call with 12
-   channels must raise), and K4 exactly on seeded problems of 1, 63, 65
-   and 1024 boxes with duplicates, ties, zero-area boxes and no valid box;
+   channels must raise), and K4 exactly on seeded problems of 1, 63, 65,
+   1024, 1025, 1500, 2000 and 2048 boxes with duplicates, ties, zero-area
+   boxes and no valid box (2049 must raise);
    then checks the tiny detector + HRNet serving path on the card against
    the same path on the CPU (plain PyTorch versions of the kernels), in
    the bf16 form and in the int8 form with every fused route on, the
@@ -99,7 +101,24 @@ toolkit. It
    epoch of 2 steps, its step split and profiled too; and runs
    ``evaluate.run_scene`` with the trained CMS
    model on 8 frames (K1, K2 and K4 held to their plain versions);
-13. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+13. trains the detector: first ``RCNN_TINY`` with ``freeze_at=2`` in
+   float32 on the card against the CPU (3 SGD updates on the same batch
+   and draws, the frozen tensors' weight decay included); then
+   ``tools.train_detector.train`` with ``--preset config_1`` at full width
+   (X101-32x8d FPN at 800^2, batch 4, ROI batch 128, flips, SGD 1e-3 with
+   warmup 500, bf16 activations over float32 weights) on 32 seeded
+   1920x1200 frames with one bright box each, 8 steps (cut from 5000) and
+   one evaluation on 8 more (K2's, K2's backward's and K4's counters reset
+   just before, read just after; each held to its plain version on a
+   step's own inputs, K4 at N = 2000, K2's backward to 2^-7 of its
+   gradient's scale, a bar that must reject the gradient doubled, a
+   level's lost and each ROI's sent to another image's box); checks the
+   losses and parameters finite, the final ``.npz`` through
+   ``evaluate.load_detector`` (0 apart) and that 20 updates on one
+   repeated batch lower loss_total;
+   prints the step ms, images/s, peak memory, the box AP, the train
+   step's own split by CUDA events and a profiled step;
+14. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -110,6 +129,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import itertools
 import json
 import math
 import subprocess
@@ -203,15 +223,26 @@ def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
 
 
 class Capture:
-    """Record the arguments of every call to ``module.name`` while active."""
+    """Record the arguments of every call to ``module.name`` while active;
+    with ``keep``, only those of the latest call whose positional arguments
+    pass it, their tensors detached (a captured activation would keep its
+    training step's autograd graph alive)."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.calls = module, name, []
+    def __init__(self, module, name: str, keep=None):
+        self.module, self.name, self.calls, self.keep = module, name, [], keep
         self.orig = getattr(module, name)
 
     def __enter__(self):
+        def detach(x):
+            if isinstance(x, (list, tuple)):
+                return type(x)(detach(y) for y in x)
+            return x.detach() if hasattr(x, "detach") else x
+
         def record(*args, **kwargs):
-            self.calls.append((args, kwargs))
+            if self.keep is None:
+                self.calls.append((args, kwargs))
+            elif self.keep(args):
+                self.calls = [(detach(args), kwargs)]
             return self.orig(*args, **kwargs)
 
         setattr(self.module, self.name, record)
@@ -405,15 +436,39 @@ def coverage_boxes(torch, r: int, size: int, gen):
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1).float()
 
 
+# boxes of side 112, 224 and 448 px: sqrt(area) on the P2/P3, P3/P4 and P4/P5 boundaries
+LEVEL_BOUNDARY_BOXES = ((100.0, 100.0, 212.0, 212.0), (300.0, 200.0, 524.0, 424.0), (10.0, 20.0, 458.0, 468.0))
+
+
+def pooler_grad_limit(dtype, scale: float) -> float:
+    """K2's backward against the plain autograd gradient, by the gradient's
+    own scale (its largest magnitude): atomics add in another order, so
+    float32 is held to 1e-5 of the scale; the bf16 cast of two float32 sums
+    that differ in the last bits can round one bf16 unit apart (at most
+    2^-7 of the value), so bf16 to 2^-7 of the scale. A zero gradient
+    raises: no bar on it can tell a wrong kernel from the right one."""
+    import torch
+
+    if not scale > 0:
+        raise RuntimeError(f"K2's backward is checked against a gradient of scale {scale}")
+    return (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+
+
 def check_pooler_coverage(torch, m) -> None:
-    """K2 against its plain version on seeded boxes that the served
-    proposals may not reach (random weights can put them all on one level):
-    every level, the image's edges, boxes larger than the read window; f32
-    and bf16 features, 256 and 16 channels; 1e-5 of the output's scale."""
+    """K2 and its backward against their plain versions on seeded boxes
+    that the served proposals may not reach (random weights can put them
+    all on one level): every level, the image's edges, boxes larger than
+    the read window, three boxes on level boundaries; f32 and bf16
+    features, 256 and 16 channels; the forward to 1e-5 of the output's
+    scale, the backward to ``pooler_grad_limit``, and once through
+    autograd (``roi_align_multilevel`` under ``backward()``)."""
     gen = torch.Generator().manual_seed(4)
     r, n_img = 256, DET_BATCH
-    boxes = coverage_boxes(torch, r, POOLER_SIZE, gen).cuda()
-    batch_idx = torch.randint(0, n_img, (r,), generator=gen, dtype=torch.int32).cuda()
+    boxes = coverage_boxes(torch, r, POOLER_SIZE, gen)
+    batch_idx = torch.randint(0, n_img, (r,), generator=gen, dtype=torch.int32)
+    boxes = torch.cat([boxes, torch.tensor(LEVEL_BOUNDARY_BOXES)]).cuda()
+    batch_idx = torch.cat([batch_idx, torch.arange(len(LEVEL_BOUNDARY_BOXES), dtype=torch.int32)]).cuda()
+    r = boxes.shape[0]
     levels = m.roi_align.assign_levels(boxes, len(POOLER_STRIDES), int(math.log2(POOLER_STRIDES[0])))
     stride = torch.tensor(POOLER_STRIDES, device=boxes.device, dtype=torch.float32)[levels]
     edge = int(((boxes[:, :2] < 0) | (boxes[:, 2:] > POOLER_SIZE)).any(-1).sum())
@@ -424,21 +479,47 @@ def check_pooler_coverage(torch, m) -> None:
         f"{wide} larger than the read window")
     if min(hist) == 0 or edge == 0 or wide == 0:
         raise RuntimeError("K2 coverage boxes miss a level, the edge or the window")
-    for dtype in (torch.float32, torch.bfloat16):
-        for c in (256, 16):
-            feats = [torch.randn(n_img, POOLER_SIZE // s, POOLER_SIZE // s, c, generator=gen).to(boxes.device, dtype)
-                     for s in POOLER_STRIDES]
-            args = (feats, boxes, batch_idx, 7, POOLER_STRIDES)
+    for impl, dtype, c in itertools.product(m.roi_align.IMPLS, (torch.float32, torch.bfloat16), (256, 16)):
+        feats = [torch.randn(n_img, POOLER_SIZE // s, POOLER_SIZE // s, c, generator=gen).to(boxes.device, dtype)
+                 for s in POOLER_STRIDES]
+        args = (feats, boxes, batch_idx, 7, POOLER_STRIDES)
+        kw = dict(sampling_ratio=2, window=POOLER_WINDOW, impl=impl)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the window-coverage warning: these boxes exceed it on purpose
+            got = m.roi_align.roi_align_multilevel(*args, **kw)
+            want = m.roi_align.roi_align_multilevel_plain(*args, **kw)
+        sync()
+        err, share, ok = compare(got, want, None)
+        log(f"K2 coverage, {impl} window, {dtype} features, C {c}: max_abs_err {err:.3g} of scale "
+            f"{want.abs().max().item():.3g}, share off {share:.3g} (limit 1e-5 of the scale)")
+        if not ok:
+            raise RuntimeError(f"K2 disagrees with its plain version on the coverage boxes ({impl}, {dtype}, C {c}): "
+                               f"{err}")
+        grad_out = torch.randn(r, 7, 7, c, generator=gen).cuda()
+        shapes = [tuple(f.shape) for f in feats]
+        bargs = (grad_out, shapes, dtype, boxes, batch_idx, 7, POOLER_STRIDES, 2, POOLER_WINDOW, 224.0, 4, impl)
+        got = m.roi_align.roi_align_multilevel_backward(*bargs)
+        want = m.roi_align.roi_align_multilevel_backward_plain(*bargs)
+        sync()
+        scale = max(w.float().abs().max().item() for w in want)
+        limit = pooler_grad_limit(dtype, scale)
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        same_dtype = all(g.dtype == dtype for g in got)
+        log(f"K2 backward coverage, {impl} window, {dtype} features, C {c}: max_abs_err {err:.3g} of scale {scale:.3g} "
+            f"(limit {limit:.3g}); per level P2..P5 nonzero cells "
+            f"{[int((g != 0).any(-1).sum()) for g in got]}")
+        if err > limit or not same_dtype:
+            raise RuntimeError(f"K2's backward disagrees with the plain gradient ({impl}, {dtype}, C {c}): {err}")
+        if dtype == torch.bfloat16 and c == 256:  # the same through autograd
+            leaves = [f.detach().requires_grad_() for f in feats]
             with warnings.catch_warnings():
-                warnings.simplefilter("ignore")  # the window-coverage warning: these boxes exceed it on purpose
-                got = m.roi_align.roi_align_multilevel(*args, sampling_ratio=2, window=POOLER_WINDOW)
-                want = m.roi_align.roi_align_multilevel_plain(*args, sampling_ratio=2, window=POOLER_WINDOW)
-            sync()
-            err, share, ok = compare(got, want, None)
-            log(f"K2 coverage, {dtype} features, C {c}: max_abs_err {err:.3g} of scale "
-                f"{want.abs().max().item():.3g}, share off {share:.3g} (limit 1e-5 of the scale)")
-            if not ok:
-                raise RuntimeError(f"K2 disagrees with its plain version on the coverage boxes ({dtype}, C {c}): {err}")
+                warnings.simplefilter("ignore")
+                m.roi_align.roi_align_multilevel(leaves, boxes, batch_idx, 7, POOLER_STRIDES, **kw).backward(grad_out)
+            auto = max((f.grad.float() - w.float()).abs().max().item() for f, w in zip(leaves, want))
+            log(f"K2 backward through autograd ({impl} window, bf16, C 256): max_abs_err {auto:.3g} "
+                f"(limit {limit:.3g})")
+            if auto > limit:
+                raise RuntimeError(f"roi_align_multilevel's autograd gradient disagrees: {auto}")
 
 
 SINGLE_MAPS = ((192, 192), (40, 120), (100, 50), (30, 44))  # the served P2; h < 48; w < 56; both
@@ -538,13 +619,18 @@ def nms_edge_problems(torch, n: int, p: int, gen, valid_share: float = 0.8):
             torch.gather(valid, 1, order).contiguous())
 
 
+NMS_COVERAGE_N = (1, 63, 65, 1024, 1025, 1500, 2000, 2048)
+
+
 def check_nms_coverage(torch, m) -> None:
     """K4 exact against its plain version at N = 1, 63, 65 and 1024 (edges
-    of its 64-bit words and its largest problem, 128 KB of mask in shared
-    memory), with duplicates, ties, zero-area boxes and an all-invalid
-    problem, at IoU thresholds 0, 0.5 and 0.99."""
+    of its 64-bit words and its largest problem with 128 KB of mask in
+    shared memory), 1025, 1500, 2000 (the RPN's in training) and 2048 (mask
+    in the global workspace), with duplicates, ties, zero-area boxes and an
+    all-invalid problem, at IoU thresholds 0, 0.5 and 0.99; a problem of
+    2049 boxes must raise."""
     gen = torch.Generator().manual_seed(5)
-    for n in (1, 63, 65, 1024):
+    for n in NMS_COVERAGE_N:
         boxes, valid = (t.cuda() for t in nms_edge_problems(torch, n, 4, gen))
         for thresh in (0.0, 0.5, 0.99):
             got = m.nms.nms_mask_sorted(boxes, valid, thresh)
@@ -555,6 +641,14 @@ def check_nms_coverage(torch, m) -> None:
                 f"valid, {off} differ (limit 0)")
             if off or got.dtype != torch.bool:
                 raise RuntimeError(f"K4 disagrees with its plain version at N {n}, IoU {thresh}: {off} differ")
+    n = m.nms.MAX_BOXES + 1
+    try:
+        m.nms.nms_mask_sorted(torch.zeros(1, n, 4, device="cuda"), torch.ones(1, n, dtype=torch.bool, device="cuda"),
+                              0.5)
+    except ValueError as e:
+        log(f"K4 at N {n} on the card raises: {e}")
+    else:
+        raise RuntimeError(f"K4 at N {n} did not raise")
 
 
 def touched_cells(torch, taps, h, w) -> int:
@@ -592,7 +686,8 @@ def pooler_numbers(torch, roi_align, args, kwargs):
         for img in range(f.shape[0]):
             sel = torch.nonzero((levels == li) & (batch_idx == img)).flatten()
             if sel.numel():
-                taps = roi_align.level_taps(boxes[sel], f.shape[1], f.shape[2], stride, p, s, window)
+                taps = roi_align.level_taps(boxes[sel], f.shape[1], f.shape[2], stride, p, s, window,
+                                            kwargs.get("impl", "pallas"))
                 cells += touched_cells(torch, taps, f.shape[1], f.shape[2])
                 (_, wy), (_, wx) = taps  # a bin's samples pair its S rows with its S columns
                 taps_read += int(((wy != 0).sum((1, 2)) * (wx != 0).sum((1, 2))).sum())
@@ -630,6 +725,11 @@ def pooler_library_call(torch, roi_align, args, kwargs):
     """K2's yardstick: per level, the (B, C, H_l, W_l) map and each image's
     boxes of that level as rows of one grid, padded to the level's largest
     per-image count (built once, outside the timed call)."""
+    return grid_pool_call(torch, pooler_library_maps(torch, roi_align, args, kwargs), kwargs.get("sampling_ratio", 2))
+
+
+def pooler_library_maps(torch, roi_align, args, kwargs):
+    """The (map, grid) pairs of ``pooler_library_call``."""
     feats, boxes, batch_idx, p, strides = args[:5]
     s = kwargs.get("sampling_ratio", 2)
     levels = roi_align.assign_levels(boxes, len(feats), int(math.log2(strides[0])))
@@ -645,7 +745,7 @@ def pooler_library_call(torch, roi_align, args, kwargs):
             if len(bx):
                 grid[i, :len(bx)] = roi_sample_grid(torch, bx, 1.0 / stride, h, w, p, s)
         calls.append((f.permute(0, 3, 1, 2).float().contiguous(), grid.reshape(b, most * p * s, p * s, 2)))
-    return grid_pool_call(torch, calls, s)
+    return calls
 
 
 def nbytes(*tensors) -> int:
@@ -1961,6 +2061,337 @@ def da_phase(torch, m, dev, card):
     return ([k1_row], da_launches), (eval_rows, eval_launches)
 
 
+DET_TRAIN_FRAMES, DET_VAL_FRAMES, DET_TRAIN_STEPS, DET_REPEATS = 32, 8, 8, 20
+# the repeated batch's SGD: a constant rate, where config_1's warmup starts at
+# 1e-3 x 1e-3 and would not move the weights in 20 updates
+DET_REPEAT_LR = 2e-3
+DET_TINY_LR = 1e-3
+
+
+def detection_scene(torch, m, dev, n: int, seed: int, out_dir: str, split: str):
+    """``n`` seeded 1920x1200 uint8 BGR frames on the card (dim noise, one
+    bright box of 150-600 px a side each) and their COCO json ->
+    ``DetectionExamples`` over the frames in memory."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = FRAME_HW
+    frames = torch.randint(0, 48, (n, h, w, 3), dtype=torch.uint8, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    images, anns = [], []
+    for i in range(n):
+        bw, bh = (int(v) for v in rng.integers(min(h, w) // 8, min(h, w) // 2, 2))
+        x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+        frames[i, y0:y0 + bh, x0:x0 + bw] = torch.tensor([int(v) for v in rng.integers(180, 256, 3)],
+                                                         dtype=torch.uint8, device=dev)
+        images.append({"id": i, "file_name": f"{split}{i:04d}.png", "height": h, "width": w})
+        anns.append({"id": i, "image_id": i, "category_id": 1, "bbox": [x0, y0, bw, bh], "area": bw * bh,
+                     "iscrowd": 0})
+    path = os.path.join(out_dir, f"{split}.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [{"id": 1, "name": "spacecraft"}]}, f)
+    return path, m.detection_dataset.DetectionExamples(path, frames={im["file_name"]: frames[i]
+                                                                    for i, im in enumerate(images)})
+
+
+def tiny_det_batch(torch):
+    """2 seeded 64x64 images, two GT boxes each (padded to 16)."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    gt = np.zeros((2, 16, 4), np.float32)
+    gt[0, :2] = [[6, 8, 30, 40], [30, 20, 60, 58]]
+    gt[1, :2] = [[0, 10, 44, 50], [20, 2, 36, 22]]
+    valid = np.zeros((2, 16), bool)
+    valid[:, :2] = True
+    return {"image": torch.from_numpy(rng.uniform(0, 255, (2, 64, 64, 3)).astype(np.float32)),
+            "gt_boxes": torch.from_numpy(gt), "gt_classes": torch.zeros(2, 16, dtype=torch.int32),
+            "gt_valid": torch.from_numpy(valid)}
+
+
+def check_det_train_tiny_against_cpu(torch, m) -> None:
+    """``RCNN_TINY`` with ``freeze_at=2`` in float32 (TF32 off) on the card
+    against the CPU: 3 SGD updates (lr 1e-3, momentum 0.9, weight decay
+    1e-4) from the same weights on the same batch and sampling draws. The
+    losses and grad norms within 1e-4 relative; the parameters within 1 lr,
+    at most 1% of them beyond 1e-3 lr; the frozen ones (FrozenBN's tensors,
+    the stem's and res2's weights), which only the decay moves, within 1e-6
+    relative and moved."""
+    import dataclasses
+
+    cfg = dataclasses.replace(m.rcnn.RCNN_TINY, backbone=dataclasses.replace(m.rcnn.RCNN_TINY.backbone, freeze_at=2))
+    data = tiny_det_batch(torch)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = m.rcnn.GeneralizedRCNN(cfg, device=device, generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():  # tests/test_torch_detection_train.py's conditioning: a small stem keeps raw
+            model.backbone.stem.conv.weight.mul_(1e-2)  # 0-255 pixels from saturating the logits, and tame heads
+            bn_gen = torch.Generator().manual_seed(7)  # keep 3 updates from amplifying roundings
+            heads = model.roi_heads.predictor
+            for lin in (model.rpn_head.deltas, heads.bbox_pred, heads.cls_score):
+                lin.weight.copy_(0.05 * torch.randn(lin.weight.shape, generator=bn_gen))
+            for bn in model.modules():
+                if isinstance(bn, m.resnet_backbone.FrozenBN):  # frozen statistics off the identity, as trained ones
+                    for t in (bn.scale, bn.var):
+                        t.copy_(0.5 + torch.rand(t.shape, generator=bn_gen))
+                    for t in (bn.bias, bn.mean):
+                        t.copy_(0.1 * torch.randn(t.shape, generator=bn_gen))
+        init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        opt = m.optim.build_optimizer("sgd", model.parameters(), m.optim.multistep_schedule(DET_TINY_LR, [2]),
+                                      weight_decay=1e-4, momentum=0.9)
+        state = m.detection_state.DetTrainState(model, opt)
+        step = m.detection_state.make_detection_train_step()
+        batch = {k: v.to(device) for k, v in data.items()}
+        mets = []
+        for i in range(3):
+            gen = torch.Generator().manual_seed(100 + i)  # the same draws on both devices
+            mets.append({k: v.item() for k, v in step(state, batch, generator=gen).items()})
+        runs[device] = (mets, {k: v.detach().cpu() for k, v in model.state_dict().items()}, init)
+    (mc, sc, init), (mg, sg, _) = runs["cpu"], runs["cuda"]
+    rel = lambda k: max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-6) for a, b in zip(mc, mg))
+    loss_err, gn_err = max(rel(k) for k in mc[0] if k.startswith("loss")), rel("grad_norm")
+    dp = torch.cat([((sg[k] - v).abs() / DET_TINY_LR).flatten() for k, v in sc.items()])
+    share = (dp > 1e-3).float().mean().item()
+    frozen = [k for k in sc if k.split(".")[-1] in ("scale", "bias", "mean", "var") and ".norm." in k]
+    frozen += [k for k in sc if k.startswith(("backbone.stem.", "backbone.res2_")) and k.endswith("conv.weight")]
+    frozen_err = max(((sg[k] - sc[k]).abs() / sc[k].abs().clamp(min=1e-9)).max().item() for k in frozen)
+    moved = sum(int(not torch.equal(sc[k], init[k])) for k in frozen)
+    log(f"tiny detector train steps, card vs CPU (RCNN_TINY, freeze_at 2, 3 SGD updates, f32): losses "
+        f"{[round(a['loss_total'], 6) for a in mg]}, relative err {loss_err:.3g} (limit 1e-4), grad norms "
+        f"{gn_err:.3g} (limit 1e-4), parameters max {dp.max().item():.3g} lr (limit 1), share beyond 1e-3 lr "
+        f"{share:.3g} (limit 0.01) of {dp.numel()}; frozen tensors {len(frozen)}, moved by the decay {moved}, "
+        f"card vs CPU {frozen_err:.3g} relative (limit 1e-6)")
+    if not (loss_err <= 1e-4 and gn_err <= 1e-4 and dp.max().item() <= 1.0 and share <= 0.01
+            and frozen_err <= 1e-6 and moved == len(frozen)):
+        raise RuntimeError(f"tiny detector train steps differ between the card and the CPU: loss {loss_err}, grad "
+                           f"norm {gn_err}, parameters {dp.max().item()} lr, share {share}, frozen {frozen_err}, "
+                           f"moved {moved} of {len(frozen)}")
+
+
+def pooler_grad_controls(torch, m, a, got, want, limit) -> dict[str, float]:
+    """Wrong gradients that K2's backward bar must reject, on the row's own
+    call (bound arguments ``a``, the kernel's gradient ``got`` and the plain
+    one ``want``): the kernel's gradient doubled; the busiest level's
+    gradient lost, as a kernel that sent it to another level would leave
+    it; and each ROI's gradient sent to the box half the batch away, on
+    another image (the kernel on ``grad_out`` rolled by R/2). Returns each
+    one's max_abs_err; raises if one is within ``limit``."""
+    busiest = max(range(len(want)), key=lambda i: want[i].float().abs().max().item())
+    half = a["boxes"].shape[0] // 2
+    rolled = m.roi_align.roi_align_multilevel_backward(**{**a, "grad_out": a["grad_out"].roll(half, 0)})
+    controls = {"doubled": [2 * g for g in got],
+                f"level P{busiest + 2} lost": [torch.zeros_like(g) if i == busiest else g for i, g in enumerate(got)],
+                "ROIs sent to another image's boxes": rolled}
+    errs = {k: max((g.float() - w.float()).abs().max().item() for g, w in zip(c, want)) for k, c in controls.items()}
+    log(f"K2b bar's controls on the train step's call: max_abs_err {json.dumps(errs)} (each must exceed the limit "
+        f"{limit:.3g})")
+    for k, err in errs.items():
+        if not err > limit:
+            raise RuntimeError(f"K2b's bar {limit} cannot tell a wrong gradient ({k}: {err}) from the right one")
+    return errs
+
+
+def pooler_backward_row(torch, m, call, name):
+    """K2's backward row on one captured call: held to the plain autograd
+    gradient within ``pooler_grad_limit`` of its own scale, a bar shown to
+    reject wrong gradients (``pooler_grad_controls``); its library
+    yardstick is the backward of ``F.grid_sample`` + ``F.avg_pool2d`` under
+    autograd."""
+    import torch.nn.functional as F
+
+    bargs, bkw = call
+    b = inspect.signature(m.roi_align.roi_align_multilevel_backward_plain).bind(*bargs, **bkw)  # the same parameters
+    b.apply_defaults()
+    a = b.arguments
+    grad_out, shapes, dtype, boxes, batch_idx = (a[k] for k in ("grad_out", "shapes", "dtype", "boxes", "batch_idx"))
+    want = m.roi_align.roi_align_multilevel_backward_plain(*bargs, **bkw)
+    scale = max(w.float().abs().max().item() for w in want)
+    limit = pooler_grad_limit(dtype, scale)
+    controls = pooler_grad_controls(torch, m, a, m.roi_align.roi_align_multilevel_backward(*bargs, **bkw), want, limit)
+    r, p, _, c = grad_out.shape
+    out_bytes = sum(math.prod(sh) for sh in shapes) * (2 if dtype == torch.bfloat16 else 4)
+    f32_bytes = sum(math.prod(sh) for sh in shapes) * 4
+    nbytes_ = nbytes(grad_out, boxes, batch_idx) + out_bytes
+    # the yardstick: per level, autograd of grid_sample + avg_pool2d on the f32 map, one forward kept
+    feats = [torch.zeros(sh, device=boxes.device, dtype=dtype) for sh in shapes]
+    levels = m.roi_align.assign_levels(boxes, len(shapes), int(math.log2(a["strides"][0])))
+    maps = [(x.requires_grad_(), g) for x, g in pooler_library_maps(
+        torch, m.roi_align, (feats, boxes, batch_idx, p, a["strides"]), {"sampling_ratio": a["sampling_ratio"]})]
+    outs = [F.avg_pool2d(F.grid_sample(x, g, mode="bilinear", padding_mode="border", align_corners=False),
+                         a["sampling_ratio"]) for x, g in maps]
+    gouts = [torch.randn_like(o) for o in outs]
+    run_lib = lambda: torch.autograd.grad(outs, [x for x, _ in maps], gouts, retain_graph=True)
+    return dict(id="K2b", name=name,
+                source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel_backward.cu",
+                replaces="none: the gradient of spacecraft_pose_estimation_tpu/ops/roi_align.py:194 (windowed XLA "
+                         "pooler, jax.grad); no TPU kernel has a backward",
+                run_k=lambda: m.roi_align.roi_align_multilevel_backward(*bargs, **bkw),
+                run_p=lambda: m.roi_align.roi_align_multilevel_backward_plain(*bargs, **bkw),
+                run_lib=run_lib, lib_graph=False,  # autograd of a forward built outside cannot be captured
+                tol=limit, peak=FP32_FLOPS, numbers=(nbytes_, 53.0 * r * p * p * c),
+                extra={"grad_scale": scale, "grad_limit": limit, "controls_max_abs_err": controls,
+                       "impl": a["impl"], "rois": r, "levels_hist": torch.bincount(levels, minlength=4).tolist(),
+                       "bytes_with_f32_buffers": nbytes(grad_out) + f32_bytes * (2 if dtype == torch.bfloat16 else 1)
+                       + (out_bytes if dtype == torch.bfloat16 else 0)})
+
+
+def det_step_split(torch, m, state, batch, card) -> None:
+    """The detector train step of ``make_detection_train_step`` split by
+    CUDA events that wrappers around its ``model.losses`` and
+    ``optimizer.step`` record (3 steps, the last reported): the losses'
+    forward; the backward (from the losses to SGD: zero_grad, backward, the
+    frozen parameters' zero gradients, the gradient norm); SGD. Then
+    torch.profiler over one more step."""
+    model, opt = state.model, state.optimizer
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def between(fn, first: int, last: int):
+        def call(*args, **kwargs):
+            ev[first].record()
+            out = fn(*args, **kwargs)
+            ev[last].record()
+            return out
+
+        return call
+
+    step = m.detection_state.make_detection_train_step()
+    gen = lambda: m.landmark_loop.step_generator(42, 0)
+    spans = []
+    model.losses, opt.step = between(model.losses, 0, 1), between(opt.step, 2, 3)
+    try:
+        for _ in range(3):
+            step(state, batch, generator=gen())
+            sync()
+            spans.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    finally:
+        del model.losses, opt.step  # the instance's wrappers: the class's methods again
+    fwd, bwd, sgd = spans[-1]
+    log(f"detector train step split by CUDA events (X101-32x8d FPN 800^2, batch 4) on {card} (all "
+        f"{[[round(v, 4) for v in r] for r in spans]}): losses forward {fwd:.4f} ms, backward {bwd:.4f} ms, "
+        f"SGD {sgd:.4f} ms")
+    profile_call(torch, lambda: step(state, batch, generator=gen()), "detector train step (config_1, batch 4)")
+
+
+def det_repeated_batch(torch, m, dev, args, batch, card) -> None:
+    """20 updates of a fresh config_1 model on one augmented batch of 4 with
+    the same sampling draws each time, SGD at a constant DET_REPEAT_LR
+    (momentum 0.9, weight decay 1e-4): the mean loss_total of the last 5
+    must be below the first."""
+    model = m.train_detector.build_model(args, dev)
+    opt = m.optim.build_optimizer("sgd", model.parameters(), DET_REPEAT_LR, weight_decay=1e-4, momentum=0.9)
+    state = m.detection_state.DetTrainState(model, opt)
+    step = m.detection_state.make_detection_train_step()
+    losses, ms = [], []
+    for _ in range(DET_REPEATS):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(step(state, batch, generator=m.landmark_loop.step_generator(42, 0))
+                      ["loss_total"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    last = sum(losses[-5:]) / 5
+    log(f"detector train step on one repeated batch of 4 (config_1 X101-32x8d FPN 800^2, bf16, SGD at a constant "
+        f"{DET_REPEAT_LR}) on {card}: loss_total {[round(v, 6) for v in losses]}; first {losses[0]:.6f}, mean of "
+        f"the last 5 {last:.6f} (must be lower); step {median(ms[5:]):.4f} ms (median of steps 6-{DET_REPEATS})")
+    if not (all(math.isfinite(v) for v in losses) and last < losses[0]):
+        raise RuntimeError(f"{DET_REPEATS} updates on one batch did not lower loss_total: {losses}")
+    det_step_split(torch, m, state, batch, card)
+
+
+def det_phase(torch, m, dev, card):
+    """``tools.train_detector.train`` with ``--preset config_1`` at full
+    width on the card; returns the rows of K2, K2's backward and K4 at
+    N = 2000 on a train step's own inputs, and the run's launch counts."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    check_det_train_tiny_against_cpu(torch, m)
+    with tempfile.TemporaryDirectory() as out_dir:
+        train_json, train_ex = detection_scene(torch, m, dev, DET_TRAIN_FRAMES, 31, out_dir, "det_train")
+        val_json, val_ex = detection_scene(torch, m, dev, DET_VAL_FRAMES, 32, out_dir, "det_val")
+        args = m.train_detector.parse_args([
+            "--preset", "config_1", "--train-json", train_json, "--val-json", val_json, "--image-dir", out_dir,
+            "--output", os.path.join(out_dir, "run"), "--max-iter", str(DET_TRAIN_STEPS)])
+        log(f"train_detector config: --preset config_1 (X101-32x8d FPN, {args.input_size}^2, batch "
+            f"{args.batch_size}, ROI batch {m.train_detector.model_config(args).roi.batch_size_per_image}, pooler "
+            f"{m.train_detector.model_config(args).roi.pooler_impl}, flip {args.flip}), SGD lr {args.lr} warmup "
+            f"{args.solver.warmup_iters} momentum 0.9 weight decay 1e-4, bf16 over float32; {DET_TRAIN_FRAMES} "
+            f"training and {DET_VAL_FRAMES} validation frames of {FRAME_HW[1]}x{FRAME_HW[0]}, {DET_TRAIN_STEPS} "
+            f"steps (cut from {args.solver.max_iter}), one evaluation at the end")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases and the frames still hold
+        steps = Timed(m.train_detector, "make_detection_train_step", factory=True, keep=True)
+        det_cfg = m.train_detector.model_config(args)
+        n_train, n_nms = args.batch_size * det_cfg.roi.batch_size_per_image, det_cfg.rpn.pre_nms_topk_train
+        k2 = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[1].shape[0] == n_train)
+        k2b = Capture(m.roi_align, "roi_align_multilevel_backward", keep=lambda a: a[3].shape[0] == n_train)
+        k4 = Capture(m.nms, "nms_mask_sorted", keep=lambda a: a[0].shape[1] == n_nms)
+        with steps, k2, k2b, k4:
+            reset_counts(m)
+            t1 = time.perf_counter()
+            trainer = m.train_detector.train(args, train_ex, val_ex, dev)
+            sync()
+            wall = time.perf_counter() - t1
+            launches = read_counts(m)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        state = trainer.state
+        losses = [met["loss_total"].item() for met in steps.results]
+        finite = all(math.isfinite(v) for v in losses) and all(
+            bool(torch.isfinite(v).all()) for v in state.model.state_dict().values())
+        ap = {k: v[0] for k, v in trainer.storage.latest().items() if k.startswith("bbox/")}
+        step_ms = median(steps.ms[2:])
+        log(f"train_detector (config_1 on {card}): {wall:.4f} s in all; train step {step_ms:.4f} ms (median of "
+            f"steps 3-{DET_TRAIN_STEPS}; all {[round(v, 4) for v in steps.ms]}) = "
+            f"{args.batch_size / step_ms * 1e3:.3f} "
+            f"images/s; peak memory {peak_gb:.4f} GB (torch.cuda.max_memory_allocated; {held_gb:.4f} GB of it held "
+            f"before the run); loss_total "
+            f"{[round(v, 5) for v in losses]}; last metrics "
+            f"{json.dumps({k: round(float(v), 6) for k, v in steps.results[-1].items()})}; EvalHook box AP at one "
+            f"detection an image {json.dumps(ap)}; launches {json.dumps(launches)}")
+        if not finite or len(losses) != DET_TRAIN_STEPS:
+            raise RuntimeError(f"train_detector: a loss or a parameter is not finite: {losses}")
+        for key in ("K2", "K2b", "K4"):
+            if launches[key] == 0:
+                raise RuntimeError(f"kernel {key} was not launched by the detector trainer")
+        if "bbox/AP" not in ap:
+            raise RuntimeError(f"the detector trainer's EvalHook reported no AP: {ap}")
+        # the final checkpoint's .npz through the evaluation entry's loader
+        npz = os.path.join(args.output, "checkpoints", str(state.step), "model.npz")
+        loaded = m.evaluate.load_detector(npz, False, False, torch.bfloat16, dev)
+        trained = {k: v for k, v in state.model.state_dict().items()}
+        params_equal = all(torch.equal(v, trained[k]) for k, v in loaded.state_dict().items())
+        same_cfg = m.rcnn.GeneralizedRCNN(loaded.config, dtype=torch.bfloat16, device=dev)
+        same_cfg.load_state_dict(trained)
+        batch = next(m.detection_dataset.detection_batches(val_ex, 4, (args.input_size, args.input_size),
+                                                           train=False, augment=False, num_workers=0))
+        with torch.no_grad():
+            a, b = loaded(batch["image"]), same_cfg(batch["image"])
+        box_err = (a["boxes"] - b["boxes"]).abs().max().item()
+        log(f"train_detector: the final .npz ({os.path.getsize(npz)} bytes) through evaluate.load_detector: "
+            f"parameters equal {params_equal}; detections on 4 validation frames {box_err} px from the trained "
+            f"weights' in the loader's config (limit 0), valid equal {torch.equal(a['valid'], b['valid'])}")
+        if not params_equal or box_err != 0 or not torch.equal(a["valid"], b["valid"]):
+            raise RuntimeError(f"the trained detector's .npz gives other detections: {box_err}")
+        del loaded, same_cfg
+        k2_call, k2b_call, k4_call = k2.calls[-1], k2b.calls[-1], k4.calls[-1]
+        rows = [pooler_row(torch, m, k2_call, f"roi_align_multilevel (train_detector config_1: {n_train} ROIs, "
+                                              "windowed read window)"),
+                pooler_backward_row(torch, m, k2b_call, f"roi_align_multilevel_backward (train_detector config_1: "
+                                                        f"{n_train} ROIs, bf16 gradient)")]
+        rows += nms_rows(torch, m, dev, [k4_call], "train_detector config_1: ")
+        del k2, k2b, k4
+        train_batch = next(m.detection_dataset.detection_batches(train_ex, 4, (args.input_size, args.input_size),
+                                                                 flip=True, num_workers=0))
+        del trainer, state
+        torch.cuda.empty_cache()
+        det_repeated_batch(torch, m, dev, args, train_batch, card)
+    log(f"detector training phase: {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -2009,7 +2440,7 @@ def kernel_report(rows, launches):
             "library_ms": time_ms(row["run_lib"], 10) if row["run_lib"] is not None else None,
         }
         entry["device_ms"], entry["k"] = graph_ms(row["run_k"])
-        if row["run_lib"] is not None:  # the yardstick's device time, as the kernel's
+        if row["run_lib"] is not None and row.get("lib_graph", True):  # the yardstick's device time, as the kernel's
             entry["library_device_ms"], entry["library_k"] = graph_ms(row["run_lib"])
         entry["bound_share"] = bound / (entry["device_ms"] or entry["ms"])
         if "calls" in row:
@@ -2024,23 +2455,21 @@ def kernel_report(rows, launches):
     return report
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
+def load_port():
+    """The port's modules the phases use, as one namespace ``m``, with
+    ``m.kernels`` (kernel id -> (module, wrapper name, launch counter)) and
+    ``m.counters``."""
     from spacecraft_pose_estimation_tpu_torch import _cuda, config, evaluate, models, pipeline, serving
     from spacecraft_pose_estimation_tpu_torch.data import camera
-    from spacecraft_pose_estimation_tpu_torch.data import coco_io, landmark_dataset
+    from spacecraft_pose_estimation_tpu_torch.data import coco_io, detection_dataset, landmark_dataset
     from spacecraft_pose_estimation_tpu_torch.models import (
         backbone_int8, hrnet, hrnet_int8, layers, rcnn, resnet_backbone,
     )
     from spacecraft_pose_estimation_tpu_torch.models import discriminator
     from spacecraft_pose_estimation_tpu_torch.tools import (
-        export_boxes, export_poses, test_landmarks, train_landmarks, train_landmarks_da,
+        export_boxes, export_poses, test_landmarks, train_detector, train_landmarks, train_landmarks_da,
     )
-    from spacecraft_pose_estimation_tpu_torch.train import adversarial, landmark_loop, optim
+    from spacecraft_pose_estimation_tpu_torch.train import adversarial, detection_state, landmark_loop, optim
     from spacecraft_pose_estimation_tpu_torch.train import state as train_state
     from spacecraft_pose_estimation_tpu_torch.ops import (
         geometry, heatmap, int8_blocks, int8_conv, nms, pnp, roi_align, warp,
@@ -2053,10 +2482,13 @@ def main() -> int:
                         coco_io=coco_io, landmark_dataset=landmark_dataset, export_boxes=export_boxes,
                         test_landmarks=test_landmarks, export_poses=export_poses, landmark_loop=landmark_loop,
                         config=config, train_landmarks=train_landmarks, optim=optim, train_state=train_state,
-                        train_landmarks_da=train_landmarks_da, adversarial=adversarial, discriminator=discriminator)
+                        train_landmarks_da=train_landmarks_da, adversarial=adversarial, discriminator=discriminator,
+                        detection_dataset=detection_dataset, detection_state=detection_state,
+                        train_detector=train_detector)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
+        "K2b": (roi_align, "roi_align_multilevel_backward", roi_align.BACKWARD),
         "K3": (roi_align, "roi_align_single", roi_align.SINGLE),
         "K4": (nms, "nms_mask_sorted", nms.KERNEL), "K5a": (int8_conv, "int8_conv", int8_conv.KERNEL),
         "K5": (int8_blocks, "basic_block_chain", int8_blocks.CHAIN),
@@ -2064,6 +2496,18 @@ def main() -> int:
         "K7": (int8_blocks, "up_exchange", int8_blocks.EXCHANGE),
     }
     m.counters = {key: k for key, (_, _, k) in m.kernels.items()} | {"K5a grouped": int8_conv.GROUPED}
+    m._cuda = _cuda
+    return m
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    m = load_port()
+    _cuda, rcnn, hrnet, serving = m._cuda, m.rcnn, m.hrnet, m.serving
     t_start = time.perf_counter()
     card = card_line()
     log(card)
@@ -2144,6 +2588,10 @@ def main() -> int:
     # width, K1 in its validation, and the evaluation entry on the CMS model
     for rows, launches in da_phase(torch, m, dev, card):
         report += kernel_report(rows, launches)
+    torch.cuda.empty_cache()
+
+    # tools/train_detector.py's config_1 at full width: K2, its backward and K4 at N = 2000
+    report += kernel_report(*det_phase(torch, m, dev, card))
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

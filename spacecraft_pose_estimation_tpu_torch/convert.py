@@ -15,15 +15,15 @@ port's quantizers return the same keys and layouts.
 
 The input is nested dicts of numpy arrays, e.g. what
 ``jax.tree_util.tree_map(np.asarray, variables)`` gives; this module
-imports no JAX. :func:`state_dict_to_flax` is the way back, for the
-landmark models: what the port trains becomes the same tree, which its
-``.npz`` checkpoints hold and the JAX ``HRNet`` loads.
+imports no JAX. :func:`module_to_flax` is the way back: what the port
+trains becomes the same tree, which its ``.npz`` checkpoints hold and the
+JAX models load.
 """
 
 from __future__ import annotations
 
 import re
-from collections.abc import Iterator, Mapping
+from collections.abc import Collection, Iterator, Mapping
 
 import numpy as np
 import torch
@@ -72,21 +72,26 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-BATCH_STATS = ("mean", "var")  # BatchNorm buffers, Flax's ``batch_stats`` collection
+def module_to_flax(model: torch.nn.Module) -> dict:
+    """:func:`state_dict_to_flax` of ``model``: its buffers (BatchNorm
+    statistics) go to ``batch_stats``, its parameters to ``params`` (the
+    detector's FrozenBN ``mean`` and ``var`` among them, as in the JAX
+    ``params`` tree)."""
+    return state_dict_to_flax(model.state_dict(), {name for name, _ in model.named_buffers()})
 
 
-def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The inverse of :func:`flax_to_state_dict` for a model whose BatchNorm
-    statistics are Flax ``batch_stats`` (``HRNet``, ``PoseResNet``, the
-    discriminator): {"params": ...,
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor], stats: Collection[str]) -> dict:
+    """The inverse of :func:`flax_to_state_dict`: {"params": ...,
     "batch_stats": ...} of nested dicts of float32 numpy arrays, conv
-    kernels back to HWIO and dense kernels to (in, out). The arrays are
-    copies, so later updates of the model leave them as they were."""
+    kernels back to HWIO and dense kernels to (in, out). ``stats`` names the
+    entries that go to ``batch_stats``; the rest go to ``params``. The
+    arrays are copies, so later updates of the model leave them as they
+    were."""
     out: dict = {"params": {}, "batch_stats": {}}
     for name, value in state_dict.items():
         *modules, leaf = name.split(".")
         arr = value.detach().to("cpu", torch.float32).numpy()
-        collection = "batch_stats" if leaf in BATCH_STATS else "params"
+        collection = "batch_stats" if name in stats else "params"
         if leaf == "weight":
             leaf = "kernel"
             if arr.ndim == 4 and _is_deconv(modules):  # (in, out, kh, kw) -> (kh, kw, in, out), unflipped

@@ -13,11 +13,15 @@
 // calls are the RPN's 20 problems of 256 boxes and the box head's 4 of 64.
 //
 // Design: one block per problem (an image's pyramid level in the RPN, an
-// image in the box head), N <= 1024, in two phases.
+// image in the box head), N <= 2048, in two phases.
 // 1. In parallel, with no order between them: for each valid row i and
 //    each j > i, bit j of mask[i] is set when IoU(i, j) > threshold. mask
 //    is N x ceil(N / 64) uint64 words in shared memory (8 KB at N = 256,
-//    128 KB at 1,024). The tasks (column word wd, row i <= its last box)
+//    128 KB at 1,024) for N <= 1,024, the serving and evaluation calls.
+//    Above that it does not fit an SM (512 KB at 2,048, where training's
+//    RPN runs at N = 2,000), so it goes to a global workspace of the same
+//    layout, 512 KB a problem, which the wrapper allocates and L2 holds;
+//    the kernel is otherwise the same. The tasks (column word wd, row i <= its last box)
 //    are dealt to the warps in turn in column-major order; a warp keeps
 //    its column's 64 boxes in registers (two per lane), reads each row's
 //    box as a broadcast, and builds the word with two __ballot_sync. The
@@ -27,7 +31,7 @@
 //    for bit: two exact residuals settle it without dividing (see
 //    over_threshold). One __syncthreads.
 // 2. One warp walks the boxes in order, a 64-box word at a time. Lane w
-//    holds removed-word w in a register (N / 64 <= 16 words); the word's
+//    holds removed-word w in a register (N / 64 <= 32 words); the word's
 //    alive (valid, not removed) bits reach every lane with one __shfl_sync.
 //    Box b of the word is kept iff still alive when reached; then it clears
 //    its later boxes of the word (its row's own word, the same for every
@@ -46,13 +50,14 @@
 
 namespace {
 
-constexpr int kMaxBoxes = 1024;
-constexpr int kMaxWords = kMaxBoxes / 64;
+constexpr int kMaxBoxes = 2048;
+constexpr int kMaxSmemBoxes = 1024;  // the largest N whose mask stays in shared memory
+constexpr int kMaxWords = kMaxBoxes / 64;  // one a lane of the walking warp
 constexpr unsigned kFull = 0xffffffffu;
 
-__host__ __device__ constexpr size_t smem_bytes(int n) {
-  // the boxes, mask (n x words), the kept words, the areas, the valid flags
-  return static_cast<size_t>(n) * ((n + 63) / 64) * 8 + kMaxWords * 8 +
+__host__ __device__ constexpr size_t smem_bytes(int n, bool mask_in_smem) {
+  // the boxes, mask (n x words) unless it is global, the kept words, the areas, the valid flags
+  return (mask_in_smem ? static_cast<size_t>(n) * ((n + 63) / 64) * 8 : 0) + kMaxWords * 8 +
          static_cast<size_t>(n) * (sizeof(float4) + sizeof(float) + 1);
 }
 
@@ -69,12 +74,15 @@ __device__ __forceinline__ bool over_threshold(float inter, float u, float t, fl
 
 __global__ void __launch_bounds__(1024)
 nms_mask_sorted_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
-                       bool* __restrict__ keep, int N, float threshold) {
+                       bool* __restrict__ keep, uint64_t* gmask, int N, float threshold) {
   extern __shared__ __align__(16) uint64_t smem[];
   const int W = (N + 63) / 64;
   float4* box = reinterpret_cast<float4*>(smem);  // (N,) x0, y0, x1, y1
-  uint64_t* mask = reinterpret_cast<uint64_t*>(box + N);  // (N, W)
-  uint64_t* kept_s = mask + static_cast<size_t>(N) * W;   // (kMaxWords,)
+  // mask (N, W): in shared memory after the boxes, or this problem's slice of gmask
+  uint64_t* mask = gmask ? gmask + static_cast<size_t>(blockIdx.x) * N * W
+                         : reinterpret_cast<uint64_t*>(box + N);
+  uint64_t* kept_s = gmask ? reinterpret_cast<uint64_t*>(box + N)
+                           : mask + static_cast<size_t>(N) * W;  // (kMaxWords,)
   float* area = reinterpret_cast<float*>(kept_s + kMaxWords);
   uint8_t* v = reinterpret_cast<uint8_t*>(area + N);
 
@@ -166,19 +174,23 @@ nms_mask_sorted_kernel(const float* __restrict__ boxes, const uint8_t* __restric
 }  // namespace
 
 // boxes: (P, N, 4) f32 XYXY, each problem sorted by descending score;
-// valid: (P, N) bool; keep: (P, N) bool. All contiguous.
-extern "C" int nms_mask_sorted(const void* boxes, const void* valid, void* keep, int P, int N,
-                               float threshold, void* stream) {
+// valid: (P, N) bool; keep: (P, N) bool. All contiguous. workspace: for
+// N > 1024, P x N x ceil(N / 64) uint64 words of global memory, 8-byte
+// aligned (its contents need not be set); unused, and may be null, below.
+extern "C" int nms_mask_sorted(const void* boxes, const void* valid, void* keep, void* workspace,
+                               int P, int N, float threshold, void* stream) {
   if (P == 0 || N == 0) return 0;
   if (N > kMaxBoxes) return static_cast<int>(cudaErrorInvalidValue);
+  const bool in_smem = N <= kMaxSmemBoxes;
+  if (!in_smem && workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = cudaFuncSetAttribute(
       nms_mask_sorted_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(kMaxBoxes)));
+      static_cast<int>(smem_bytes(kMaxSmemBoxes, true)));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // a warp per 8 rows, at most 32 warps
   const int threads = 32 * min(32, (N + 7) / 8);
-  nms_mask_sorted_kernel<<<P, threads, smem_bytes(N), static_cast<cudaStream_t>(stream)>>>(
+  nms_mask_sorted_kernel<<<P, threads, smem_bytes(N, in_smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<bool*>(keep), N, threshold);
+      static_cast<bool*>(keep), in_smem ? nullptr : static_cast<uint64_t*>(workspace), N, threshold);
   SPE_RETURN_LAUNCH_STATUS();
 }

@@ -42,49 +42,11 @@
 // one keyframe's 192 x 192 x 256 bf16 P2 map) moves ~3.6 MB, 3.2 MB of it
 // the f32 output; its 448 blocks (3.4 per SM) are one wave, so the loads'
 // latency, not a bandwidth, is what the design has to hide.
-#include "common.cuh"
+// The level assignment, the window and the taps are in roi_align_common.cuh,
+// which K2's backward (roi_align_multilevel_backward.cu) shares.
+#include "roi_align_common.cuh"
 
 namespace {
-
-constexpr int kMaxSamples = 64;  // P * S per axis
-
-struct Pyramid {
-  const void* feat[4];
-  int h[4];
-  int w[4];
-};
-
-// Taps of one sample coordinate along one axis, with the window and
-// in-bounds masks folded into the weights (a masked tap has weight 0 and a
-// safe index 0).
-__device__ void axis_taps(float coord, int limit, int origin, int win, int* k, float* wgt) {
-  const bool inb = coord > -1.f && coord < static_cast<float>(limit);
-  const float cc = fminf(fmaxf(coord, 0.f), static_cast<float>(limit - 1));
-  const int k0 = static_cast<int>(floorf(cc));
-  const float rel = cc - static_cast<float>(origin);
-  for (int t = 0; t < 2; ++t) {
-    const int kk = k0 + t;
-    const int local = kk - origin;
-    float w = fmaxf(0.f, 1.f - fabsf(rel - static_cast<float>(local)));
-    const bool ok = inb && local >= 0 && local < win && kk < limit;
-    k[t] = ok ? kk : 0;
-    wgt[t] = ok ? w : 0.f;
-  }
-}
-
-// Sample point i of the P * S along one axis of a box from lo to hi: bin
-// i / S, sub-sample i % S, at the centre of its 1 / S slice.
-__device__ __forceinline__ float sample_coord(int i, float lo, float hi, int P, int S) {
-  const float grid = static_cast<float>(i / S) +
-                     (static_cast<float>(i % S) + 0.5f) / static_cast<float>(S);
-  return lo + grid * (hi - lo) / static_cast<float>(P);
-}
-
-// The two taps of every sample row and column of one box, in shared memory.
-struct Taps {
-  int ky[2][kMaxSamples], kx[2][kMaxSamples];
-  float wy[2][kMaxSamples], wx[2][kMaxSamples];
-};
 
 // 8 consecutive channels of one cell as f32, in one 16-byte vector load
 // through the read-only path (p is 16-byte aligned).
@@ -115,52 +77,19 @@ template <typename T, bool kSingleMap>
 __global__ void __launch_bounds__(32 * kMaxBinWarps)
 roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, float spatial_scale,
                     const float* __restrict__ boxes, const int* __restrict__ batch_idx,
-                    float* __restrict__ out, int C, int P, int S, int window,
+                    float* __restrict__ out, int C, int P, int S, int window, int pallas_window,
                     float canonical_size, int canonical_level) {
   __shared__ Taps taps;
 
   const int r = blockIdx.x / P, py = blockIdx.x % P;
-  const float* box = boxes + 4 * r;
-  const int win_h = window, win_w = window + 8;
-
-  int lvl = 0;
-  float scale = spatial_scale;
-  if (!kSingleMap) {
-    // level assignment (pallas_pooler.py:165-171)
-    const float bw = fmaxf(box[2] - box[0], 0.f);
-    const float bh = fmaxf(box[3] - box[1], 0.f);
-    const float area = bw * bh;
-    float target = floorf(static_cast<float>(canonical_level) +
-                          log2f(sqrtf(area) / canonical_size + 1e-8f));
-    target = fminf(fmaxf(target, static_cast<float>(lvl_min)),
-                   static_cast<float>(lvl_min + num_levels - 1));
-    lvl = static_cast<int>(target) - lvl_min;
-    scale = 1.f / static_cast<float>(1 << (lvl_min + lvl));
-  }
-
-  const int h = pyr.h[lvl], w = pyr.w[lvl];
-  const float x0 = box[0] * scale - 0.5f, y0 = box[1] * scale - 0.5f;
-  const float x1 = box[2] * scale - 0.5f, y1 = box[3] * scale - 0.5f;
-  const int hp = max(h, win_h), wp = max(w, win_w);
-  const int oy = min(max(static_cast<int>(floorf(y0)) - 1, 0), hp - win_h);
-  int ox = min(max(static_cast<int>(floorf(x0)) - 1, 0), wp - win_w);
-  ox = (ox / 8) * 8;
-  // the taps of every sample column, and of this row's S sample rows only
-  for (int i = threadIdx.x; i < P * S; i += blockDim.x) {
-    int k[2];
-    float wt[2];
-    axis_taps(sample_coord(i, x0, x1, P, S), w, ox, win_w, k, wt);
-    taps.kx[0][i] = k[0]; taps.kx[1][i] = k[1]; taps.wx[0][i] = wt[0]; taps.wx[1][i] = wt[1];
-    if (i < S) {
-      const int iy = py * S + i;
-      axis_taps(sample_coord(iy, y0, y1, P, S), h, oy, win_h, k, wt);
-      taps.ky[0][iy] = k[0]; taps.ky[1][iy] = k[1]; taps.wy[0][iy] = wt[0]; taps.wy[1][iy] = wt[1];
-    }
-  }
+  const BoxWindow bw = box_window(pyr, boxes + 4 * r, kSingleMap, num_levels, lvl_min, spatial_scale,
+                                  window, pallas_window != 0, canonical_size, canonical_level);
+  const int lvl = bw.lvl, w = bw.w;
+  fill_taps(taps, bw, py, P, S, window);
   __syncthreads();
 
   const T* feat = static_cast<const T*>(pyr.feat[lvl]);
-  if (!kSingleMap) feat += static_cast<int64_t>(batch_idx[r]) * h * w * C;
+  if (!kSingleMap) feat += static_cast<int64_t>(batch_idx[r]) * bw.h * w * C;
   float* orow = out + (static_cast<int64_t>(r) * P + py) * P * C;
   const int lane = threadIdx.x & 31;
   const float inv = 1.f / static_cast<float>(S * S);
@@ -205,7 +134,7 @@ roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, float spatial_scal
 template <bool kSingleMap>
 int launch(const Pyramid& pyr, int num_levels, int lvl_min, float spatial_scale, int is_bf16,
            const void* boxes, const void* batch_idx, void* out, int R, int C, int P, int S,
-           int window, float canonical_size, int canonical_level, void* stream) {
+           int window, int pallas_window, float canonical_size, int canonical_level, void* stream) {
   if (R == 0) return 0;
   if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4 || C % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -217,12 +146,12 @@ int launch(const Pyramid& pyr, int num_levels, int lvl_min, float spatial_scale,
   auto* o = static_cast<float*>(out);
   if (is_bf16) {
     roi_align_ml_kernel<__nv_bfloat16, kSingleMap><<<blocks, threads, 0, s>>>(
-        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, canonical_size,
-        canonical_level);
+        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, pallas_window,
+        canonical_size, canonical_level);
   } else {
     roi_align_ml_kernel<float, kSingleMap><<<blocks, threads, 0, s>>>(
-        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, canonical_size,
-        canonical_level);
+        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, pallas_window,
+        canonical_size, canonical_level);
   }
   SPE_RETURN_LAUNCH_STATUS();
 }
@@ -233,16 +162,18 @@ int launch(const Pyramid& pyr, int num_levels, int lvl_min, float spatial_scale,
 // (all the same type), fine to coarse, each 16-byte aligned with C a
 // multiple of 8; levels past num_levels are unused. boxes: (R, 4) f32 XYXY
 // in image pixels; batch_idx: (R,) int32; out: (R, P, P, C) f32, 16-byte
-// aligned. lvl_min = log2 of the finest level's stride.
+// aligned. lvl_min = log2 of the finest level's stride. pallas_window: 1
+// for the Pallas pooler's read window, 0 for the windowed XLA pooler's.
 extern "C" int roi_align_multilevel(const void* f0, const void* f1, const void* f2,
                                     const void* f3, int h0, int w0, int h1, int w1, int h2,
                                     int w2, int h3, int w3, int num_levels, int lvl_min,
                                     int is_bf16, const void* boxes, const void* batch_idx,
                                     void* out, int R, int C, int P, int S, int window,
-                                    float canonical_size, int canonical_level, void* stream) {
+                                    int pallas_window, float canonical_size, int canonical_level,
+                                    void* stream) {
   const Pyramid pyr{{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
   return launch<false>(pyr, num_levels, lvl_min, 0.f, is_bf16, boxes, batch_idx, out, R, C, P, S,
-                       window, canonical_size, canonical_level, stream);
+                       window, pallas_window, canonical_size, canonical_level, stream);
 }
 
 // feat: (h, w, C) NHWC, float32 or bfloat16, 16-byte aligned with C a
@@ -254,5 +185,5 @@ extern "C" int roi_align_single(const void* feat, int h, int w, int C, int is_bf
   if (h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Pyramid pyr{{feat}, {h}, {w}};
   return launch<true>(pyr, 1, 0, spatial_scale, is_bf16, boxes, nullptr, out, R, C, P, S, window,
-                      0.f, 0, stream);
+                      1, 0.f, 0, stream);
 }

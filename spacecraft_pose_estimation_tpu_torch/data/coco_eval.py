@@ -1,13 +1,14 @@
-"""Keypoint-OKS AP (the COCOEvaluator "keypoints" task): host-side NumPy.
+"""Box AP and keypoint-OKS AP (COCOEvaluator's "bbox" and "keypoints" tasks): host-side NumPy.
 
-A copy of the keypoint part of the JAX package's ``data/coco_eval.py``
-(``compute_oks``, ``evaluate_keypoints`` and the matching and AP helpers
-they call), with pycocotools' COCOeval semantics for iouType
-'keypoints': greedy per-image matching of score-sorted detections to
-ground truth at each OKS threshold (0.50:0.05:0.95), 101-point
-interpolated precision, the all / medium / large area ranges and 20
-detections an image. The JAX module's native (ctypes) accelerator and its
-box and mask tasks are not copied.
+A copy of the box and keypoint parts of the JAX package's
+``data/coco_eval.py`` (``evaluate_detections``, ``box_iou_xyxy``,
+``padded_detections_to_list``, ``compute_oks``, ``evaluate_keypoints``
+and the matching and AP helpers they call), with pycocotools' COCOeval
+semantics: greedy per-image matching of score-sorted detections to ground
+truth at each IoU or OKS threshold (0.50:0.05:0.95), 101-point
+interpolated precision, the area ranges and a cap of detections an image.
+The JAX module's native (ctypes) accelerator and its mask, rotated-box and
+segmentation tasks are not copied: the box AP is its numpy backend.
 """
 
 from __future__ import annotations
@@ -22,6 +23,13 @@ REC_THRS = np.linspace(0.0, 1.0, 101)
 COCO_PERSON_SIGMAS = np.array(
     [.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07, .87, .87, .89, .89]
 ) / 10.0
+
+AREA_RANGES = {
+    "all": (0.0, 1e10),
+    "small": (0.0, 32.0**2),
+    "medium": (32.0**2, 96.0**2),
+    "large": (96.0**2, 1e10),
+}
 
 # the keypoint protocol uses only all / medium / large
 KPT_AREA_RANGES = {
@@ -92,6 +100,73 @@ def _ap_from_matches(all_matched, all_ignored, all_scores, total_gt):
     idx = np.searchsorted(recall, REC_THRS, side="left")
     prec_at = np.where(idx < len(precision), precision[np.minimum(idx, len(precision) - 1)], 0.0)
     return prec_at.mean(), recall[-1]
+
+
+def box_iou_xyxy(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    if len(a) == 0 or len(b) == 0:
+        return np.zeros((len(a), len(b)))
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = np.prod(np.clip(a[:, 2:] - a[:, :2], 0, None), axis=1)
+    area_b = np.prod(np.clip(b[:, 2:] - b[:, :2], 0, None), axis=1)
+    union = area_a[:, None] + area_b[None, :] - inter
+    return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
+
+
+def _box_area(b: np.ndarray) -> np.ndarray:
+    return np.prod(np.clip(b[:, 2:4] - b[:, 0:2], 0, None), axis=1)
+
+
+def evaluate_detections(detections: list[dict], ground_truths: list[dict], max_dets: int = 100) -> dict[str, float]:
+    """Box AP of one category.
+
+    detections: per image {"boxes" (D, 4) xyxy, "scores" (D,)};
+    ground_truths: per image {"boxes" (G, 4) xyxy}; ``max_dets`` caps the
+    detections an image (the reference's training evaluation uses 1,
+    ``train_object_detection.py:56``). Returns AP, AP50, AP75, APs, APm,
+    APl and AR@max_dets, in percent (NaN where no GT counts).
+    """
+    if len(detections) != len(ground_truths):
+        raise ValueError(f"{len(detections)} detection lists for {len(ground_truths)} images")
+    results, ap_per_iou, prepped = {}, {}, []
+    for det, gt in zip(detections, ground_truths):  # per-image prep and IoU, out of the 4 x 10 loops
+        det_b = np.asarray(det["boxes"], np.float64).reshape(-1, 4)
+        det_s = np.asarray(det["scores"], np.float64)
+        gt_b = np.asarray(gt["boxes"], np.float64).reshape(-1, 4)
+        order = np.argsort(-det_s, kind="stable")[:max_dets]
+        prepped.append((_box_area(det_b)[:, None], det_s, _box_area(gt_b)[:, None], box_iou_xyxy(det_b[order], gt_b)))
+    for area_name, area_range in AREA_RANGES.items():
+        aps, ars = [], []
+        for t in IOU_THRS:
+            all_matched, all_ignored, all_scores, total_gt = [], [], [], 0
+            for det_rows, det_s, gt_rows, iou in prepped:
+                m, ig, sc, ng = _match_image(det_rows, det_s, gt_rows, t, area_range, max_dets, iou)
+                all_matched.append(m)
+                all_ignored.append(ig)
+                all_scores.append(sc)
+                total_gt += ng
+            ap, ar = _ap_from_matches(all_matched, all_ignored, all_scores, total_gt)
+            aps.append(ap)
+            ars.append(ar)
+            if area_name == "all":
+                ap_per_iou[round(float(t), 2)] = ap
+        key = {"all": "AP", "small": "APs", "medium": "APm", "large": "APl"}[area_name]
+        results[key] = float(np.nanmean(aps)) * 100 if not np.all(np.isnan(aps)) else float("nan")
+        if area_name == "all":
+            results["AR"] = float(np.nanmean(ars)) * 100 if not np.all(np.isnan(ars)) else float("nan")
+    results["AP50"] = ap_per_iou.get(0.5, np.nan) * 100
+    results["AP75"] = ap_per_iou.get(0.75, np.nan) * 100
+    return results
+
+
+def padded_detections_to_list(dets: dict) -> list[dict]:
+    """The detector's padded outputs (B, K, ...) with ``valid`` -> per-image
+    {"boxes", "scores"} numpy lists of the valid ones."""
+    to_np = lambda x: x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    boxes, scores, valid = (to_np(dets[k]) for k in ("boxes", "scores", "valid"))
+    return [{"boxes": boxes[i][valid[i]], "scores": scores[i][valid[i]]} for i in range(boxes.shape[0])]
 
 
 def compute_oks(det_kps: np.ndarray, gt_kps: np.ndarray, gt_areas: np.ndarray, gt_boxes: np.ndarray,

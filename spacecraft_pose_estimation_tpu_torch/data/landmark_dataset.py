@@ -34,6 +34,19 @@ from .loader import parallel_batches
 Tensor = torch.Tensor
 
 
+def read_bgr(path: str) -> np.ndarray:
+    """An image file as (H, W, 3) uint8 BGR, read with OpenCV (imported here only)."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("reading frames from image files needs OpenCV (cv2), which is not installed; "
+                           "hand the frames over in memory (frames=)") from e
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img
+
+
 class LandmarkExamples:
     """COCO json -> one example per annotation, in the json's order.
 
@@ -62,16 +75,8 @@ class LandmarkExamples:
             if not color_rgb:
                 return img
             return img.flip(-1) if hasattr(img, "flip") else np.ascontiguousarray(img[..., ::-1])
-        try:
-            import cv2
-        except ImportError as e:
-            raise RuntimeError("reading frames from image files needs OpenCV (cv2), which is not installed; "
-                               "hand the frames over in memory (frames=)") from e
-        path = os.path.join(self.image_dir, name)
-        img = cv2.imread(path, cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(path)
-        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if color_rgb else img
+        img = read_bgr(os.path.join(self.image_dir, name))
+        return np.ascontiguousarray(img[..., ::-1]) if color_rgb else img
 
     def example(self, i: int, color_rgb: bool = True) -> dict:
         rec = self.records[i]

@@ -1,8 +1,11 @@
-"""GeneralizedRCNN inference: backbone -> FPN -> RPN -> ROI heads.
+"""GeneralizedRCNN: backbone -> FPN -> RPN -> ROI heads.
 
-Port of the inference path of ``models/rcnn.py`` with its X101 and R101
-presets and ``select_best_box``. Images arrive pre-sized (a letterbox),
-and detections leave as padded (B, D) arrays with a ``valid`` mask.
+Port of ``models/rcnn.py`` with its X101 and R101 presets and
+``select_best_box``: inference (``forward``) and the training losses
+(:meth:`GeneralizedRCNN.losses`, the JAX ``train=True`` branch's box
+losses; the mask and keypoint heads are not ported). Images arrive
+pre-sized (a letterbox), and detections leave as padded (B, D) arrays with
+a ``valid`` mask.
 
 Inside the model, tensors are NCHW views of NHWC memory (the
 ``channels_last`` format), so the pyramid hands its levels to kernel K2 as
@@ -21,8 +24,8 @@ from .anchors import fpn_anchors
 from .fpn import FPN, FPN_STRIDES
 from .layers import init_params
 from .resnet_backbone import RESNET101_FPN, RESNET_TINY, RESNEXT101_32x8d, ResNetBackbone, ResNetConfig
-from .roi_heads import ROIHeadsConfig, StandardROIHeads, fast_rcnn_inference
-from .rpn import RPNConfig, RPNHead, find_top_proposals
+from .roi_heads import ROIHeadsConfig, StandardROIHeads, fast_rcnn_inference, fast_rcnn_losses, sample_proposals
+from .rpn import RPNConfig, RPNHead, find_top_proposals, rpn_losses
 
 Tensor = torch.Tensor
 
@@ -48,11 +51,11 @@ class RCNNConfig:
 
 # The reference's detector (config_4: X101-FPN) with the spacecraft ROI
 # heads: one class, class-agnostic boxes, two detections per image, 1000
-# proposals per level and image. The JAX preset names the Pallas pooler,
-# the port's only one (kernel K2).
+# proposals per level and image, the Pallas pooler (kernel K2 here, as the
+# windowed one is).
 FASTER_RCNN_X101_SPACECRAFT = RCNNConfig(
     backbone=RESNEXT101_32x8d,
-    roi=ROIHeadsConfig(num_classes=1, cls_agnostic_bbox_reg=True, detections_per_image=2),
+    roi=ROIHeadsConfig(num_classes=1, cls_agnostic_bbox_reg=True, detections_per_image=2, pooler_impl="pallas"),
     pixel_std=X101_PIXEL_STD,
 )
 # Serving variant: the same weights, 512/256 proposals.
@@ -72,11 +75,26 @@ FASTER_RCNN_R101_SERVING_1OBJ = dataclasses.replace(
 RCNN_TINY = RCNNConfig(
     backbone=RESNET_TINY,
     fpn_channels=16,
-    rpn=RPNConfig(pre_nms_topk_test=64, post_nms_topk_test=32),
+    rpn=RPNConfig(pre_nms_topk_train=64, post_nms_topk_train=32, pre_nms_topk_test=64, post_nms_topk_test=32,
+                  batch_size_per_image=16),
     roi=ROIHeadsConfig(
-        num_classes=1, cls_agnostic_bbox_reg=True, fc_dim=32, detections_per_image=2,
+        num_classes=1, cls_agnostic_bbox_reg=True, batch_size_per_image=16, fc_dim=32, detections_per_image=2,
     ),
 )
+
+DRAW_KEYS = ("rpn_pos", "rpn_neg", "roi_pos", "roi_neg", "roi_gather")
+
+
+def sample_draws(generator: torch.Generator | None, b: int, num_anchors: int, num_candidates: int,
+                 device) -> dict[str, Tensor]:
+    """The uniform priorities of one training step's sampling: per image,
+    the RPN's positives and negatives over its ``num_anchors`` anchors, the
+    ROI heads' positives, negatives and gather over the ``num_candidates``
+    proposals and GT boxes. The JAX model draws them from its ``sampling``
+    key; the tests hand those draws in through ``GeneralizedRCNN.losses``."""
+    shapes = (num_anchors,) * 2 + (num_candidates,) * 3
+    # from a CPU generator, so that one seed gives the same draws on every device
+    return {k: torch.rand((b, n), generator=generator).to(device) for k, n in zip(DRAW_KEYS, shapes)}
 
 
 class GeneralizedRCNN(nn.Module):
@@ -132,6 +150,45 @@ class GeneralizedRCNN(nn.Module):
             x = self.normalize(images).permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
             feats = self.backbone(x)
         return self.fpn(feats)
+
+    def losses(self, images: Tensor, gt_boxes: Tensor, gt_classes: Tensor, gt_valid: Tensor,
+               generator: torch.Generator | None = None, draws: dict[str, Tensor] | None = None,
+               gt_masks: Tensor | None = None, gt_keypoints: Tensor | None = None) -> dict[str, Tensor]:
+        """The training losses (the JAX ``__call__(train=True)``), each the
+        mean over the batch, and ``loss_total`` their sum.
+
+        images (B, H, W, 3) raw 0-255; gt_boxes (B, G, 4) XYXY padded,
+        gt_classes (B, G) 0-based, gt_valid (B, G). Proposals take the train
+        budgets and carry no gradient; the sampling's priorities come from
+        ``draws`` (see :func:`sample_draws`) or are drawn from
+        ``generator``. The mask and keypoint heads are not ported:
+        ``gt_masks`` or ``gt_keypoints`` raise.
+        """
+        if gt_masks is not None or gt_keypoints is not None:
+            raise NotImplementedError("the mask and keypoint training heads are not ported")
+        cfg = self.config
+        b, h, w = images.shape[0], images.shape[1], images.shape[2]
+        pyramid = self.pyramid(images)
+        shapes = {lvl: (p.shape[2], p.shape[3]) for lvl, p in pyramid.items()}
+        anchors = self.anchors(shapes, images.device)
+        head_out = self.rpn_head(pyramid)
+        with torch.no_grad():  # the JAX model stops the gradient through the proposals
+            proposals, _, prop_valid = find_top_proposals(head_out, anchors, (h, w), cfg.rpn, train=True)
+        if draws is None:
+            draws = sample_draws(generator, b, sum(a.shape[0] for a in anchors.values()),
+                                 proposals.shape[1] + gt_boxes.shape[1], images.device)
+        gt_valid = gt_valid.to(torch.bool)
+        sampled = sample_proposals(proposals, prop_valid, gt_boxes, gt_classes, gt_valid, draws["roi_pos"],
+                                   draws["roi_neg"], draws["roi_gather"], cfg.roi)
+        nhwc = {lvl: p.permute(0, 2, 3, 1) for lvl, p in pyramid.items()}
+        scores, deltas = self.roi_heads(nhwc, sampled["boxes"], FPN_STRIDES)
+        per_image = {
+            **rpn_losses(head_out, anchors, gt_boxes, gt_valid, draws["rpn_pos"], draws["rpn_neg"], cfg.rpn),
+            **fast_rcnn_losses(scores, deltas, sampled, cfg.roi),
+        }
+        losses = {k: v.mean() for k, v in per_image.items()}
+        losses["loss_total"] = sum(losses.values())
+        return losses
 
     def forward(self, images: Tensor, precomputed_feats: dict[str, Tensor] | None = None) -> dict[str, Tensor]:
         cfg = self.config

@@ -4,18 +4,48 @@ The dense Caffe2-style trunks (stride in the 1x1, ``groups=1``:
 ``RESNET101_FPN``, ``RESNET_TINY``) and the ResNeXt one
 (``RESNEXT101_32x8d``: 32 groups of 8 in res2, stride in the grouped
 3x3). Module names mirror the Flax tree (``stem.conv``, ``stem.norm``,
-``res2_b0.conv1`` ...). NCHW inside. Inference only, so FrozenBN is the
-eval-mode ``layers.BatchNorm``: the same affine from the same four tensors.
+``res2_b0.conv1`` ...). NCHW inside. ``FrozenBN`` is the JAX package's:
+a fixed affine whose four tensors are parameters that get no gradient, in
+train mode too; ``freeze_at`` stops the gradient after the stem and the
+first stages as the JAX module does. Both leave the frozen parameters to
+the optimizer, whose weight decay still moves them, as optax's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv
+from .layers import BN_EPS, Conv
+
+
+class FrozenBN(nn.Module):
+    """y = x * mul + add from frozen BN statistics (FrozenBatchNorm2d).
+
+    ``scale``, ``bias``, ``mean`` and ``var`` are parameters, as in the
+    JAX package's ``params`` tree, and the forward detaches them, as its
+    ``stop_gradient`` does: their gradient is zero whatever the module's
+    mode. The affine is computed in float32 and applied in the input's
+    dtype, in the JAX module's operand order.
+    """
+
+    def __init__(self, features: int, eps: float = BN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.mean = nn.Parameter(torch.zeros(features))
+        self.var = nn.Parameter(torch.ones(features))
+
+    def forward(self, x):
+        scale, bias, mean, var = (t.detach() for t in (self.scale, self.bias, self.mean, self.var))
+        inv = torch.rsqrt(var + self.eps)
+        mul = (scale * inv).to(x.dtype)
+        add = (bias - mean * scale * inv).to(x.dtype)
+        return x * mul[:, None, None] + add[:, None, None]
 
 
 class MergedGroupConv(Conv):
@@ -38,7 +68,7 @@ class ConvFrozenBN(nn.Module):
         self.act = act
         self.conv = (MergedGroupConv(cin, cout, kernel, stride, groups) if groups > 1
                      else Conv(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False))
-        self.norm = BatchNorm(cout)
+        self.norm = FrozenBN(cout)
 
     def forward(self, x):
         x = self.norm(self.conv(x))
@@ -79,12 +109,13 @@ class ResNetConfig:
     groups: int = 1  # 32 for ResNeXt
     width_per_group: int = 64  # 8 for X101-32x8d; res2's bottleneck is groups x width, doubling per stage
     stride_in_1x1: bool = True  # False for the ResNeXt zoo weights
+    freeze_at: int = 2  # no gradient through the stem (>= 1) and res2..res{freeze_at} (the zoo default)
 
 
 RESNET101_FPN = ResNetConfig(depth=101)
 # The reference's flagship trunk (config_4: X101-FPN).
 RESNEXT101_32x8d = ResNetConfig(depth=101, groups=32, width_per_group=8, stride_in_1x1=False)
-RESNET_TINY = ResNetConfig(depth=50, stem_channels=8, res2_out_channels=16)
+RESNET_TINY = ResNetConfig(depth=50, stem_channels=8, res2_out_channels=16, freeze_at=0)
 
 
 class ResNetBackbone(nn.Module):
@@ -116,10 +147,15 @@ class ResNetBackbone(nn.Module):
         return {f"res{i + 2}": c * 2**i for i in range(4)}
 
     def forward(self, x):
+        freeze_at = self.config.freeze_at
         x = F.max_pool2d(self.stem(x), 3, 2, 1)
+        if freeze_at >= 1:
+            x = x.detach()
         feats = {}
         for si, blocks in enumerate(self.stages):
             for m in blocks:
                 x = m(x)
+            if freeze_at >= si + 2:
+                x = x.detach()
             feats[f"res{si + 2}"] = x
         return feats

@@ -1,9 +1,11 @@
-"""Standard ROI heads, inference half (port of ``models/roi_heads.py``).
+"""Standard ROI heads (port of ``models/roi_heads.py``).
 
-Pooler (kernel K2, one launch for every image's boxes) -> box head ->
-FastRCNN outputs -> ``fast_rcnn_inference`` with class-aware NMS (kernel
-K4, one launch for every image). Every ragged structure stays padded and
-masked, as in the JAX package.
+Pooler (kernel K2, one launch for every image's boxes; in training its
+backward, K2's backward kernel) -> box head -> FastRCNN outputs ->
+``fast_rcnn_inference`` with class-aware NMS (kernel K4, one launch for
+every image), or in training :func:`sample_proposals` and
+:func:`fast_rcnn_losses`. Every ragged structure stays padded and masked,
+as in the JAX package; every function here is batched over the images.
 """
 
 from __future__ import annotations
@@ -18,32 +20,47 @@ from ..ops import boxes as box_ops
 from ..ops import nms as nms_ops
 from ..ops import roi_align
 from .layers import Linear
-from .rpn import top_k
+from .rpn import smooth_l1, top_k
+from .sampling import gather_topk_mask, subsample_labels
 
 Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class ROIHeadsConfig:
-    """The inference fields of the JAX package's ``ROIHeadsConfig``.
+    """The JAX package's ``ROIHeadsConfig``, with its defaults.
 
-    ``pooler_window`` is the per-box read window of kernel K2 (the
-    JAX package's ``pallas`` pooler semantics); the port has no other
-    pooler, so ``pooler_impl`` is not a field here.
+    ``pooler_window`` is the per-box read window of kernel K2. Both of the
+    JAX package's windowed poolers run on K2, each with its own read window
+    (``ops.roi_align``): ``"windowed"`` (XLA; the one its trainer
+    differentiates) and ``"pallas"`` (its Pallas kernel). They pool the same
+    wherever a box fits the window. K2 has a backward kernel for either, so
+    ``"pallas"`` (``config_4``) trains in the port, where ``jax.grad``
+    through the Pallas pooler raises. The ``"gather"`` pooler (unwindowed)
+    is not ported.
     """
 
     num_classes: int = 1
+    batch_size_per_image: int = 512
+    positive_fraction: float = 0.25
+    iou_threshold: float = 0.5
     pooler_resolution: int = 7
     pooler_sampling_ratio: int = 2
     fc_dim: int = 1024
     num_fc: int = 2
     cls_agnostic_bbox_reg: bool = False
+    smooth_l1_beta: float = 0.0
     bbox_reg_weights: tuple[float, ...] = (10.0, 10.0, 5.0, 5.0)
     score_thresh: float = 0.05
     nms_thresh: float = 0.5
     detections_per_image: int = 100
     in_levels: tuple[str, ...] = ("p2", "p3", "p4", "p5")
+    pooler_impl: str = "windowed"
     pooler_window: int = 48
+
+    def __post_init__(self):
+        if self.pooler_impl not in roi_align.IMPLS:
+            raise ValueError(f"pooler_impl {self.pooler_impl!r}: the port has {roi_align.IMPLS} (both kernel K2)")
 
 
 class BoxHead(nn.Module):
@@ -104,6 +121,7 @@ class StandardROIHeads(nn.Module):
             tuple(strides[lvl] for lvl in cfg.in_levels),
             sampling_ratio=cfg.pooler_sampling_ratio,
             window=cfg.pooler_window,
+            impl=cfg.pooler_impl,
         )
         x = self.box_head(pooled.to(level_feats[0].dtype))
         scores, deltas = self.predictor(x)
@@ -151,3 +169,71 @@ def fast_rcnn_inference(
         "classes": torch.gather(flat_cls, 1, top_idx),
         "valid": finite,
     }
+
+
+def sample_proposals(
+    proposals: Tensor,  # (B, P, 4)
+    prop_valid: Tensor,  # (B, P)
+    gt_boxes: Tensor,  # (B, G, 4) padded
+    gt_classes: Tensor,  # (B, G) 0-based class ids
+    gt_valid: Tensor,  # (B, G)
+    pri_pos: Tensor,  # (B, P + G) uniform priorities: the positives' and negatives' sampling,
+    pri_neg: Tensor,
+    pri_gather: Tensor,  # and the gather of the sampled subset
+    cfg: ROIHeadsConfig,
+) -> dict[str, Tensor]:
+    """``label_and_sample_proposals`` per image (roi_heads.py:181-280).
+
+    The GT boxes join the proposals (``add_ground_truth_to_proposals``), so
+    each GT is at least its own positive; candidates are matched at
+    ``iou_threshold`` and ``batch_size_per_image`` of them sampled with
+    ``positive_fraction`` positives. Returns the sampled ``boxes`` (B, S,
+    4), ``valid``, ``gt_classes`` (``num_classes`` for background),
+    matched ``gt_boxes`` and ``is_fg``, S = ``batch_size_per_image``.
+    """
+    boxes = torch.cat([proposals, gt_boxes], dim=1)
+    valid = torch.cat([prop_valid, gt_valid], dim=1)
+    iou = box_ops.pairwise_iou(gt_boxes, boxes) * gt_valid[..., None]
+    iou = iou * valid[:, None, :]
+    matched_idx, matched_labels = box_ops.match_to_gt(iou, (cfg.iou_threshold,), (0, 1), allow_low_quality=False)
+    has_gt = gt_valid.any(dim=-1, keepdim=True)
+    fg = (matched_labels == 1) & valid & has_gt
+    bg = (matched_labels == 0) & valid
+    background = torch.full_like(matched_idx, cfg.num_classes)
+    labels = torch.where(fg, torch.gather(gt_classes.to(torch.int64), 1, matched_idx), background)
+    sample_labels = torch.where(fg, 1, torch.where(bg, 0, -1))
+    pos_sel, neg_sel = subsample_labels(sample_labels, cfg.batch_size_per_image, cfg.positive_fraction,
+                                        pri_pos, pri_neg)
+    idx, sel_valid = gather_topk_mask(pos_sel | neg_sel, cfg.batch_size_per_image, pri_gather)
+    take = lambda t: torch.gather(t, 1, idx)
+    gt_idx = take(matched_idx)
+    return {
+        "boxes": torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
+        "valid": sel_valid,
+        "gt_classes": torch.where(sel_valid, take(labels), take(background)),
+        "gt_boxes": torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 4)),
+        "is_fg": take(pos_sel) & sel_valid,
+    }
+
+
+def fast_rcnn_losses(scores: Tensor, deltas: Tensor, sampled: dict[str, Tensor],
+                     cfg: ROIHeadsConfig) -> dict[str, Tensor]:
+    """Per-image softmax CE over the valid samples and L1 (or smooth L1) of
+    the foreground's box deltas, both over the count of valid samples
+    (fast_rcnn.py:307-420). scores (B, S, C+1), deltas (B, S, 4*reg) -> (B,)."""
+    valid = sampled["valid"]
+    n_valid = torch.clamp(valid.sum(dim=-1).to(torch.float32), min=1.0)
+    logp = torch.log_softmax(scores, dim=-1)
+    cls_loss = -torch.gather(logp, 2, sampled["gt_classes"][..., None])[..., 0]
+    loss_cls = torch.sum(cls_loss * valid, dim=-1) / n_valid
+    gt_deltas = box_ops.get_deltas(sampled["boxes"], sampled["gt_boxes"], cfg.bbox_reg_weights)
+    b, r = valid.shape
+    if cfg.cls_agnostic_bbox_reg:
+        fg_deltas = deltas.reshape(b, r, 4)
+    else:
+        d = deltas.reshape(b, r, cfg.num_classes, 4)
+        cls_idx = torch.clamp(sampled["gt_classes"], 0, cfg.num_classes - 1)
+        fg_deltas = torch.gather(d, 2, cls_idx[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    reg = torch.sum(smooth_l1(fg_deltas, gt_deltas, cfg.smooth_l1_beta), dim=-1)
+    loss_box = torch.sum(reg * sampled["is_fg"], dim=-1) / n_valid
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_box}

@@ -18,11 +18,14 @@ from .boxes import pairwise_iou
 
 Tensor = torch.Tensor
 
-MAX_BOXES = 1024
+MAX_BOXES = 2048
+# above this many boxes a problem's overlap mask leaves shared memory for a
+# global workspace (nms_mask_sorted.cu)
+MAX_SMEM_BOXES = 1024
 
 KERNEL = _cuda.Kernel(
     "nms_mask_sorted", "nms_mask_sorted.cu",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p],
 )
 
 
@@ -47,8 +50,13 @@ def nms_mask_sorted(boxes: Tensor, valid: Tensor, iou_threshold: float) -> Tenso
     """Keep-mask (P, N) bool over (P, N, 4) score-sorted boxes.
 
     CPU tensors take the plain version; CUDA tensors launch K4, which
-    writes the bool mask itself.
+    writes the bool mask itself. Up to 1024 boxes a problem the kernel
+    keeps its overlap mask in shared memory; up to 2048 in a workspace of
+    N x ceil(N / 64) words a problem, allocated here.
     """
+    n = boxes.shape[-2]
+    if n > MAX_BOXES:  # on every device, so that the CPU takes what the card takes
+        raise ValueError(f"nms_mask_sorted takes at most {MAX_BOXES} boxes per problem, got {n}")
     if boxes.device.type == "cpu":
         return nms_mask_sorted_plain(boxes, valid, iou_threshold)
     _cuda.check_cuda_tensor("boxes", boxes, torch.float32, 3)
@@ -56,11 +64,13 @@ def nms_mask_sorted(boxes: Tensor, valid: Tensor, iou_threshold: float) -> Tenso
     p, n, four = boxes.shape
     if four != 4 or tuple(valid.shape) != (p, n):
         raise ValueError(f"boxes {tuple(boxes.shape)} and valid {tuple(valid.shape)} disagree")
-    if n > MAX_BOXES:
-        raise ValueError(f"nms_mask_sorted takes at most {MAX_BOXES} boxes per problem, got {n}")
     keep = torch.empty((p, n), dtype=torch.bool, device=boxes.device)
+    workspace = None
+    if n > MAX_SMEM_BOXES:
+        workspace = torch.empty((p, n, (n + 63) // 64), dtype=torch.int64, device=boxes.device)
     KERNEL.launch(
-        _cuda.ptr(boxes), _cuda.ptr(valid), _cuda.ptr(keep), p, n, float(iou_threshold)
+        _cuda.ptr(boxes), _cuda.ptr(valid), _cuda.ptr(keep),
+        ctypes.c_void_p(None) if workspace is None else _cuda.ptr(workspace), p, n, float(iou_threshold),
     )
     return keep
 

@@ -2,10 +2,22 @@
 
 Port of ``spacecraft_pose_estimation_tpu/ops/pallas_pooler.py`` with its
 semantics (``level_mats`` / ``window_matrices``): aligned ROIAlign whose
-taps are limited to a (window, window + 8) read window per box.
+taps are limited to a (window, window + 8) read window per box, its x
+origin rounded down to a multiple of 8. K2 also takes the read window of
+the JAX package's windowed XLA pooler (``ops/roi_align.py:101``,
+``roi_align_windowed``: (window, window), no rounding), the one its
+trainer differentiates: ``impl="windowed"``. The two pick the same taps
+wherever a box fits the window and the x origin needs no rounding; near
+the right edge of a map whose width less (window + 8) is not a multiple of
+8 (P3 at 800^2: 100 columns), the Pallas window drops the last columns.
 
 * :func:`roi_align_multilevel` (``multilevel_roi_align_pallas``): per-box
-  level assignment, one pass over all images, kernel K2;
+  level assignment, one pass over all images, kernel K2; differentiable in
+  the features: on CUDA tensors its gradient is a kernel of its own,
+  :func:`roi_align_multilevel_backward`
+  (``csrc/roi_align_multilevel_backward.cu``), which no TPU kernel has: it
+  is the gradient of the windowed XLA pooler the JAX trainer
+  differentiates (``ops/roi_align.py:194``);
 * :func:`roi_align_single` (``roi_align_pallas``): one (H, W, C) map, any
   spatial scale, kernel K3. Nothing in the JAX package calls it; it is
   held to ``roi_align_windowed``.
@@ -33,7 +45,12 @@ Tensor = torch.Tensor
 KERNEL = _cuda.Kernel(
     "roi_align_multilevel", "roi_align_multilevel.cu",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+)
+BACKWARD = _cuda.Kernel(
+    "roi_align_multilevel_backward", "roi_align_multilevel_backward.cu",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 )
 SINGLE = _cuda.Kernel(
     "roi_align_single", "roi_align_multilevel.cu",
@@ -42,6 +59,7 @@ SINGLE = _cuda.Kernel(
 )
 MAX_LEVELS = 4
 MAX_SAMPLES = 64  # output_size * sampling_ratio, per axis
+IMPLS = ("pallas", "windowed")  # the read windows of the JAX package's two windowed poolers
 
 
 def assign_levels(boxes: Tensor, num_levels: int, lvl_min: int,
@@ -85,11 +103,12 @@ def _axis_taps(coord: Tensor, limit: int, origin: Tensor, win: int):
 
 
 def window_taps(boxes: Tensor, h: int, w: int, spatial_scale: float, output_size: int,
-                sampling_ratio: int, win_h: int, win_w: int):
+                sampling_ratio: int, win_h: int, win_w: int, round_x8: bool = True):
     """Taps of boxes (n, 4) on one (h, w) map at ``spatial_scale``:
     ((ky, wy), (kx, wx)), each (n, P*S, 2), limited to a (win_h, win_w)
     read window per box whose origin is clamped to the map (to 0 where the
-    map is smaller) and, along x, rounded down to a multiple of 8."""
+    map is smaller) and, along x with ``round_x8``, rounded down to a
+    multiple of 8."""
     p, s = output_size, sampling_ratio
     # divisors as device tensors: PyTorch's CUDA division by a Python
     # number multiplies by its reciprocal, which rounds other than a / p
@@ -101,15 +120,21 @@ def window_taps(boxes: Tensor, h: int, w: int, spatial_scale: float, output_size
     sx = x0[:, None] + grid[None, :] * (x1 - x0)[:, None] / p_t
     oy = torch.clamp(torch.floor(y0).to(torch.int64) - 1, 0, max(h - win_h, 0))
     ox = torch.clamp(torch.floor(x0).to(torch.int64) - 1, 0, max(w - win_w, 0))
-    ox = (ox // 8) * 8
+    if round_x8:
+        ox = (ox // 8) * 8
     return _axis_taps(sy, h, oy, win_h), _axis_taps(sx, w, ox, win_w)
 
 
 def level_taps(boxes: Tensor, h: int, w: int, stride: int, output_size: int,
-               sampling_ratio: int, window: int):
-    """K2's taps of boxes (n, 4) on one (h, w) level: the (window, window + 8)
-    read window of the level padded up to it (pallas_pooler.py:213-218)."""
-    return window_taps(boxes, h, w, 1.0 / stride, output_size, sampling_ratio, window, window + 8)
+               sampling_ratio: int, window: int, impl: str = "pallas"):
+    """K2's taps of boxes (n, 4) on one (h, w) level: ``"pallas"``, the
+    (window, window + 8) read window of the level padded up to it
+    (pallas_pooler.py:213-218); ``"windowed"``, the (window, window) one of
+    ``roi_align_windowed`` (its ``min(window, w)`` slice from an origin
+    clamped to 0 where the map is smaller picks the same taps)."""
+    pallas = impl == "pallas"
+    return window_taps(boxes, h, w, 1.0 / stride, output_size, sampling_ratio, window,
+                       window + 8 if pallas else window, round_x8=pallas)
 
 
 def single_taps(boxes: Tensor, h: int, w: int, spatial_scale: float, output_size: int,
@@ -138,10 +163,10 @@ def _pool(flat: Tensor, base: Tensor, w: int, taps, p: int, s: int) -> Tensor:
 def roi_align_multilevel_plain(
     feats: list[Tensor], boxes: Tensor, batch_idx: Tensor, output_size: int,
     strides: tuple[int, ...], sampling_ratio: int = 2, window: int = 48,
-    canonical_size: float = 224.0, canonical_level: int = 4,
+    canonical_size: float = 224.0, canonical_level: int = 4, impl: str = "pallas",
 ) -> Tensor:
     """Plain PyTorch K2. feats: per level (B, H_l, W_l, C); boxes (R, 4);
-    batch_idx (R,) -> (R, P, P, C) float32."""
+    batch_idx (R,) -> (R, P, P, C) float32; ``impl`` the read window."""
     p, s = output_size, sampling_ratio
     r, c = boxes.shape[0], feats[0].shape[-1]
     lvl_min = int(math.log2(strides[0]))
@@ -152,32 +177,16 @@ def roi_align_multilevel_plain(
         if sel.numel() == 0:
             continue
         h, w = f.shape[1], f.shape[2]
-        taps = level_taps(boxes[sel], h, w, stride, p, s, window)
+        taps = level_taps(boxes[sel], h, w, stride, p, s, window, impl)
         out[sel] = _pool(f.reshape(-1, c), batch_idx[sel].to(torch.int64) * (h * w), w, taps, p, s)
     return out
 
 
-def roi_align_multilevel(
-    feats: list[Tensor], boxes: Tensor, batch_idx: Tensor, output_size: int,
-    strides: tuple[int, ...], sampling_ratio: int = 2, window: int = 48,
-    canonical_size: float = 224.0, canonical_level: int = 4,
-) -> Tensor:
-    """FPN ROIAlign: (R, P, P, C) float32 from per-level NHWC features.
-
-    feats: fine-to-coarse list of (B, H_l, W_l, C), float32 or bfloat16,
-    strides consecutive powers of two; boxes (R, 4) XYXY image pixels;
-    batch_idx (R,) image of each box. CPU tensors take the plain version;
-    CUDA tensors launch K2, one block per (box, output row) and one warp per
-    bin, each lane reading 8 channels as one 16-byte vector: C must be a
-    multiple of 8 and every level 16-byte aligned.
-    """
-    check_window_covers([tuple(f.shape[1:3]) for f in feats], canonical_size, canonical_level, window)
-    if boxes.device.type == "cpu":
-        return roi_align_multilevel_plain(
-            feats, boxes, batch_idx, output_size, strides, sampling_ratio, window,
-            canonical_size, canonical_level,
-        )
-    num_levels = len(feats)
+def _check_pyramid(shapes, dtype, strides, output_size, sampling_ratio, impl) -> int:
+    """Raise on what K2 and its backward do not take; returns lvl_min."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    num_levels = len(shapes)
     lvl_min = int(math.log2(strides[0]))
     if not 1 <= num_levels <= MAX_LEVELS:
         raise ValueError(f"roi_align_multilevel takes 1..{MAX_LEVELS} levels, got {num_levels}")
@@ -185,30 +194,141 @@ def roi_align_multilevel(
         raise ValueError(f"strides must be consecutive powers of two, got {strides}")
     if output_size * sampling_ratio > MAX_SAMPLES:
         raise ValueError(f"output_size * sampling_ratio must be <= {MAX_SAMPLES}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"feats: expected float32 or bfloat16, got {dtype}")
+    b, c = shapes[0][0], shapes[0][-1]
+    if any(len(sh) != 4 or sh[0] != b or sh[-1] != c for sh in shapes):
+        raise ValueError("all levels need the same dtype, batch and channels")
+    if c % 8:
+        raise ValueError(f"roi_align_multilevel reads 8 channels at a time: C must be a multiple of 8, got {c}")
+    return lvl_min
+
+
+def _check_boxes(boxes: Tensor, batch_idx: Tensor) -> None:
+    _cuda.check_cuda_tensor("boxes", boxes, torch.float32, 2)
+    _cuda.check_cuda_tensor("batch_idx", batch_idx, torch.int32, 1)
+    if boxes.shape[1] != 4 or batch_idx.shape[0] != boxes.shape[0]:
+        raise ValueError(f"boxes {tuple(boxes.shape)} and batch_idx {tuple(batch_idx.shape)} disagree")
+
+
+def _forward_kernel(feats, boxes, batch_idx, output_size, strides, sampling_ratio, window,
+                    canonical_size, canonical_level, impl) -> Tensor:
     dtype = feats[0].dtype
-    b, c = feats[0].shape[0], feats[0].shape[-1]
     for i, f in enumerate(feats):
         _cuda.check_cuda_tensor(f"feats[{i}]", f, (torch.float32, torch.bfloat16), 4)
-        if f.dtype != dtype or f.shape[0] != b or f.shape[-1] != c:
+        if f.dtype != dtype:
             raise ValueError("all levels need the same dtype, batch and channels")
         if f.data_ptr() % 16:
             raise ValueError(f"feats[{i}]: expected a tensor starting on a 16-byte boundary")
-    if c % 8:
-        raise ValueError(f"roi_align_multilevel reads 8 channels at a time: C must be a multiple of 8, got {c}")
-    _cuda.check_cuda_tensor("boxes", boxes, torch.float32, 2)
-    _cuda.check_cuda_tensor("batch_idx", batch_idx, torch.int32, 1)
-    r = boxes.shape[0]
-    if boxes.shape[1] != 4 or batch_idx.shape[0] != r:
-        raise ValueError(f"boxes {tuple(boxes.shape)} and batch_idx {tuple(batch_idx.shape)} disagree")
+    _check_boxes(boxes, batch_idx)
+    lvl_min = _check_pyramid([tuple(f.shape) for f in feats], dtype, strides, output_size, sampling_ratio, impl)
+    r, c, num_levels = boxes.shape[0], feats[0].shape[-1], len(feats)
     out = torch.empty((r, output_size, output_size, c), dtype=torch.float32, device=boxes.device)
     padded = list(feats) + [feats[-1]] * (MAX_LEVELS - num_levels)
     hw = [d for f in padded for d in (f.shape[1], f.shape[2])]
     KERNEL.launch(
         *[_cuda.ptr(f) for f in padded], *hw, num_levels, lvl_min,
         int(dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(batch_idx), _cuda.ptr(out),
-        r, c, output_size, sampling_ratio, window, float(canonical_size), canonical_level,
+        r, c, output_size, sampling_ratio, window, int(impl == "pallas"), float(canonical_size), canonical_level,
     )
     return out
+
+
+def roi_align_multilevel_backward(
+    grad_out: Tensor, shapes: list[tuple[int, ...]], dtype: torch.dtype, boxes: Tensor, batch_idx: Tensor,
+    output_size: int, strides: tuple[int, ...], sampling_ratio: int = 2, window: int = 48,
+    canonical_size: float = 224.0, canonical_level: int = 4, impl: str = "pallas",
+) -> list[Tensor]:
+    """K2's backward on the card: the gradient of :func:`roi_align_multilevel`
+    with respect to each level's features, from ``grad_out`` (R, P, P, C).
+
+    ``shapes`` are the levels' (B, H_l, W_l, C) and ``dtype`` their type
+    (the gradient's). The gradient does not depend on the features' values:
+    the op is linear in them. One launch zeroes a float32 buffer a level,
+    adds each tap's share into it with atomics and, for bfloat16, casts it.
+    CUDA tensors only: there is no fallback.
+    """
+    _cuda.check_cuda_tensor("grad_out", grad_out, torch.float32, 4)
+    _check_boxes(boxes, batch_idx)
+    lvl_min = _check_pyramid([tuple(sh) for sh in shapes], dtype, strides, output_size, sampling_ratio, impl)
+    r, c, num_levels = boxes.shape[0], shapes[0][-1], len(shapes)
+    if tuple(grad_out.shape) != (r, output_size, output_size, c):
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} is not ({r}, {output_size}, {output_size}, {c})")
+    dev = boxes.device
+    acc = [torch.empty(tuple(sh), dtype=torch.float32, device=dev) for sh in shapes]
+    outs = acc if dtype == torch.float32 else [torch.empty(tuple(sh), dtype=dtype, device=dev) for sh in shapes]
+    pad = lambda ts: list(ts) + [ts[-1]] * (MAX_LEVELS - num_levels)
+    hw = [d for sh in pad(shapes) for d in (sh[1], sh[2])]
+    BACKWARD.launch(
+        _cuda.ptr(grad_out), *[_cuda.ptr(t) for t in pad(acc)], *[_cuda.ptr(t) for t in pad(outs)], *hw,
+        shapes[0][0], num_levels, lvl_min, int(dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(batch_idx),
+        r, c, output_size, sampling_ratio, window, int(impl == "pallas"), float(canonical_size), canonical_level,
+    )
+    return outs
+
+
+def roi_align_multilevel_backward_plain(
+    grad_out: Tensor, shapes: list[tuple[int, ...]], dtype: torch.dtype, boxes: Tensor, batch_idx: Tensor,
+    output_size: int, strides: tuple[int, ...], sampling_ratio: int = 2, window: int = 48,
+    canonical_size: float = 224.0, canonical_level: int = 4, impl: str = "pallas",
+) -> list[Tensor]:
+    """Plain PyTorch K2 backward: autograd of :func:`roi_align_multilevel_plain`
+    on float32 features of ``shapes``, summed in float32 and cast to
+    ``dtype``, as the kernel does."""
+    feats = [torch.zeros(tuple(sh), dtype=torch.float32, device=boxes.device, requires_grad=True) for sh in shapes]
+    with torch.enable_grad():
+        out = roi_align_multilevel_plain(feats, boxes, batch_idx, output_size, strides, sampling_ratio, window,
+                                         canonical_size, canonical_level, impl)
+        grads = torch.autograd.grad(out, feats, grad_out, allow_unused=True)  # a level no box pools from: None
+    return [(torch.zeros_like(f) if g is None else g).to(dtype) for f, g in zip(feats, grads)]
+
+
+class _RoIAlignMultilevel(torch.autograd.Function):
+    """K2 forward, K2 backward: the features get a gradient, the boxes and
+    ``batch_idx`` none (the JAX trainer stops the gradient through the
+    proposals, ``models/rcnn.py:191``)."""
+
+    @staticmethod
+    def forward(ctx, boxes, batch_idx, args, *feats):
+        ctx.save_for_backward(boxes, batch_idx)
+        ctx.args = args
+        ctx.shapes = [tuple(f.shape) for f in feats]
+        ctx.dtype = feats[0].dtype
+        return _forward_kernel(feats, boxes, batch_idx, *args)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, batch_idx = ctx.saved_tensors
+        grads = roi_align_multilevel_backward(grad_out.contiguous(), ctx.shapes, ctx.dtype, boxes, batch_idx,
+                                              *ctx.args)
+        return (None, None, None, *grads)
+
+
+def roi_align_multilevel(
+    feats: list[Tensor], boxes: Tensor, batch_idx: Tensor, output_size: int,
+    strides: tuple[int, ...], sampling_ratio: int = 2, window: int = 48,
+    canonical_size: float = 224.0, canonical_level: int = 4, impl: str = "pallas",
+) -> Tensor:
+    """FPN ROIAlign: (R, P, P, C) float32 from per-level NHWC features.
+
+    feats: fine-to-coarse list of (B, H_l, W_l, C), float32 or bfloat16,
+    strides consecutive powers of two; boxes (R, 4) XYXY image pixels;
+    batch_idx (R,) image of each box. CPU tensors take the plain version,
+    differentiated by autograd; CUDA tensors launch K2, one block per (box,
+    output row) and one warp per bin, each lane reading 8 channels as one
+    16-byte vector: C must be a multiple of 8 and every level 16-byte
+    aligned. On CUDA tensors the features' gradient, where autograd asks for
+    it, is K2's backward kernel (:func:`roi_align_multilevel_backward`).
+    ``impl``: the read window, the Pallas pooler's or the windowed one's.
+    """
+    check_window_covers([tuple(f.shape[1:3]) for f in feats], canonical_size, canonical_level, window)
+    if boxes.device.type == "cpu":
+        return roi_align_multilevel_plain(
+            feats, boxes, batch_idx, output_size, strides, sampling_ratio, window,
+            canonical_size, canonical_level, impl,
+        )
+    args = (output_size, tuple(strides), sampling_ratio, window, canonical_size, canonical_level, impl)
+    return _RoIAlignMultilevel.apply(boxes, batch_idx, args, *feats)
 
 
 # --------------------------------------------------------------------------- K3

@@ -3,7 +3,7 @@
 ``python -m spacecraft_pose_estimation_tpu_torch.tools.<name>``: the staged
 evaluation's three stages, ``export_boxes`` (detector -> real_test.json),
 ``test_landmarks`` (landmark model -> pred.mat) and ``export_poses`` (PnP ->
-opencv_poses.json); ``train_landmarks``, the landmark trainer; and
+opencv_poses.json); ``train_landmarks``, the landmark trainer;
 ``train_landmarks_da``, the adversarial domain-adaptation trainer of the
-CMS models.
+CMS models; and ``train_detector``, the Faster R-CNN trainer.
 """

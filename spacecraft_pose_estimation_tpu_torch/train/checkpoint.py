@@ -13,9 +13,10 @@ The format is the port's own. Step ``s`` is a directory ``{s}/`` holding
 domain adaptation's ``DAState`` both models, both optimizers and the step)
 and ``model.npz``, the Flax variable tree of the state's ``model`` (the
 generator of a ``DAState``) with ``/``-joined keys
-(``convert.state_dict_to_flax``), which
+(``convert.module_to_flax``), which
 ``tools/test_landmarks --checkpoint`` and ``evaluate
---landmark-checkpoint`` read. The port does not read the JAX package's
+--landmark-checkpoint`` read; a detector's is its ``params`` tree, which
+``evaluate.load_detector`` reads. The port does not read the JAX package's
 orbax directories.
 """
 
@@ -28,15 +29,17 @@ import shutil
 import numpy as np
 import torch
 
-from ..convert import flatten_variables, state_dict_to_flax
+from ..convert import flatten_variables, module_to_flax
 
 STATE_FILE, NPZ_FILE = "state.pt", "model.npz"
 
 
 def save_npz(model: torch.nn.Module, path: str) -> None:
-    """The model's variables as the port's ``.npz`` checkpoint, written atomically."""
+    """The model's variables as the port's ``.npz`` checkpoint, written
+    atomically: its parameters under ``params``, its buffers (BatchNorm
+    statistics) under ``batch_stats``."""
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **flatten_variables(state_dict_to_flax(model.state_dict())))
+    np.savez(tmp, **flatten_variables(module_to_flax(model)))
     os.replace(tmp, path)
 
 

@@ -48,7 +48,7 @@ from spacecraft_pose_estimation_tpu.models.discriminator import MultiScaleDiscri
 from spacecraft_pose_estimation_tpu.models.hrnet import HRNET_TINY as J_TINY, HRNet as JHRNet
 from spacecraft_pose_estimation_tpu.ops import heatmap as jhm
 from spacecraft_pose_estimation_tpu.train import adversarial as jadv, optim as joptim
-from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
+from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict, module_to_flax
 from spacecraft_pose_estimation_tpu_torch.models.discriminator import MultiScaleDiscriminator
 from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNET_TINY, HRNet
 from spacecraft_pose_estimation_tpu_torch.train import adversarial as tadv, optim as toptim
@@ -165,7 +165,7 @@ def test_da_step_matches_jax(da_setup, d_loss_mode):
         outs = tadv.generator_forward(ts, tb)
         d_loss = tadv.discriminator_update(ts, outs, domain)
         assert float(d_loss) == pytest.approx(float(jmet["d_loss"]), rel=1e-4), k
-        disc = state_dict_to_flax(ts.discriminator.state_dict())
+        disc = module_to_flax(ts.discriminator)
         assert_stats_close(js.disc_stats, disc["batch_stats"])
         assert_params_close(js.disc_params, disc["params"], lr, f"mode {d_loss_mode}, update {k}: discriminator")
         ts.discriminator.load_state_dict(flax_to_state_dict({"params": np_tree(js.disc_params),
@@ -173,7 +173,7 @@ def test_da_step_matches_jax(da_setup, d_loss_mode):
         loss, hm_loss, adv = tadv.generator_update(ts, outs, tb, domain, BETA, d_loss_mode)
         for name, v in (("loss", loss), ("hm_loss", hm_loss), ("adv_loss", adv)):
             assert float(v) == pytest.approx(float(jmet[name]), rel=1e-4), (k, name)
-        gen = state_dict_to_flax(ts.generator.state_dict())
+        gen = module_to_flax(ts.generator)
         assert_stats_close(js.gen_stats, gen["batch_stats"])
         assert_params_close(js.gen_params, gen["params"], lr, f"mode {d_loss_mode}, update {k}: generator")
 

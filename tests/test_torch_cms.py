@@ -32,7 +32,7 @@ from spacecraft_pose_estimation_tpu.models.discriminator import MultiScaleDiscri
 from spacecraft_pose_estimation_tpu.models.hrnet import HRNET_TINY as J_TINY, HRNet as JHRNet
 from spacecraft_pose_estimation_tpu.models.layers import upsample_bilinear as j_upsample
 from spacecraft_pose_estimation_tpu_torch import evaluate
-from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
+from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict, module_to_flax
 from spacecraft_pose_estimation_tpu_torch.models import build_landmark_model
 from spacecraft_pose_estimation_tpu_torch.models.discriminator import MultiScaleDiscriminator
 from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNET_TINY, HRNet
@@ -98,7 +98,7 @@ def test_conv_transpose_matches_flax(case):
             got = n(m.deconv(t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
         assert got.shape == want.shape == (2, 7 * s, 6 * s, cout)
         close(got, want, 1e-5)
-        back = state_dict_to_flax(m.state_dict())["params"]["deconv"]
+        back = module_to_flax(m)["params"]["deconv"]
         np.testing.assert_array_equal(back["kernel"], kernel)
         if cin == cout:
             w = torch.from_numpy(np.ascontiguousarray(kernel.transpose(2, 3, 0, 1)))
@@ -146,14 +146,14 @@ def test_cms_hrnet_matches_jax(head, size):
         for i, (g, w) in enumerate(zip(outs, wants)):
             assert g.shape == w.shape == (4, res >> i, res >> i, J)
             close(n(g), np.asarray(w), 1e-5)
-    stats = state_dict_to_flax(model.state_dict())["batch_stats"]
+    stats = module_to_flax(model)["batch_stats"]
     assert jax.tree_util.tree_structure(stats) == jax.tree_util.tree_structure(upd["batch_stats"])
     for a, b in zip(leaves(upd["batch_stats"]), leaves(stats)):
         np.testing.assert_allclose(b, a, atol=1e-5)
 
 
 def test_cms_npz_round_trip_loads_into_jax(tmp_path):
-    """port -> ``state_dict_to_flax`` -> JAX ``HRNet(head="cms")`` gives the
+    """port -> ``module_to_flax`` -> JAX ``HRNet(head="cms")`` gives the
     port's heatmaps, and the ``.npz`` loads through ``evaluate.load_landmark_model``
     bit for bit."""
     model = build_landmark_model("hrnet_tiny_cms", J, device="cpu", generator=torch.Generator().manual_seed(3))
@@ -164,7 +164,7 @@ def test_cms_npz_round_trip_loads_into_jax(tmp_path):
     x = np.random.default_rng(4).normal(size=(2, 32, 32, 3)).astype(np.float32)
     with torch.no_grad():
         got = n(model(t(x)))
-    tree = state_dict_to_flax(model.state_dict())
+    tree = module_to_flax(model)
     want = np.asarray(JHRNet(config=cms_config("cms")).apply(to_jax(tree), x, train=False))
     close(got, want, 1e-5)
     path = str(tmp_path / "cms.npz")
@@ -211,7 +211,7 @@ def test_discriminator_matches_jax():
     assert got.shape == want.shape == (3, 2)
     close(got, want, 1e-4)
     close(got_train, np.asarray(want_train), 1e-4)
-    for a, b in zip(leaves(upd["batch_stats"]), leaves(state_dict_to_flax(model.state_dict())["batch_stats"])):
+    for a, b in zip(leaves(upd["batch_stats"]), leaves(module_to_flax(model)["batch_stats"])):
         np.testing.assert_allclose(b, a, atol=1e-5)
 
 
@@ -238,7 +238,7 @@ def test_build_landmark_model_has_the_jax_tree(name):
     jshapes = jax.eval_shape(lambda: j_build(name, J).init(jax.random.key(0), jnp.zeros((1, size, size, 3)),
                                                            train=False))
     model = build_landmark_model(name, J, device="cpu", generator=torch.Generator().manual_seed(0))
-    tree = state_dict_to_flax(model.state_dict())
+    tree = module_to_flax(model)
     assert jax.tree_util.tree_structure(tree) == jax.tree_util.tree_structure(jshapes)
     for a, b in zip(jax.tree_util.tree_leaves(jshapes), leaves(tree)):
         assert a.shape == b.shape

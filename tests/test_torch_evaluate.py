@@ -58,7 +58,10 @@ from spacecraft_pose_estimation_tpu_torch.models import rcnn as trcnn
 from spacecraft_pose_estimation_tpu_torch.ops import pnp as tpnp
 from spacecraft_pose_estimation_tpu_torch.pipeline import PipelineConfig, make_landmark_stage
 
+from torch_port_util import few_threads  # noqa: F401 (the fixture)
 from torch_port_util import jax_gumbel, jax_hypotheses, n, port_hypotheses, random_variables, t, to_jax
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES_HW, N_FRAMES, BATCH, SIZE, J, HYP = (120, 192), 10, 4, 64, 11, 256

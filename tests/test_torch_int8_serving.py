@@ -44,7 +44,9 @@ from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNET_TINY, HRNet
 from spacecraft_pose_estimation_tpu_torch.models.hrnet_int8 import quantize_hrnet
 from spacecraft_pose_estimation_tpu_torch.serving import build_int8_server
 
-from torch_port_util import n, random_variables, t, to_jax
+from torch_port_util import few_threads, n, random_variables, t, to_jax  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 FRAMES_HW = (120, 192)
 DET_SIZE, DET_EVERY, CLIP = 64, 2, 4

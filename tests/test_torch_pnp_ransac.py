@@ -46,7 +46,10 @@ from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict
 from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNET_TINY, HRNet
 from spacecraft_pose_estimation_tpu_torch.ops import pnp as tpnp
 
+from torch_port_util import few_threads  # noqa: F401 (the fixture)
 from torch_port_util import jax_gumbel, jax_hypotheses, n, port_hypotheses, random_variables, t, to_jax
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 K = np.array([[2988.6, 0, 960.0], [0, 2988.3, 600.0], [0, 0, 1]], np.float32)
 DIST = np.array([-0.22, 0.18, 5e-4, -3e-4, -0.02], np.float32)

@@ -112,6 +112,58 @@ def test_wrappers_launch_or_raise_off_the_cpu():
         )
 
 
+CSRC = PORT / "csrc"
+
+
+@pytest.mark.parametrize("path", sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")),
+                         ids=lambda p: p.name)
+def test_kernel_sources_take_no_torch_or_jax_headers(path):
+    """Each kernel source (K2's backward and its shared geometry header too)
+    includes only the CUDA toolkit's, the C++ library's and the port's own
+    headers, and each ``.cu`` exports a plain C launcher for ``ctypes``:
+    nothing of PyTorch's extension headers, nothing of JAX or XLA."""
+    import re
+
+    text = path.read_text()
+    own = {p.name for p in CSRC.glob("*.cuh")}
+    for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', text):
+        assert inc in own or inc in ("cuda_runtime.h", "cuda_bf16.h", "stdint.h", "numeric"), f"{path.name}: {inc}"
+    if path.suffix == ".cu":
+        assert 'extern "C"' in text
+
+
+def test_pooler_backward_raises_off_the_card_and_never_falls_back():
+    """K2's backward wrapper launches its kernel or raises: CPU and meta
+    tensors are refused, and so are shapes and types the kernel does not
+    take (the CPU's gradient is autograd of the plain version, through
+    ``roi_align_multilevel``, not this wrapper)."""
+    from spacecraft_pose_estimation_tpu_torch.ops import roi_align
+
+    for dev in ("cpu", "meta"):
+        boxes = torch.zeros(2, 4, device=dev)
+        bidx = torch.zeros(2, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="CUDA"):
+            roi_align.roi_align_multilevel_backward(torch.zeros(2, 7, 7, 8, device=dev), [(1, 8, 8, 8)],
+                                                    torch.float32, boxes, bidx, 7, (4,), window=16)
+    with pytest.raises(ValueError, match="impl"):
+        roi_align._check_pyramid([(1, 8, 8, 8)], torch.float32, (4,), 7, 2, "gather")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        roi_align._check_pyramid([(1, 8, 8, 12)], torch.float32, (4,), 7, 2, "pallas")
+
+
+def test_detector_trainer_needs_cuda_or_an_explicit_device(tmp_path):
+    from spacecraft_pose_estimation_tpu_torch.tools import train_detector
+
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_detector.main(["--train-json", "t.json", "--image-dir", "."])
+    args = train_detector.parse_args(["--train-json", "t.json", "--image-dir", ".", "--tiny",
+                                      "--output", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_detector.train(args, None)
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     """Without CUDA, or without the repo around it, chip_smoke.py exits

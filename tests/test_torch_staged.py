@@ -61,7 +61,9 @@ from spacecraft_pose_estimation_tpu_torch.models import rcnn as trcnn
 from spacecraft_pose_estimation_tpu_torch.tools import export_boxes, export_poses, test_landmarks
 from spacecraft_pose_estimation_tpu_torch.train import landmark_loop
 
-from torch_port_util import jax_gumbel, n, random_variables, t, to_jax
+from torch_port_util import few_threads, jax_gumbel, n, random_variables, t, to_jax  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES_HW, N_FRAMES, BATCH, SIZE, J = (120, 192), 6, 4, 64, 11

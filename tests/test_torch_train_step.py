@@ -43,13 +43,15 @@ from spacecraft_pose_estimation_tpu.ops import heatmap as jhm
 from spacecraft_pose_estimation_tpu.train import optim as joptim, state as jstate
 from spacecraft_pose_estimation_tpu.train.loss import joints_mse_loss as j_mse
 from spacecraft_pose_estimation_tpu_torch import evaluate
-from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
+from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict, module_to_flax, state_dict_to_flax
 from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNET_TINY, HRNet
 from spacecraft_pose_estimation_tpu_torch.models.layers import BatchNorm
 from spacecraft_pose_estimation_tpu_torch.train import optim as toptim, state as tstate
 from spacecraft_pose_estimation_tpu_torch.train.checkpoint import CheckpointManager
 
-from torch_port_util import n, random_variables, t, to_jax
+from torch_port_util import few_threads, n, random_variables, t, to_jax  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 J, LR, MILESTONES = 11, 1e-3, [2]
 
@@ -153,10 +155,10 @@ def run_both(dtype, variables, batch, steps=3):
     for k in range(steps):
         js, jmet = jstep(js, {k2: jnp.asarray(v) for k2, v in batch.items()})
         tmet = tstep(ts, tb)
-        grads = state_dict_to_flax({name: p.grad for name, p in model.named_parameters()})["params"]
+        grads = state_dict_to_flax({name: p.grad for name, p in model.named_parameters()}, set())["params"]
         out.append(dict(jmet={a: float(b) for a, b in jmet.items()}, tmet={a: float(b) for a, b in tmet.items()},
                         jvars={"params": js.params, "batch_stats": js.batch_stats},
-                        tvars=state_dict_to_flax(model.state_dict()), tgrads=grads))
+                        tvars=module_to_flax(model), tgrads=grads))
     assert ts.step == steps and int(js.step) == steps
     return out, model
 
@@ -212,7 +214,7 @@ def test_eval_step_uses_running_statistics(tiny):
     hm = tstate.make_eval_step()(ts, t(batch["image"]))
     assert not model.training
     jm = JHRNet(config=J_TINY.with_joints(J))
-    want = np.asarray(jm.apply(state_dict_to_flax(model.state_dict()), batch["image"], train=False))
+    want = np.asarray(jm.apply(module_to_flax(model), batch["image"], train=False))
     np.testing.assert_allclose(n(hm), want, atol=1e-4 * np.abs(want).max())
 
 
@@ -226,7 +228,7 @@ def test_state_dict_to_flax_round_trip_and_jax_load(tiny, tmp_path):
     ts = tstate.TrainState(model, toptim.build_optimizer("adam", model.parameters(), LR))
     tstate.make_train_step(True)(ts, {k: t(v) for k, v in batch.items()})
     sd = model.state_dict()
-    tree = state_dict_to_flax(sd)
+    tree = module_to_flax(model)
     assert set(tree) == {"params", "batch_stats"}
     assert tree["params"]["stem1"]["conv"]["kernel"].shape == (3, 3, 3, 8)  # OIHW -> HWIO
     assert set(tree["batch_stats"]["stem1"]["bn"]) == {"mean", "var"}

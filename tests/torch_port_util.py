@@ -146,3 +146,27 @@ def port_hypotheses(world, px, conf, K, dist, gumbel, sample_size: int = 6, thre
     best = torch.argmax(scores, dim=-1)
     out = dict(err=err, inl=inl, scores=scores, best=best, best_inl=inl[torch.arange(len(best)), best])
     return {k: v.numpy() for k, v in out.items()}
+
+
+def jax_detection_draws(jmodel, variables, key, b: int, num_anchors: int, num_candidates: int) -> dict:
+    """The uniform priorities the JAX ``GeneralizedRCNN`` draws in a train
+    step run with ``rngs={"sampling": key}`` (its ``make_rng("sampling")``,
+    then ``fold_in`` 0 for the proposals' and 1 for the anchors' sampling,
+    split per image; ``sample_proposals`` splits each image's key into the
+    subsample's and the gather's, ``subsample_labels`` its key into the
+    positives' and the negatives'), as the port's ``sample_draws`` lays
+    them out: numpy (b, n) arrays."""
+    rng = jmodel.apply(variables, rngs={"sampling": key}, method=lambda m: m.make_rng("sampling"))
+    sample_keys = jax.random.split(jax.random.fold_in(rng, 0), b)
+    rpn_keys = jax.random.split(jax.random.fold_in(rng, 1), b)
+    out = {k: [] for k in ("rpn_pos", "rpn_neg", "roi_pos", "roi_neg", "roi_gather")}
+    for i in range(b):
+        kp, kn = jax.random.split(rpn_keys[i])
+        out["rpn_pos"].append(jax.random.uniform(kp, (num_anchors,)))
+        out["rpn_neg"].append(jax.random.uniform(kn, (num_anchors,)))
+        k1, k2 = jax.random.split(sample_keys[i])
+        kp, kn = jax.random.split(k1)
+        out["roi_pos"].append(jax.random.uniform(kp, (num_candidates,)))
+        out["roi_neg"].append(jax.random.uniform(kn, (num_candidates,)))
+        out["roi_gather"].append(jax.random.uniform(k2, (num_candidates,)))
+    return {k: np.stack([np.asarray(x) for x in v]) for k, v in out.items()}
