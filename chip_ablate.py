@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's kernels goes, on one CUDA card: the int8 tensor-core kernels K5a, K5, K6
-and K7, the ROIAlign kernel (K2 on the FPN, K3 on one map) and the NMS K4.
+and K7, the ROIAlign kernel (K2 on the FPN, K3 on one map), its backward K2b and the NMS K4.
 
-    python3 chip_ablate.py [KERNEL ...]
+    python3 chip_ablate.py [--before TREE] [KERNEL ...]
 
 from the repository root, on a machine with an NVIDIA H100 and the CUDA
 toolkit; with kernel ids (``K2 K4``) it times only their variants and
@@ -10,8 +10,9 @@ shapes. It copies ``spacecraft_pose_estimation_tpu_torch/csrc`` once per
 variant into the gitignored ``_build/ablate/``, edits one piece of a
 kernel out of each copy (the tensor-core conv body's epilogue, wgmma or
 copies into shared memory, K5's cluster barriers, the ROIAlign kernel's loads, its stores or all
-but its launch, K4's overlap phase, its walk or all but its launch), changes one of its sizes, or swaps in an
-exact alternative (the ROIAlign sampling ratio fixed at the served 2, K4's IoU
+but its launch, K2b's grad_out loads, its sums, all but its footprint walk, its stores or all but its
+launches, K4's overlap phase, its walk or all but its launch), changes one of its sizes, or swaps in an
+exact alternative (K2b's rows a warp and columns a block; the ROIAlign sampling ratio fixed at the served 2, K4's IoU
 decision by division, its walk not unrolled or not skipping empty
 quarters of a word), builds each copy's sources of the kernels the variant
 touches (one nvcc per source, in parallel), and times each variant's
@@ -19,8 +20,13 @@ kernels at the serving shapes (HRNet-W32's four branch chains; R101 and
 HRNet conv sites; layer1 in 32-row strips and in two strips per image;
 three fuse-exchange outputs; K2 on 256 boxes over the four R101-FPN
 levels; K3 on 64 P2-sized boxes on one 192x192x256 bf16 map; K4 on the RPN's and the box head's problems, with as many valid
-boxes as the served ones and with most valid) from CUDA graphs,
-turn by turn in one process. Only the unedited source and the exact
+boxes as the served ones and with most valid; K2b on tools/train_detector's config_1 call: 512 ROIs over
+the bf16 P2-P5 of 4 images at 800^2, C 256, a quarter of each image's clustered on its object) from CUDA
+graphs, turn by turn in one process. With ``--before TREE``, a checkout of the port as it was when K2b
+summed with float32 atomics (the commit before the owner-computes K2b), the kernel id ``K2b-atomic`` times
+that K2b too, split into its memset and cast alone, its atomic kernel alone, and the atomic kernel with
+each ROI's gradient sent to a private buffer of its own (no two ROIs add into one address). Only the
+unedited source and the exact
 alternatives are held to the plain versions: the others compute wrong answers
 on purpose, and their times say what the removed piece costs. Prints the
 card, one JSON line per shape and a last line ``{"ok": true, ...}``;
@@ -32,15 +38,23 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+import math
 import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 INT8 = ("K5a", "K5", "K6", "K7")
+# the atomic K2b without its memset of the float32 buffers and its cast to bf16
+ATOMIC_NO_MEMSET_CAST = [("roi_align_multilevel_backward.cu", "  for (int l = 0; l < num_levels; ++l) {\n    const size_t n",
+                        "  for (int l = 0; l < 0; ++l) {\n    const size_t n"),
+                       ("roi_align_multilevel_backward.cu", "  if (is_bf16) {", "  if (is_bf16 < 0) {")]
+# a private buffer a ROI: its read window's rows x the Pallas window's columns (48 x 56)
+PRIVATE_W, PRIVATE_CELLS = 56, 48 * 56
 # variant -> (kernel ids it applies to, [(file, text, replacement)] applied to a copy of csrc/)
 VARIANTS = {
-    "as committed": (INT8 + ("K2", "K3", "K4"), []),
+    "as committed": (INT8 + ("K2", "K3", "K4", "K2b"), []),
     "no epilogue": (INT8, [("int8_mma.cuh", "  store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);",
                             "  if (acc[0] == 0x7fffffff) store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);")]),
     "no wgmma": (INT8, [("int8_mma.cuh",
@@ -69,6 +83,44 @@ VARIANTS = {
                                            "#pragma unroll\n      for (int iy = 0; iy < 2; ++iy) {\n"
                                            "        const int sy = py * 2 + iy;\n#pragma unroll\n"
                                            "        for (int ix = 0; ix < 2; ++ix) {\n          const int sx = px * 2 + ix;")]),
+    "K2b no grad_out loads": (("K2b",), [("roi_align_multilevel_backward.cu",
+                                          "const float4 u0 = __ldg(g0), v0 = __ldg(g0 + 1), u1 = __ldg(g1), v1 = __ldg(g1 + 1);",
+                                          "const float4 u0 = make_float4(a0, a1, a0, a1), v0 = u0, u1 = u0, v1 = u0;")]),
+    "K2b no sums": (("K2b",), [("roi_align_multilevel_backward.cu", "for (int py = qa; py <= qb && m_all; ++py) {",
+                                "for (int py = qa; py <= qb && m_all && P < 0; ++py) {")]),
+    "K2b footprint walk alone": (("K2b",), [("roi_align_multilevel_backward.cu", "const bool meets = f.x == key && (f.y",
+                                             "const bool meets = f.x == key + (1 << 30) && (f.y")]),
+    "K2b 8 rows a warp (exact)": (("K2b",), [("roi_align_multilevel_backward.cu", "constexpr int kRows = 4;",
+                                              "constexpr int kRows = 8;")]),
+    "K2b 2 rows a warp (exact)": (("K2b",), [("roi_align_multilevel_backward.cu", "constexpr int kRows = 4;",
+                                              "constexpr int kRows = 2;")]),
+    "K2b 4 columns a block (exact)": (("K2b",), [("roi_align_multilevel_backward.cu", "constexpr int kCols = 8;",
+                                                  "constexpr int kCols = 4;")]),
+    "K2b 16 columns a block (exact)": (("K2b",), [("roi_align_multilevel_backward.cu", "constexpr int kCols = 8;",
+                                                   "constexpr int kCols = 16;")]),
+    "K2b a block a tile (exact)": (("K2b",), [("roi_align_multilevel_backward.cu",
+                                               "<<<min(n, sms * blocks_per_sm<__nv_bfloat16>()), kThreads",
+                                               "<<<n, kThreads")]),
+    "K2b no stores": (("K2b",), [("roi_align_multilevel_backward.cu", "      if (y0 + j < h) store8(",
+                                  "      if (y0 + j < h && acc[j][0] == 12345.f) store8(")]),
+    "K2b launch only": (("K2b",), [("roi_align_multilevel_backward.cu", "  if (r >= p.R) return;", "  return;"),
+                                   ("roi_align_multilevel_backward.cu",
+                                    "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n  const int P",
+                                    "  if (tiles > 0) return;\n"
+                                    "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n  const int P")]),
+    # the atomic K2b, on --before's sources: a float32 buffer a level zeroed, atomics into it, a bf16 cast
+    "K2b atomic (exact)": (("K2b-atomic",), []),
+    "K2b atomic: memset + cast alone": (("K2b-atomic",), [("roi_align_multilevel_backward.cu", "  if (R > 0) {",
+                                                       "  if (R < 0) {")]),
+    "K2b atomic: atomics alone": (("K2b-atomic",), ATOMIC_NO_MEMSET_CAST),
+    "K2b atomic: atomics alone, private buffers": (("K2b-atomic",), ATOMIC_NO_MEMSET_CAST + [
+        ("roi_align_multilevel_backward.cu",
+         "  float* g = grads.g[bw.lvl] + static_cast<int64_t>(batch_idx[r]) * bw.h * bw.w * C;",
+         f"  float* g = grads.g[0] + static_cast<int64_t>(r) * {PRIVATE_CELLS} * C;"),
+        ("roi_align_multilevel_backward.cu",
+         "float* cell = g + (static_cast<int64_t>(taps.ky[ty][sy]) * bw.w + taps.kx[tx][sx]) * C + c;",
+         f"float* cell = g + (static_cast<int64_t>(taps.ky[ty][sy] - bw.oy) * {PRIVATE_W} + taps.kx[tx][sx] - bw.ox)"
+         " * C + c;")]),
     "K4 no overlaps": (("K4",), [("nms_mask_sorted.cu",
                                   "    if (!v[i]) continue;  // warp-uniform; the walk never reads an invalid row",
                                   "    continue;")]),
@@ -87,9 +139,12 @@ VARIANTS = {
 }
 # variants that must still agree with the plain versions: the committed sources and the other exact designs
 EXACT = ("as committed",) + tuple(name for name in VARIANTS if name.endswith("(exact)"))
+BEFORE = ("K2b-atomic",)  # kernel ids built from --before's sources
 SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_block_chain.cu", "basic_block_chain"),
            "K6": ("bottleneck_chain.cu", "bottleneck_chain"), "K7": ("up_exchange.cu", "up_exchange"),
            "K2": ("roi_align_multilevel.cu", "roi_align_multilevel"), "K3": ("roi_align_multilevel.cu", "roi_align_single"),
+           "K2b": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
+           "K2b-atomic": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
            "K4": ("nms_mask_sorted.cu", "nms_mask_sorted")}
 CHAINS = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128), (16, 16, 16, 256)]  # W32 branches, 4 blocks
 CONVS = [  # (B, H, W, Cin, Cout, k, stride): R101 at the 768 letterbox, HRNet-W32 at 512
@@ -105,9 +160,9 @@ EXCHANGES = [  # (B, H, C, downs, [(f, C_j)]): W32 fuse outputs at 512
 ]
 
 
-def build(cuda, keys) -> dict:
-    """Every variant's copy of csrc/, edited, with the sources of its kernels
-    among ``keys`` built (each source once); {variant: {kernel id: ctypes function}}."""
+def build(cuda, keys, before=None) -> dict:
+    """Every variant's copy of csrc/ (of ``before``'s for the ``BEFORE`` ids), edited, with the sources of
+    its kernels among ``keys`` built (each source once); {variant: {kernel id: ctypes function}}."""
     root = cuda.BUILD_DIR / "ablate"
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
@@ -116,7 +171,7 @@ def build(cuda, keys) -> dict:
         if not kernels:
             continue
         d = root / f"v{i}"
-        shutil.copytree(cuda.CSRC, d)
+        shutil.copytree(before if set(kernels) <= set(BEFORE) else cuda.CSRC, d)
         for fname, text, repl in edits:
             src = (d / fname).read_text()
             if text not in src:
@@ -192,6 +247,75 @@ def pooler_nms_workloads(torch, ra, nms):
     return out
 
 
+# the atomic K2b's C entry: f32 buffers g0..g3 that it zeroes and adds into, then bf16 outputs o0..o3 it casts them into
+ATOMIC_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def k2b_problem(torch):
+    """tools/train_detector's config_1 call of K2b, from seed 0: the bf16 P2-P5 of 4 images at 800^2 (200,
+    100, 50 and 25 cells a side, C 256) and 128 ROIs an image, as its sampler draws them: 32 around the
+    image's one object (60-100 px a side, each corner moved by up to 10% of its side) and 96 elsewhere (16-128 px
+    a side, aspect up to 2:1), the ROIs of image i contiguous; grad_out (512, 7, 7, 256) f32; the windowed
+    read window of 48. Returns the wrapper's arguments as a dict."""
+    gen = torch.Generator().manual_seed(0)
+    size, n_img, n_fg, n_bg = 800, 4, 32, 96
+    u = lambda *shape: torch.rand(*shape, generator=gen, dtype=torch.float64)
+    boxes = []
+    for _ in range(n_img):
+        side = 60 + 40 * u(2)
+        centre = side / 2 + u(2) * (size - side)
+        obj = torch.cat([centre - side / 2, centre + side / 2])
+        fg = obj + (u(n_fg, 4) - 0.5) * 0.2 * side.repeat(2)
+        bg_side, aspect = torch.exp(math.log(16.0) + u(n_bg) * math.log(8.0)), torch.exp((u(n_bg) - 0.5) * math.log(4.0)).sqrt()
+        bw, bh, cx, cy = bg_side * aspect, bg_side / aspect, u(n_bg) * size, u(n_bg) * size
+        boxes += [fg, torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], -1)]
+    r = n_img * (n_fg + n_bg)
+    return dict(grad_out=torch.randn(r, 7, 7, 256, generator=gen).cuda(),
+                shapes=[(n_img, size // s, size // s, 256) for s in (4, 8, 16, 32)], dtype=torch.bfloat16,
+                boxes=torch.cat(boxes).float().cuda(),
+                batch_idx=torch.arange(n_img, dtype=torch.int32).repeat_interleave(r // n_img).cuda(),
+                output_size=7, strides=(4, 8, 16, 32), sampling_ratio=2, window=48, impl="windowed")
+
+
+def k2b_workloads(torch, ra, keys, atomic):
+    """K2b (and with ``atomic``, a Kernel bound to the atomic K2b's C entry, that kernel) on ``k2b_problem``:
+    (label, kernel id, call, plain result)."""
+    a = k2b_problem(torch)
+    want = ra.roi_align_multilevel_backward_plain(**a)
+    levels = ra.assign_levels(a["boxes"], 4, 2)
+    label = (f"K2b 512 ROIs (per level P2..P5 {torch.bincount(levels, minlength=4).tolist()}), "
+             "P2-P5 of 4x200x200x256 bf16, windowed")
+    out = [(label, "K2b", functools.partial(ra.roi_align_multilevel_backward, **a), want)] if "K2b" in keys else []
+    if atomic is not None:
+        go, shapes, boxes, bidx = a["grad_out"], a["shapes"], a["boxes"], a["batch_idx"]
+        # level 0's buffer also holds a private window a ROI for the private-buffer variant
+        g = [torch.empty(max(math.prod(shapes[0]), go.shape[0] * PRIVATE_CELLS * 256) if i == 0 else math.prod(sh),
+                         device="cuda") for i, sh in enumerate(shapes)]
+        outs = [torch.empty(sh, dtype=torch.bfloat16, device="cuda") for sh in shapes]
+        ptr = lambda t_: ctypes.c_void_p(t_.data_ptr())
+        hw = [d for sh in shapes for d in sh[1:3]]
+
+        def call():
+            atomic.launch(ptr(go), *map(ptr, g), *map(ptr, outs), *hw, 4, 4, 2, 1, ptr(boxes), ptr(bidx),
+                        go.shape[0], 256, 7, 2, 48, 0, 224.0, 4)
+            return outs
+
+        out.append((label + " (the atomic kernel)", "K2b-atomic", call, want))
+    return out
+
+
+def agrees(torch, key, got, want) -> bool:
+    """A variant's answer against the plain version's, with chip_smoke.py's bars: exact; K2/K3 within 1e-5
+    of the output's scale; K2b within 2^-7 of its bf16 gradient's scale."""
+    if key.startswith("K2b"):
+        scale = max(w.float().abs().max().item() for w in want)
+        return max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want)) <= 2.0 ** -7 * scale
+    if torch.equal(got, want):
+        return True
+    return key in ("K2", "K3") and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
 def workloads(torch, ic, ib):
     """(label, kernel id, wrapper call, plain result) at the serving shapes, from seed 0."""
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -252,20 +376,31 @@ def main() -> int:
     from spacecraft_pose_estimation_tpu_torch import _cuda
     from spacecraft_pose_estimation_tpu_torch.ops import int8_blocks, int8_conv, nms, roi_align
 
-    keys = sys.argv[1:] or list(SOURCES)
-    if set(keys) - set(SOURCES):
-        raise SystemExit(f"chip_ablate: kernel ids are {list(SOURCES)}, got {keys}")
+    argv, before = sys.argv[1:], None
+    if "--before" in argv:
+        i = argv.index("--before")
+        before = Path(argv[i + 1]) / "spacecraft_pose_estimation_tpu_torch" / "csrc"
+        argv = argv[:i] + argv[i + 2:]
+        if not (before / "roi_align_multilevel_backward.cu").exists():
+            raise SystemExit(f"chip_ablate: {before} holds no roi_align_multilevel_backward.cu")
+    keys = argv or [k for k in SOURCES if before is not None or k not in BEFORE]
+    if set(keys) - set(SOURCES) or (before is None and set(keys) & set(BEFORE)):
+        raise SystemExit(f"chip_ablate: kernel ids are {list(SOURCES)} ({BEFORE} with --before), got {keys}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
-    fns = build(_cuda, keys)
+    fns = build(_cuda, keys, before)
     print(f"built {len(fns)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = {"K5a": int8_conv.KERNEL, "K5": int8_blocks.CHAIN, "K6": int8_blocks.BOTTLENECK,
-               "K7": int8_blocks.EXCHANGE, "K2": roi_align.KERNEL, "K3": roi_align.SINGLE, "K4": nms.KERNEL}
+               "K7": int8_blocks.EXCHANGE, "K2": roi_align.KERNEL, "K3": roi_align.SINGLE, "K4": nms.KERNEL,
+               "K2b": roi_align.BACKWARD,
+               "K2b-atomic": _cuda.Kernel(*SOURCES["K2b-atomic"][::-1], ATOMIC_ARGTYPES)}
     times: dict = {}
     work = (workloads(torch, int8_conv, int8_blocks) if set(keys) & set(INT8) else []) + \
-        (pooler_nms_workloads(torch, roi_align, nms) if set(keys) & {"K2", "K3", "K4"} else [])
+        (pooler_nms_workloads(torch, roi_align, nms) if set(keys) & {"K2", "K3", "K4"} else []) + \
+        (k2b_workloads(torch, roi_align, keys, kernels["K2b-atomic"] if "K2b-atomic" in keys else None)
+         if set(keys) & {"K2b", "K2b-atomic"} else [])
     for _ in range(2):  # two turns through the variants, to show the spread
         for name, by_key in fns.items():
             for key, fn in by_key.items():
@@ -276,9 +411,10 @@ def main() -> int:
                     continue
                 got = call()
                 torch.cuda.synchronize()
-                if name in EXACT and not torch.equal(got, want):
-                    if key not in ("K2", "K3") or (got - want).abs().max().item() > 1e-5 * want.abs().max().item():
-                        raise RuntimeError(f"{label}: {name!r} disagrees with the plain version")
+                if name in EXACT and not agrees(torch, key, got, want):
+                    raise RuntimeError(f"{label}: {name!r} disagrees with the plain version")
+                if name == "as committed" and key == "K2b" and not all(map(torch.equal, got, call())):
+                    raise RuntimeError(f"{label}: two calls of K2b differ")
                 calls = 50 if key in ("K2", "K3", "K4") else 10  # ~1 ms a replay, as chip_smoke.py's k
                 times.setdefault(label, {}).setdefault(name, []).append(round(graph_ms(torch, call, calls), 5))
     for label, by_variant in times.items():

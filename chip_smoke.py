@@ -14,7 +14,10 @@ toolkit. It
    both read windows) to their plain versions on seeded boxes that the
    served proposals may not reach (every pyramid level, the image's edges,
    boxes larger than the read window, level boundaries; f32 and bf16
-   features, 256 and 16 channels), K3 likewise on maps larger and smaller than its read window
+   features, 256 and 16 channels; the backward also on the 800^2
+   pyramid, whose every level ends in partial tiles, with a level no box
+   reaches and with no box at all, both exactly 0, and two calls equal
+   bit for bit), K3 likewise on maps larger and smaller than its read window
    at spatial scales 0.25, 0.3 and 1/12 (boxes across every edge, larger
    than the window, zero-area, wholly outside the map; a CUDA call with 12
    channels must raise), and K4 exactly on seeded problems of 1, 63, 65,
@@ -112,7 +115,8 @@ toolkit. It
    just before, read just after; each held to its plain version on a
    step's own inputs, K4 at N = 2000, K2's backward to 2^-7 of its
    gradient's scale, a bar that must reject the gradient doubled, a
-   level's lost and each ROI's sent to another image's box); checks the
+   level's lost and each ROI's sent to another image's box, and two of
+   its calls equal bit for bit); checks the
    losses and parameters finite, the final ``.npz`` through
    ``evaluate.load_detector`` (0 apart) and that 20 updates on one
    repeated batch lower loss_total;
@@ -442,11 +446,14 @@ LEVEL_BOUNDARY_BOXES = ((100.0, 100.0, 212.0, 212.0), (300.0, 200.0, 524.0, 424.
 
 def pooler_grad_limit(dtype, scale: float) -> float:
     """K2's backward against the plain autograd gradient, by the gradient's
-    own scale (its largest magnitude): atomics add in another order, so
-    float32 is held to 1e-5 of the scale; the bf16 cast of two float32 sums
-    that differ in the last bits can round one bf16 unit apart (at most
-    2^-7 of the value), so bf16 to 2^-7 of the scale. A zero gradient
-    raises: no bar on it can tell a wrong kernel from the right one."""
+    own scale (its largest magnitude): the kernel sums each box's share
+    separably (the bins' x weights first, then their y weights) and the
+    boxes of a cell in index order, the plain version each tap's product
+    in autograd's scatter order, so float32 is held to 1e-5 of the scale;
+    the bf16 rounding of two float32 sums that differ in the last bits can
+    land one bf16 unit apart (at most 2^-7 of the value), so bf16 to 2^-7
+    of the scale. A zero gradient raises: no bar on it can tell a wrong
+    kernel from the right one."""
     import torch
 
     if not scale > 0:
@@ -520,6 +527,66 @@ def check_pooler_coverage(torch, m) -> None:
                 f"(limit {limit:.3g})")
             if auto > limit:
                 raise RuntimeError(f"roi_align_multilevel's autograd gradient disagrees: {auto}")
+
+
+TILED_SIZE = 800  # config_1's input: P2-P5 of 200, 100, 50 and 25 cells, none a multiple of K2b's 16-cell tiles
+
+
+def check_pooler_backward_tiles(torch, m) -> None:
+    """K2's backward on the cases its tiles find delicate, against the plain
+    gradient within ``pooler_grad_limit``: the 800^2 pyramid, where every
+    level ends in partial tiles, on coverage boxes that reach every level;
+    the same pyramid with no box on P4, whose gradient must be exactly 0;
+    R = 0, every level exactly 0; both read windows, f32 and bf16, C 256
+    and 16; and two calls on the same inputs equal bit for bit."""
+    gen = torch.Generator().manual_seed(5)
+    r, n_img = 256, DET_BATCH
+    boxes = coverage_boxes(torch, r, TILED_SIZE, gen).cuda()
+    batch_idx = torch.randint(0, n_img, (r,), generator=gen, dtype=torch.int32).cuda()
+    levels = m.roi_align.assign_levels(boxes, len(POOLER_STRIDES), int(math.log2(POOLER_STRIDES[0])))
+    no_p4 = levels != 2
+    hist = torch.bincount(levels, minlength=len(POOLER_STRIDES)).tolist()
+    cases = {"all levels": (boxes, batch_idx), "no box on P4": (boxes[no_p4], batch_idx[no_p4]),
+             "R = 0": (boxes[:0], batch_idx[:0])}
+    log(f"K2b tiling boxes: {r} over {n_img} images at {TILED_SIZE}^2 (levels "
+        f"{[TILED_SIZE // s for s in POOLER_STRIDES]} cells a side), per level P2..P5 {hist}; "
+        f"{int(no_p4.sum())} without P4's")
+    if min(hist) == 0:
+        raise RuntimeError("K2b tiling boxes miss a level")
+    for impl, dtype, c in itertools.product(m.roi_align.IMPLS, (torch.float32, torch.bfloat16), (256, 16)):
+        shapes = [(n_img, TILED_SIZE // s, TILED_SIZE // s, c) for s in POOLER_STRIDES]
+        grad_all = torch.randn(r, 7, 7, c, generator=gen).cuda()
+        for case, (bx, bi) in cases.items():
+            grad_out = grad_all[no_p4] if case == "no box on P4" else grad_all[:bx.shape[0]].contiguous()
+            bargs = (grad_out, shapes, dtype, bx, bi, 7, POOLER_STRIDES, 2, POOLER_WINDOW, 224.0, 4, impl)
+            got = m.roi_align.roi_align_multilevel_backward(*bargs)
+            again = m.roi_align.roi_align_multilevel_backward(*bargs)
+            # with no box autograd has no graph to differentiate: the answer is zeros
+            want = (m.roi_align.roi_align_multilevel_backward_plain(*bargs) if bx.shape[0] else
+                    [torch.zeros(sh, dtype=dtype, device=bx.device) for sh in shapes])
+            sync()
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            shaped = all(g.dtype == dtype and tuple(g.shape) == sh for g, sh in zip(got, shapes))
+            nonzero = [int(torch.count_nonzero(g)) for g in got]
+            if case == "all levels":
+                scale = max(w.float().abs().max().item() for w in want)
+                limit = pooler_grad_limit(dtype, scale)
+                err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+                ok = err <= limit
+            else:  # the levels no box reaches: exactly 0 in the kernel's gradient and in the plain one
+                empty = [2] if case == "no box on P4" else range(len(shapes))
+                ok = all(nonzero[i] == 0 and not torch.count_nonzero(want[i]) for i in empty)
+                scale = max((w.float().abs().max().item() for w in want), default=0.0)
+                err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+                if scale > 0:
+                    ok &= err <= pooler_grad_limit(dtype, scale)
+                limit = "0 on the empty levels" + (f", {pooler_grad_limit(dtype, scale):.3g}" if scale > 0 else "")
+            log(f"K2b tiling, {case}, {impl} window, {dtype} features, C {c}: max_abs_err {err:.3g} (limit "
+                f"{limit if isinstance(limit, str) else f'{limit:.3g}'}); nonzero per level P2..P5 {nonzero}; two "
+                f"calls equal bit for bit {same}")
+            if not (ok and same and shaped):
+                raise RuntimeError(f"K2b on {case} ({impl}, {dtype}, C {c}): error {err}, bit-equal {same}, "
+                                   f"dtype and shapes {shaped}, nonzero {nonzero}")
 
 
 SINGLE_MAPS = ((192, 192), (40, 120), (100, 50), (30, 44))  # the served P2; h < 48; w < 56; both
@@ -2209,10 +2276,17 @@ def pooler_backward_row(torch, m, call, name):
     want = m.roi_align.roi_align_multilevel_backward_plain(*bargs, **bkw)
     scale = max(w.float().abs().max().item() for w in want)
     limit = pooler_grad_limit(dtype, scale)
-    controls = pooler_grad_controls(torch, m, a, m.roi_align.roi_align_multilevel_backward(*bargs, **bkw), want, limit)
+    got = m.roi_align.roi_align_multilevel_backward(*bargs, **bkw)
+    again = m.roi_align.roi_align_multilevel_backward(*bargs, **bkw)
+    sync()
+    same = all(torch.equal(g, h) for g, h in zip(got, again))
+    log(f"K2b on the train step's call: two calls equal bit for bit {same}")
+    if not same:
+        raise RuntimeError("K2b: two calls on the same inputs differ")
+    controls = pooler_grad_controls(torch, m, a, got, want, limit)
+    del got, again
     r, p, _, c = grad_out.shape
     out_bytes = sum(math.prod(sh) for sh in shapes) * (2 if dtype == torch.bfloat16 else 4)
-    f32_bytes = sum(math.prod(sh) for sh in shapes) * 4
     nbytes_ = nbytes(grad_out, boxes, batch_idx) + out_bytes
     # the yardstick: per level, autograd of grid_sample + avg_pool2d on the f32 map, one forward kept
     feats = [torch.zeros(sh, device=boxes.device, dtype=dtype) for sh in shapes]
@@ -2233,8 +2307,7 @@ def pooler_backward_row(torch, m, call, name):
                 tol=limit, peak=FP32_FLOPS, numbers=(nbytes_, 53.0 * r * p * p * c),
                 extra={"grad_scale": scale, "grad_limit": limit, "controls_max_abs_err": controls,
                        "impl": a["impl"], "rois": r, "levels_hist": torch.bincount(levels, minlength=4).tolist(),
-                       "bytes_with_f32_buffers": nbytes(grad_out) + f32_bytes * (2 if dtype == torch.bfloat16 else 1)
-                       + (out_bytes if dtype == torch.bfloat16 else 0)})
+                       "bit_equal_calls": same})
 
 
 def det_step_split(torch, m, state, batch, card) -> None:
@@ -2524,6 +2597,7 @@ def main() -> int:
     log("build (s): " + json.dumps({k: round(v, 2) for k, v in build_s.items()}))
     check_tensor_core_sass(_cuda)
     check_pooler_coverage(torch, m)
+    check_pooler_backward_tiles(torch, m)
     check_single_coverage(torch, m)
     check_nms_coverage(torch, m)
     check_tiny_against_cpu(torch, m)

@@ -100,6 +100,17 @@ __device__ __forceinline__ BoxWindow box_window(const Pyramid& pyr, const float*
   return b;
 }
 
+// The two taps of sample row i (k, w) and of sample column i of a box
+// on its level: the row's within the window's `window` rows, the
+// column's within its win_w columns.
+__device__ __forceinline__ void row_taps(const BoxWindow& b, int i, int P, int S, int window, int* k,
+                                         float* wt) {
+  axis_taps(sample_coord(i, b.y0, b.y1, P, S), b.h, b.oy, window, k, wt);
+}
+__device__ __forceinline__ void col_taps(const BoxWindow& b, int i, int P, int S, int* k, float* wt) {
+  axis_taps(sample_coord(i, b.x0, b.x1, P, S), b.w, b.ox, b.win_w, k, wt);
+}
+
 // The block's taps: every sample column of the box, and the S sample rows
 // of output row py. All threads of the block take part; the caller
 // synchronizes before reading them.
@@ -108,11 +119,11 @@ __device__ __forceinline__ void fill_taps(Taps& taps, const BoxWindow& b, int py
   for (int i = threadIdx.x; i < P * S; i += blockDim.x) {
     int k[2];
     float wt[2];
-    axis_taps(sample_coord(i, b.x0, b.x1, P, S), b.w, b.ox, b.win_w, k, wt);
+    col_taps(b, i, P, S, k, wt);
     taps.kx[0][i] = k[0]; taps.kx[1][i] = k[1]; taps.wx[0][i] = wt[0]; taps.wx[1][i] = wt[1];
     if (i < S) {
       const int iy = py * S + i;
-      axis_taps(sample_coord(iy, b.y0, b.y1, P, S), b.h, b.oy, window, k, wt);
+      row_taps(b, iy, P, S, window, k, wt);
       taps.ky[0][iy] = k[0]; taps.ky[1][iy] = k[1]; taps.wy[0][iy] = wt[0]; taps.wy[1][iy] = wt[1];
     }
   }

@@ -49,7 +49,7 @@ KERNEL = _cuda.Kernel(
 )
 BACKWARD = _cuda.Kernel(
     "roi_align_multilevel_backward", "roi_align_multilevel_backward.cu",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 )
 SINGLE = _cuda.Kernel(
@@ -244,23 +244,32 @@ def roi_align_multilevel_backward(
 
     ``shapes`` are the levels' (B, H_l, W_l, C) and ``dtype`` their type
     (the gradient's). The gradient does not depend on the features' values:
-    the op is linear in them. One launch zeroes a float32 buffer a level,
-    adds each tap's share into it with atomics and, for bfloat16, casts it.
-    CUDA tensors only: there is no fallback.
+    the op is linear in them. A first pass writes each ROI's footprint (its
+    level, image and the cells its nonzero taps span) and its folded tap
+    weights into an int32 scratch; then each warp owns a column of 8 cells
+    of one level of one image and 256 channels, sums the ROIs that touch it
+    in float32 registers and writes it once in ``dtype``, the same bits on
+    every call. CUDA tensors only: there is no fallback.
     """
     _cuda.check_cuda_tensor("grad_out", grad_out, torch.float32, 4)
+    if grad_out.data_ptr() % 16:
+        raise ValueError("grad_out: expected a tensor starting on a 16-byte boundary")
     _check_boxes(boxes, batch_idx)
     lvl_min = _check_pyramid([tuple(sh) for sh in shapes], dtype, strides, output_size, sampling_ratio, impl)
     r, c, num_levels = boxes.shape[0], shapes[0][-1], len(shapes)
     if tuple(grad_out.shape) != (r, output_size, output_size, c):
         raise ValueError(f"grad_out {tuple(grad_out.shape)} is not ({r}, {output_size}, {output_size}, {c})")
     dev = boxes.device
-    acc = [torch.empty(tuple(sh), dtype=torch.float32, device=dev) for sh in shapes]
-    outs = acc if dtype == torch.float32 else [torch.empty(tuple(sh), dtype=dtype, device=dev) for sh in shapes]
+    outs = [torch.empty(tuple(sh), dtype=dtype, device=dev) for sh in shapes]
+    # each ROI's footprint (4 words) and table (csrc's Table(P, window)): its
+    # bins' spans, then Ay and Ax over its read window at an 8-aligned origin
+    up = lambda v, m: (v + m - 1) // m * m
+    table = up(2 * output_size, 4) + output_size * (up(window + 15, 8) + up(window + 15, 4))
+    scratch = torch.empty(r * (4 + table), dtype=torch.int32, device=dev)
     pad = lambda ts: list(ts) + [ts[-1]] * (MAX_LEVELS - num_levels)
     hw = [d for sh in pad(shapes) for d in (sh[1], sh[2])]
     BACKWARD.launch(
-        _cuda.ptr(grad_out), *[_cuda.ptr(t) for t in pad(acc)], *[_cuda.ptr(t) for t in pad(outs)], *hw,
+        _cuda.ptr(grad_out), *[_cuda.ptr(t) for t in pad(outs)], _cuda.ptr(scratch), *hw,
         shapes[0][0], num_levels, lvl_min, int(dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(batch_idx),
         r, c, output_size, sampling_ratio, window, int(impl == "pallas"), float(canonical_size), canonical_level,
     )

@@ -215,25 +215,43 @@ POOL_BOXES = np.array([
 ], np.float32)
 
 
-def _pool_case(rng, c=8, b=2):
-    feats = [rng.normal(size=(b, 256 // s, 256 // s, c)).astype(np.float32) for s in STRIDES]
+def _pool_case(rng, c=8, b=2, sides=tuple(256 // s for s in STRIDES)):
+    feats = [rng.normal(size=(b, side, side, c)).astype(np.float32) for side in sides]
     batch_idx = np.arange(len(POOL_BOXES)) % b
     return feats, batch_idx
 
 
-def test_pooler_gradient_matches_jax_grad_of_the_windowed_pooler():
+# the pyramid's sides P2..P5 and the level left without a box: the 256 image;
+# sides that are not multiples of 16, as K2b's tiles meet at 800^2 (200, 100,
+# 50, 25); and P4 with no box, whose gradient is exactly 0
+POOL_GRAD_CASES = {
+    "sides 64-8": ((64, 32, 16, 8), None),
+    "sides 50, 25, 13, 7": ((50, 25, 13, 7), None),
+    "no box on P4": ((64, 32, 16, 8), 2),
+}
+
+
+@pytest.mark.parametrize("case", POOL_GRAD_CASES)
+def test_pooler_gradient_matches_jax_grad_of_the_windowed_pooler(case):
+    """The port's CPU gradient of K2 (autograd of the plain version, and
+    ``roi_align_multilevel_backward_plain``, K2b's yardstick on the card)
+    against ``jax.grad`` of the windowed pooler, within 1e-5 of the
+    gradient's scale; a level no box reaches is exactly 0 in all three."""
+    sides, empty = POOL_GRAD_CASES[case]
     rng = np.random.default_rng(9)
     window = 16
-    feats, batch_idx = _pool_case(rng)
+    feats, batch_idx = _pool_case(rng, sides=sides)
     levels = n(troi.assign_levels(t(POOL_BOXES), 4, 2))
     assert set(levels) == {0, 1, 2, 3}
     g = rng.normal(size=(len(POOL_BOXES), 7, 7, feats[0].shape[-1])).astype(np.float32)
+    keep = levels != empty
+    boxes, batch_idx, g = POOL_BOXES[keep], batch_idx[keep], g[keep]
 
     def jloss(fs):
         total = 0.0
         for i in range(feats[0].shape[0]):
             sel = np.flatnonzero(batch_idx == i)
-            out = multilevel_roi_align([f[i] for f in fs], jnp.asarray(POOL_BOXES[sel]), 7, STRIDES,
+            out = multilevel_roi_align([f[i] for f in fs], jnp.asarray(boxes[sel]), 7, STRIDES,
                                        sampling_ratio=2, impl="windowed", window=window)
             total = total + jnp.sum(out * g[sel])
         return total
@@ -242,12 +260,20 @@ def test_pooler_gradient_matches_jax_grad_of_the_windowed_pooler():
         want = jax.grad(jloss)([jnp.asarray(f) for f in feats])
     leaves = [t(f).requires_grad_() for f in feats]
     with pytest.warns(UserWarning, match="window"):
-        out = troi.roi_align_multilevel(leaves, t(POOL_BOXES), t(batch_idx, torch.int32), 7, STRIDES, 2, window,
+        out = troi.roi_align_multilevel(leaves, t(boxes), t(batch_idx, torch.int32), 7, STRIDES, 2, window,
                                         impl="windowed")
     out.backward(t(g))
+    plain = troi.roi_align_multilevel_backward_plain(t(g), [f.shape for f in feats], torch.float32, t(boxes),
+                                                     t(batch_idx, torch.int32), 7, STRIDES, 2, window,
+                                                     impl="windowed")
     scale = max(float(np.abs(np.asarray(w)).max()) for w in want)
-    for lvl, (got, w) in enumerate(zip(leaves, want)):
-        np.testing.assert_allclose(n(got.grad), np.asarray(w), atol=1e-5 * scale, err_msg=f"P{lvl + 2}")
+    for lvl, (leaf, yardstick, w) in enumerate(zip(leaves, plain, want)):
+        got = np.zeros_like(feats[lvl]) if leaf.grad is None else n(leaf.grad)  # autograd leaves an unused leaf None
+        if lvl == empty:
+            assert not np.asarray(w).any() and not got.any() and not n(yardstick).any(), f"P{lvl + 2}"
+            continue
+        np.testing.assert_allclose(got, np.asarray(w), atol=1e-5 * scale, err_msg=f"P{lvl + 2}")
+        np.testing.assert_allclose(n(yardstick), np.asarray(w), atol=1e-5 * scale, err_msg=f"P{lvl + 2}, plain")
         assert np.abs(np.asarray(w)).max() > 0
 
 
