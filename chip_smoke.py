@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation and detector-training paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training and event-camera paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -122,7 +122,26 @@ toolkit. It
    repeated batch lower loss_total;
    prints the step ms, images/s, peak memory, the box AP, the train
    step's own split by CUDA events and a profiled step;
-14. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+14. runs the event-camera half: first the ``noisy`` emulator at 48x64 on
+   the card against the CPU on the same draws (at most 1e-4 of the event
+   maps' entries flipped), chunks against one run on the card (bit-equal)
+   and SuperSloMo at 96x64 against the CPU (1e-4); then ``tools.v2e`` at
+   1280x720 (33 seeded source frames at 30 fps, SuperSloMo x4 with random
+   weights, the ``clean`` preset, max_iters 8, chunks of 64, duration
+   exposure 0.01 s: events > 0, event frames finite in [0, 1], events
+   sorted on t; SloMo's weight load and first call in the command, then
+   SloMo again on the command's weights and source frames, held to the
+   command's frames within 1e-3 grey and timed warm by CUDA events with
+   its conv FLOPs; emulator, dense-to-sparse and render times, a
+   profiled frame step's launches, the peak memory); then a seeded
+   346x260 stream under ``noisy`` written by ``tools.v2e`` as AEDAT2 and
+   CSV recordings, through ``tools.evaluate_event_pipeline``
+   (``convert_aedats``, 24 undistorted frames a scene, then ``evaluate``
+   at its defaults from ``.npz`` weights made from seeds), its artifacts
+   checked, the AEDAT2 scene equal to the CSV stream after microsecond
+   truncation, K1, K2 and K4 launched (counters reset just before, read
+   just after) and each held to its plain version on the phase's inputs;
+15. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -1256,14 +1275,15 @@ class TimedFrames:
 
 
 def conv_flops(torch, m, modules, run) -> float:
-    """Multiply-adds x 2 of every port Conv inside ``modules`` during ``run()``."""
+    """Multiply-adds x 2 of every port Conv or ``nn.Conv2d`` inside ``modules`` during ``run()``."""
     total = [0.0]
 
     def hook(mod, inputs, out):
         k = mod.weight.shape[-1]
         total[0] += 2.0 * out.numel() * mod.weight.shape[1] * k * k
 
-    handles = [c.register_forward_hook(hook) for mod in modules for c in mod.modules() if isinstance(c, m.layers.Conv)]
+    handles = [c.register_forward_hook(hook) for mod in modules for c in mod.modules()
+               if isinstance(c, (m.layers.Conv, torch.nn.Conv2d))]
     try:
         with torch.inference_mode():
             run()
@@ -2465,6 +2485,396 @@ def det_phase(torch, m, dev, card):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# the event-camera half: v2e at 1280x720 and the event evaluation at 346x260
+# ---------------------------------------------------------------------------
+
+EV_TINY_HW, EV_TINY_FRAMES = (48, 64), 8
+EV_FLIP_SHARE = 1e-4  # card vs CPU: flipped (iteration, pixel) entries of the event maps
+EV_HW, EV_SOURCE_FRAMES, EV_SOURCE_FPS, EV_UPSAMPLE, EV_EXPOSURE = (720, 1280), 33, 30.0, 4, 0.01
+DAVIS_HW, DAVIS_FPS, DAVIS_FRAMES = (260, 346), 1000.0, 241  # 0.24 s: 24 windows of 10 ms
+EV_EVAL_FRAMES = 24
+
+
+def textured_frames(h: int, w: int, n: int, seed: int, travel: float):
+    """(n, h, w) float32 frames in [0, 255]: a disc of smooth seeded texture
+    (sums of sinusoids) moving ``travel`` of the width left to right, its
+    texture moving with it, over a faint textured background."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+
+    def waves(amp, period):
+        return [(amp / 4, rng.uniform(0, np.pi), rng.uniform(0, 2 * np.pi), period * rng.uniform(0.7, 1.3))
+                for _ in range(4)]
+
+    def texture(params, dx):
+        return sum(np.float32(a) * np.sin(((xs - dx) * np.cos(ang) + ys * np.sin(ang)) * np.float32(2 * np.pi / p) + ph)
+                   for a, ang, ph, p in params)
+
+    background = 40.0 + texture(waves(10.0, 0.08 * w), 0.0)
+    obj = waves(80.0, 0.1 * w)
+    radius, frames = 0.3 * h, []
+    for i in range(n):
+        shift = travel * w * i / max(n - 1, 1)
+        cx, cy = 0.5 * w - travel * w / 2 + shift, 0.5 * h
+        inside = (xs - cx) ** 2 + (ys - cy) ** 2 <= radius ** 2
+        frames.append(np.where(inside, 150.0 + texture(obj, shift), background))
+    return np.clip(np.stack(frames), 0, 255).astype(np.float32)
+
+
+class TexturedObject1280:
+    """v2e's synthetic input of the 1280x720 leg: 33 source frames at 30 fps."""
+
+    frame_rate = EV_SOURCE_FPS
+
+    def __init__(self, width: int, height: int):
+        self.width, self.height = width, height
+
+    def frames_array(self):
+        import numpy as np
+
+        frames = textured_frames(self.height, self.width, EV_SOURCE_FRAMES, 41, 0.5)
+        return frames, (np.arange(len(frames)) / self.frame_rate).astype(np.float32)
+
+
+class TexturedObjectDavis(TexturedObject1280):
+    """v2e's synthetic input of the DAVIS346 leg: 241 frames at 1000 fps."""
+
+    frame_rate = DAVIS_FPS
+
+    def frames_array(self):
+        import numpy as np
+
+        frames = textured_frames(self.height, self.width, DAVIS_FRAMES, 42, 0.3)
+        return frames, (np.arange(len(frames)) / self.frame_rate).astype(np.float32)
+
+
+def check_events_tiny_against_cpu(torch, m) -> None:
+    """The ``noisy`` emulator (cutoff, leak, shot noise, refractory period)
+    at 48x64 over 8 frames on the card against the CPU on the same draws
+    (made on the CPU): at most EV_FLIP_SHARE of the (iteration, pixel)
+    entries flipped, the event counts within that share of the entries;
+    chunks of 3 against one run on the card with the card's own draws:
+    bit-equal; SuperSloMo at 64x96 (2 pairs, 3 times) card against CPU
+    within 1e-4."""
+    E, S = m.emulator, m.slomo
+    cfg = E.EmulatorConfig.preset("noisy")
+    h, w = EV_TINY_HW
+    frames = torch.from_numpy(textured_frames(h, w, EV_TINY_FRAMES + 1, 7, 0.5))
+    times = torch.arange(EV_TINY_FRAMES + 1, dtype=torch.float32) * 0.002
+    gen = torch.Generator().manual_seed(8)
+    init = {k: torch.randn(h, w, generator=gen) for k in ("pos", "neg", "noise")}
+    draws = {"leak": torch.randn(EV_TINY_FRAMES, h, w, generator=gen),
+             "shot": torch.rand(EV_TINY_FRAMES, cfg.max_iters, h, w, generator=gen)}
+    outs = {}
+    for d in ("cpu", "cuda"):
+        st = E.init_state(frames[0].to(d), cfg, draws={k: v.to(d) for k, v in init.items()})
+        _, outs[d] = E.emulate_sequence(st, frames[1:].to(d), times[1:].to(d), cfg,
+                                        {k: v.to(d) for k, v in draws.items()})
+    entries = outs["cpu"]["pos"].numel() * 2
+    flips = sum(int((outs["cuda"][k].cpu() != outs["cpu"][k]).sum()) for k in ("pos", "neg"))
+    events = {d: int(o["num_events"].sum()) for d, o in outs.items()}
+    ts_equal = bool(torch.equal(outs["cuda"]["ts"].cpu(), outs["cpu"]["ts"]))
+    st1 = E.init_state(frames[0].cuda(), cfg, seed=3)
+    _, one = E.emulate_sequence(st1, frames[1:].cuda(), times[1:].cuda(), cfg)
+    st2, parts = E.init_state(frames[0].cuda(), cfg, seed=3), []
+    for i in range(1, EV_TINY_FRAMES + 1, 3):
+        st2, out = E.emulate_sequence(st2, frames[i:i + 3].cuda(), times[i:i + 3].cuda(), cfg)
+        parts.append(out)
+    chunked_equal = all(torch.equal(torch.cat([p[k] for p in parts]), one[k]) for k in one)
+    gen = torch.Generator().manual_seed(9)
+    model = S.SuperSloMo(1, device="cpu", generator=gen)
+    pair = torch.from_numpy(textured_frames(64, 96, 3, 10, 0.2) / 255.0)[..., None]
+    sl = {}
+    for d in ("cpu", "cuda"):
+        model = model.to(d)
+        with torch.inference_mode():
+            sl[d] = model.interpolate(pair[:2].to(d), pair[1:].to(d), S.midpoint_times(3, d))
+    sl_err = (sl["cuda"].cpu() - sl["cpu"]).abs().max().item()
+    log(f"tiny events, card vs CPU (noisy at {w}x{h}, {EV_TINY_FRAMES} frames, max_iters {cfg.max_iters}, CPU draws "
+        f"on both): {flips} of {entries} (iteration, pixel) entries flipped = {flips / entries:.3g} (limit "
+        f"{EV_FLIP_SHARE}); events card {events['cuda']}, CPU {events['cpu']}; timestamps equal {ts_equal}; chunks "
+        f"of 3 vs one run on the card (its own draws) bit-equal {chunked_equal}, {int(one['num_events'].sum())} "
+        f"events; SuperSloMo at 96x64 (2 pairs x 3 times) max |card - CPU| {sl_err:.3g} (limit 1e-4)")
+    if not (flips <= EV_FLIP_SHARE * entries and abs(events["cuda"] - events["cpu"]) <= EV_FLIP_SHARE * entries
+            and events["cpu"] > 0 and chunked_equal and sl_err <= 1e-4):
+        raise RuntimeError("the tiny event check failed (see the line above)")
+
+
+def profile_launches(torch, fn) -> tuple[int, float]:
+    """Kernel launches and device-busy us of one call of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in kernels), sum(e.self_device_time_total for e in kernels)
+
+
+def slomo_warm(torch, m, dev, argv, upsampled) -> dict:
+    """SuperSloMo of leg A once more, after the command's run (which made
+    cuDNN's first calls at these shapes): the command's weights
+    (``v2e.load_slomo``) on its source frames. The first call is held to the
+    command's frames (``upsampled``) within 1e-3 grey; a second is timed
+    with CUDA events. Also the conv FLOPs of one pair (multiply-adds x 2)."""
+    import numpy as np
+
+    args = m.v2e.build_parser().parse_args(argv)
+    model = m.v2e.load_slomo(args, dev)
+    src = torch.from_numpy(np.asarray(TexturedObject1280(EV_HW[1], EV_HW[0]).frames_array()[0], np.float32)).to(dev)
+    out, _ = m.v2e.upsample_frames(src, model, EV_UPSAMPLE, False, args.batch_size)
+    err = float((out - upsampled).abs().max())
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    m.v2e.upsample_frames(src, model, EV_UPSAMPLE, False, args.batch_size)
+    end.record()
+    sync()
+    flops_pair = conv_flops(torch, m, [model], lambda: m.v2e.upsample_frames(src[:2], model, EV_UPSAMPLE, False, 1))
+    return {"ms": start.elapsed_time(end), "err": err, "flops_pair": flops_pair}
+
+
+def v2e_phase(torch, m, dev, card) -> None:
+    """Leg A: ``tools.v2e`` at 1280x720 on 33 seeded source frames at 30 fps
+    (``TexturedObject1280``), SuperSloMo x4 with random weights (4 pairs a
+    call) -> 128 frames, the ``clean`` preset, max_iters 8, chunks of 64,
+    duration exposure 0.01 s. Gates: events > 0, every event frame finite and
+    in [0, 1], the events sorted on t."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = ["--synthetic_input", f"{__name__}:TexturedObject1280", "--output_width", str(EV_HW[1]),
+                "--output_height", str(EV_HW[0]), "--slomo_upsample", str(EV_UPSAMPLE), "--batch_size", "4",
+                "--dvs_params", "clean", "--dvs_max_iters", "8", "--dvs_frame_chunk", "64", "--dvs_exposure",
+                "duration", str(EV_EXPOSURE), "--dvs_numpy", "events.npy", "--skip_video_output", "--no_preview",
+                "-o", os.path.join(out_dir, "v2e")]
+        t0 = time.perf_counter()
+        res = m.v2e.main(argv)
+        wall = time.perf_counter() - t0
+        n_bmp = len(os.listdir(os.path.join(res.output_folder, "event-frames")))
+        saved = np.load(os.path.join(res.output_folder, "events.npy"))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sec, n_frames, pairs = res.seconds, res.num_frames, res.num_pairs
+    stream_s = n_frames / (EV_SOURCE_FPS * res.upsample)
+    imgs = res.event_frames
+    ev = res.events
+    sorted_t = bool(np.all(np.diff(ev[:, 0]) >= 0)) if len(ev) else False
+    in_range = bool(torch.isfinite(imgs).all() and imgs.min() >= 0 and imgs.max() <= 1)
+    cfg = res.config
+    st = res.state
+    last = res.frames[-1]
+    t_next = torch.tensor(float(res.timestamps[-1]) + 1.0 / (EV_SOURCE_FPS * res.upsample), device=dev)
+    launches, busy_us = profile_launches(torch, lambda: m.emulator.emulate_frame(st, last, t_next, cfg))
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(10):
+        m.emulator.emulate_frame(st, last, t_next, cfg)
+    sync()
+    frame_ms = (time.perf_counter() - t1) * 100
+    log(f"v2e 1280x720 on {card}: {EV_SOURCE_FRAMES} source frames at {EV_SOURCE_FPS:g} fps -> SuperSloMo x"
+        f"{res.upsample} (random weights, 4 pairs a call, frames padded to 1280x736) -> {n_frames} frames; the "
+        f"clean preset, max_iters {cfg.max_iters}, chunks of 64, duration exposure {EV_EXPOSURE} s")
+    slomo = slomo_warm(torch, m, dev, argv, res.frames)
+    log(f"v2e SloMo in the command: weights {sec['slomo_load']:.4f} s (two UNets drawn on the CPU, copied to the "
+        f"card); the first call over {pairs} pairs {sec['slomo']:.4f} s = {sec['slomo'] * 1e3 / pairs:.4f} ms a pair "
+        f"(cuDNN's first calls at these shapes included)")
+    log(f"v2e SloMo warm (the same weights and source frames again, CUDA events): {slomo['ms']:.4f} ms = "
+        f"{slomo['ms'] / pairs:.4f} ms a pair, {n_frames / (slomo['ms'] * 1e-3):.2f} frames/s; "
+        f"{slomo['flops_pair'] / 1e12:.4f} TFLOP a pair (a hook count of its convs) = "
+        f"{slomo['flops_pair'] * pairs / (slomo['ms'] * 1e-3) / 1e12:.2f} TFLOP/s; max |warm - command| "
+        f"{slomo['err']:.3g} grey (limit 1e-3)")
+    log(f"v2e emulator: {sec['emulate']:.4f} s for {n_frames - 1} frame steps = "
+        f"{sec['emulate'] * 1e3 / (n_frames - 1):.4f} ms a frame, {(n_frames - 1) / sec['emulate']:.2f} frames/s, "
+        f"{stream_s / sec['emulate']:.4f} x real time ({stream_s:.4f} s of stream); one more frame step alone "
+        f"{frame_ms:.4f} ms")
+    log(f"v2e launches a frame (one profiled clean frame step at 1280x720): {launches} kernel launches, device busy "
+        f"{busy_us:.0f} us")
+    log(f"v2e events: {res.num_events} ({len(ev)} in the list, .npy equal {bool(np.array_equal(saved, ev))}), "
+        f"overflow {res.overflow}; dense-to-sparse {sec['dense_to_events'] * 1e3:.4f} ms, render "
+        f"{sec['render'] * 1e3:.4f} ms, event writes {sec['write_events'] * 1e3:.4f} ms, frame writes "
+        f"{sec['write_frames'] * 1e3:.4f} ms; {imgs.shape[0]} event frames ({n_bmp} .bmp), finite and in [0, 1] "
+        f"{in_range}; events sorted on t {sorted_t}; peak {peak_gb:.4f} GB (torch.cuda.max_memory_allocated; "
+        f"{held_gb:.4f} held before); the command {wall:.4f} s")
+    if not (res.num_events > 0 and len(ev) == res.num_events and in_range and sorted_t and n_bmp == imgs.shape[0]
+            and imgs.shape[0] > 0 and slomo["err"] <= 1e-3):
+        raise RuntimeError("v2e 1280x720 failed its gates (see the lines above)")
+    noisy = m.emulator.EmulatorConfig.preset("noisy")
+    f = res.frames[-1, :DAVIS_HW[0], :DAVIS_HW[1]].contiguous()
+    st = m.emulator.init_state(res.frames[-2, :DAVIS_HW[0], :DAVIS_HW[1]], noisy, seed=1)
+    launches, busy_us = profile_launches(torch, lambda: m.emulator.emulate_frame(st, f, torch.tensor(0.001, device=dev),
+                                                                                noisy))
+    log(f"v2e launches a frame (one profiled noisy frame step at 346x260: refractory period, {noisy.max_iters} "
+        f"iterations in a loop): {launches} kernel launches, device busy {busy_us:.0f} us")
+    del res
+
+
+def davis_recordings(m, out_dir: str):
+    """A seeded 346x260 stream under ``noisy`` through ``tools.v2e``, written
+    as AEDAT2 and CSV recordings, and a seeded calibration JSON. Returns
+    the recordings' folder, the calibration's path and the events."""
+    import os
+
+    import numpy as np
+
+    rec_dir = os.path.join(out_dir, "recordings")
+    res = m.v2e.main([
+        "--synthetic_input", f"{__name__}:TexturedObjectDavis", "--dvs346", "--dvs_params", "noisy",
+        "--no_frames", "--dvs_aedat2", "rec_aedat2.aedat", "--dvs_text", "rec_csv.csv", "--skip_video_output",
+        "--no_preview", "--seed", "5", "-o", rec_dir, "--overwrite"])
+    rng = np.random.default_rng(6)
+    fx = 320.0 * rng.uniform(0.95, 1.05)
+    calib = {"intrinsics": {"camera_matrix": [[fx, 0.0, 173.0 + rng.uniform(-3, 3)],
+                                              [0.0, fx * rng.uniform(0.99, 1.01), 130.0 + rng.uniform(-3, 3)],
+                                              [0.0, 0.0, 1.0]],
+                            "distortion_coefficients": [-0.25, 0.09, 5e-4, -3e-4, -0.01]}}
+    calib_path = os.path.join(out_dir, "calibration.json")
+    with open(calib_path, "w") as f:
+        json.dump(calib, f)
+    log(f"event evaluation: {DAVIS_FRAMES} source frames of {DAVIS_HW[1]}x{DAVIS_HW[0]} at {DAVIS_FPS:g} fps under "
+        f"noisy -> {res.num_events} events (overflow {res.overflow}), emulator {res.seconds['emulate']:.4f} s, "
+        f"written as AEDAT2 and CSV in {res.seconds['write_events']:.4f} s")
+    return rec_dir, calib_path, res.events
+
+
+def recordings_agree(torch, m, dev, scenes, rec_dir, calib_path, events):
+    """The two recordings of one v2e stream against the stream itself: the
+    AEDAT2 scene's frames equal the stream's with timestamps truncated to
+    whole microseconds, as the AEDAT2 writer truncates them (coordinates
+    flipped and back, polarity); the CSV file's events equal the stream's
+    within 5e-10 s; and the two scenes' frames are equal in every window
+    that no event enters or leaves under the truncation. Returns (the
+    first two hold, events whose window moves, (equal frames, frames no
+    event moved into or out of, all equal frames))."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    cam = m.camera.CameraModel.from_calibration_json(calib_path)
+
+    def frames(ev):
+        return [cv2.undistort((img * 255).to(torch.uint8).cpu().numpy(), cam.K, cam.dist)
+                for img, _ in m.ev_io.accumulate_exposure_frames(ev, DAVIS_HW[1], DAVIS_HW[0], 0.01, device=dev)]
+
+    read = {scene: [cv2.imread(path, cv2.IMREAD_GRAYSCALE) for _, path in files] for scene, files in scenes.items()}
+    trunc = events.copy()
+    trunc[:, 0] = (1e6 * events[:, 0]).astype(np.int32) / 1e6
+    aedat = read["rec_aedat2"]
+    redo = frames(trunc)
+    csv = m.ev_io.read_events_csv(os.path.join(rec_dir, "rec_csv.csv"), force_pos_polarity=False)
+    same = (len(redo) == len(aedat) and all(np.array_equal(a, b) for a, b in zip(redo, aedat))
+            and csv.shape == events.shape and np.array_equal(csv[:, 1:], events[:, 1:])
+            and float(np.abs(csv[:, 0] - events[:, 0]).max()) <= 5e-10)
+    bins = [np.floor((ev[:, 0] - ev[0, 0]) / 0.01).astype(np.int64) for ev in (csv, trunc)]
+    moved = bins[0] != bins[1]
+    touched = set(bins[0][moved].tolist()) | set(bins[1][moved].tolist())
+    pairs = list(zip(read["rec_aedat2"], read["rec_csv"]))
+    untouched = [i for i in range(len(pairs)) if i not in touched]
+    equal = (sum(np.array_equal(*pairs[i]) for i in untouched), len(untouched),
+             sum(np.array_equal(a, b) for a, b in pairs))
+    return same, int(moved.sum()), equal
+
+
+def event_eval_phase(torch, m, dev, card):
+    """Leg B: ``tools.evaluate_event_pipeline`` on the two recordings:
+    ``convert_aedats`` (undistorted frames, 24 a scene) then ``evaluate``
+    at its defaults (X101-32x8d bf16 at 768, batch 8, HRNet-W32 at 512,
+    RANSAC 256) from ``.npz`` weights made from seeds. Checks the artifacts,
+    poses finite, the AEDAT2 scene's frames equal to the CSV stream's after
+    microsecond truncation, and that K1, K2 and K4 launched (counters reset
+    just before, read just after). Returns their rows on this phase's
+    inputs and the launch counts."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        rec_dir, calib_path, events = davis_recordings(m, out_dir)
+        det = m.rcnn.GeneralizedRCNN(m.rcnn.FASTER_RCNN_X101_SPACECRAFT, dtype=torch.bfloat16, device=dev,
+                                     generator=torch.Generator().manual_seed(0))
+        hr = m.models.build_landmark_model("pose_hrnet", NUM_JOINTS, device=dev, dtype=torch.bfloat16,
+                                           generator=torch.Generator().manual_seed(1))
+        paths = {}
+        for name, model in (("det", det), ("hrnet", hr)):
+            paths[name] = os.path.join(out_dir, f"{name}.npz")
+            np.savez(paths[name], **m.convert.flatten_variables(m.convert.module_to_flax(model)))
+        del det, hr
+        lm3d = np.random.default_rng(2).normal(0, 0.8, (NUM_JOINTS, 3))
+        lm_path = os.path.join(out_dir, "landmarks.csv")
+        with open(lm_path, "w") as f:
+            f.write("x,y,z\n" + "".join(f"{x!r},{y!r},{z!r}\n" for x, y, z in lm3d.tolist()))
+        torch.cuda.empty_cache()
+        captures = {key: Capture(*m.kernels[key][:2]) for key in ("K1", "K2", "K4")}
+        timers = {"convert": Timed(m.convert_aedats, "main"), "evaluate": Timed(m.evaluate, "main"),
+                  "scene": Timed(m.evaluate, "run_scene")}
+        out = os.path.join(out_dir, "eval")
+        with contextlib.ExitStack() as stack:
+            for c in list(captures.values()) + list(timers.values()):
+                stack.enter_context(c)
+            reset_counts(m)
+            t0 = time.perf_counter()
+            scenes = m.evaluate_event_pipeline.main([
+                "--recordings-dir", rec_dir, "--calibration-file", calib_path, "--landmarks-file", lm_path,
+                "--detector-checkpoint", paths["det"], "--landmark-checkpoint", paths["hrnet"], "--output-dir", out])
+            wall = time.perf_counter() - t0
+            launches = read_counts(m)
+        counts = {s: len(v) for s, v in scenes.items()}
+        log(f"event evaluation (tools.evaluate_event_pipeline: convert_aedats, then evaluate with X101-32x8d bf16 at "
+            f"{EVAL_SIZE}, batch {EVAL_BATCH}, HRNet-W32 at 512, RANSAC 256) on {card}: scenes {json.dumps(counts)}; "
+            f"{wall:.4f} s in all: convert {timers['convert'].ms[0] / 1e3:.4f} s, evaluate "
+            f"{timers['evaluate'].ms[0] / 1e3:.4f} s (model loads included), run_scene per scene "
+            f"{[round(v / 1e3, 4) for v in timers['scene'].ms]} s = "
+            f"{[round(n / (v / 1e3), 2) for n, v in zip(counts.values(), timers['scene'].ms)]} frames/s (first scene "
+            f"with the warm-up batch; frame reads and artifact writes included); launches {json.dumps(launches)}")
+        if sorted(counts) != ["rec_aedat2", "rec_csv"] or set(counts.values()) != {EV_EVAL_FRAMES}:
+            raise RuntimeError(f"event evaluation: scenes {counts}, not two of {EV_EVAL_FRAMES} frames")
+        for scene in counts:
+            check_artifacts(torch, os.path.join(out, "results", scene), EV_EVAL_FRAMES)
+        same, moved, equal = recordings_agree(torch, m, dev, scenes, rec_dir, calib_path, events)
+        log(f"event evaluation: the AEDAT2 scene equals the v2e stream truncated to whole microseconds (as the "
+            f"AEDAT2 writer truncates) and the CSV scene's events equal the stream within 5e-10 s: {same}; "
+            f"{moved} events change window under the truncation; the two scenes' frames equal wherever no event "
+            f"moved: {equal[0]} of {equal[1]} such frames ({equal[2]} of {EV_EVAL_FRAMES} frames equal in all)")
+        if not same or equal[0] != equal[1]:
+            raise RuntimeError("the AEDAT2 and CSV recordings disagree beyond microsecond truncation")
+        for key in ("K1", "K2", "K4"):
+            if launches[key] == 0:
+                raise RuntimeError(f"kernel {key} was not launched by the event evaluation")
+        boxes = captures["K2"].calls[-1][0][1]
+        label = f"event evaluation: {DAVIS_HW[1]}x{DAVIS_HW[0]} -> {EVAL_SIZE}"
+        rows = [crop_row(torch, m, dev, captures["K1"].calls[-1], f"crop_bilinear ({label}, batch {EVAL_BATCH})")]
+        rows.append(pooler_row(torch, m, captures["K2"].calls[-1],
+                               f"roi_align_multilevel ({label}, batch {EVAL_BATCH}, {boxes.shape[0]} ROIs)"))
+        rows += nms_rows(torch, m, dev, captures["K4"].calls[-2:], f"{label}: X101 ")
+    log(f"event evaluation phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
+
+def events_phase(torch, m, dev, card):
+    """The event-camera half: the tiny card-vs-CPU check, leg A (v2e at
+    1280x720) and leg B (the event evaluation at 346x260). Returns leg B's
+    kernel rows and launch counts."""
+    t0 = time.perf_counter()
+    check_events_tiny_against_cpu(torch, m)
+    v2e_phase(torch, m, dev, card)
+    torch.cuda.empty_cache()
+    rows, launches = event_eval_phase(torch, m, dev, card)
+    log(f"events phase: {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -2547,6 +2957,10 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.ops import (
         geometry, heatmap, int8_blocks, int8_conv, nms, pnp, roi_align, warp,
     )
+    from spacecraft_pose_estimation_tpu_torch import convert
+    from spacecraft_pose_estimation_tpu_torch.events import emulator, slomo
+    from spacecraft_pose_estimation_tpu_torch.events import io as ev_io
+    from spacecraft_pose_estimation_tpu_torch.tools import convert_aedats, evaluate_event_pipeline, v2e
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
@@ -2557,7 +2971,8 @@ def load_port():
                         config=config, train_landmarks=train_landmarks, optim=optim, train_state=train_state,
                         train_landmarks_da=train_landmarks_da, adversarial=adversarial, discriminator=discriminator,
                         detection_dataset=detection_dataset, detection_state=detection_state,
-                        train_detector=train_detector)
+                        train_detector=train_detector, convert=convert, emulator=emulator, slomo=slomo, ev_io=ev_io,
+                        v2e=v2e, convert_aedats=convert_aedats, evaluate_event_pipeline=evaluate_event_pipeline)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -2591,7 +3006,8 @@ def main() -> int:
     import importlib.util
 
     log("optional packages the port's library path does without: " + json.dumps(
-        {name: importlib.util.find_spec(name) is not None for name in ("cv2", "PIL", "pandas", "yaml")}))
+        {name: importlib.util.find_spec(name) is not None
+         for name in ("cv2", "PIL", "pandas", "yaml", "h5py", "zstandard", "flatbuffers")}))
 
     build_s = _cuda.build_all()
     log("build (s): " + json.dumps({k: round(v, 2) for k, v in build_s.items()}))
@@ -2666,6 +3082,11 @@ def main() -> int:
 
     # tools/train_detector.py's config_1 at full width: K2, its backward and K4 at N = 2000
     report += kernel_report(*det_phase(torch, m, dev, card))
+    torch.cuda.empty_cache()
+
+    # the event-camera half: v2e at 1280x720, and the event evaluation of DAVIS346
+    # recordings through K1, K2 and K4
+    report += kernel_report(*events_phase(torch, m, dev, card))
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

@@ -5,5 +5,10 @@ evaluation's three stages, ``export_boxes`` (detector -> real_test.json),
 ``test_landmarks`` (landmark model -> pred.mat) and ``export_poses`` (PnP ->
 opencv_poses.json); ``train_landmarks``, the landmark trainer;
 ``train_landmarks_da``, the adversarial domain-adaptation trainer of the
-CMS models; and ``train_detector``, the Faster R-CNN trainer.
+CMS models; ``train_detector``, the Faster R-CNN trainer; and the event
+camera's commands: ``v2e`` (frames -> SuperSloMo -> DVS events and event
+frames), ``e2v`` (events CSV -> frames), ``convert_aedats`` (recordings ->
+undistorted frames per scene), ``evaluate_event_pipeline`` (those frames
+through the evaluation entry) and ``aedat_to_csv`` (AEDAT-4 -> CSV, a
+format conversion on the host, the one command without ``--device``).
 """

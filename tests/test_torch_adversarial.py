@@ -37,7 +37,6 @@ the metrics within 3e-6). Bounds at each update:
 import dataclasses
 
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -54,7 +53,7 @@ from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNET_TINY, HRNet
 from spacecraft_pose_estimation_tpu_torch.train import adversarial as tadv, optim as toptim
 from spacecraft_pose_estimation_tpu_torch.train.checkpoint import CheckpointManager
 
-from torch_port_util import few_threads, random_variables, t, to_jax
+from torch_port_util import few_threads, load_jax_state, np_tree, random_variables, t, to_jax
 
 pytestmark = pytest.mark.usefixtures("few_threads")
 J, LR, MILESTONES, BETA = 11, 1e-3, [2], 0.5
@@ -63,10 +62,6 @@ SIZE, NS, NT = 64, 2, 2
 
 def leaves(tree):
     return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
-
-
-def np_tree(tree):
-    return jax.tree_util.tree_map(np.array, tree)
 
 
 @pytest.fixture(scope="module")
@@ -98,28 +93,6 @@ def port_state(gvars, dvars):
     schedule = toptim.multistep_schedule(LR, MILESTONES)
     return tadv.DAState(gen, disc, toptim.build_optimizer("adam", gen.parameters(), schedule, weight_decay=1e-4),
                         toptim.build_optimizer("adam", disc.parameters(), schedule))
-
-
-def load_adam(opt, model, opt_state):
-    """optax's Adam moments and count -> the ``torch.optim.Adam`` state of ``model``'s parameters."""
-    adam = next(s for s in jax.tree_util.tree_leaves(opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
-                if isinstance(s, optax.ScaleByAdamState))
-    opt.inner.state.clear()
-    if int(adam.count) == 0:
-        return
-    mu, nu = (flax_to_state_dict({"params": np_tree(m)}) for m in (adam.mu, adam.nu))
-    for name, p in model.named_parameters():
-        opt.inner.state[p] = {"step": torch.tensor(float(adam.count)), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
-
-
-def load_jax_state(ts, js):
-    ts.generator.load_state_dict(flax_to_state_dict({"params": np_tree(js.gen_params),
-                                                     "batch_stats": np_tree(js.gen_stats)}))
-    ts.discriminator.load_state_dict(flax_to_state_dict({"params": np_tree(js.disc_params),
-                                                         "batch_stats": np_tree(js.disc_stats)}))
-    load_adam(ts.gen_optimizer, ts.generator, js.gen_opt)
-    load_adam(ts.disc_optimizer, ts.discriminator, js.disc_opt)
-    ts.step = int(js.step)
 
 
 def jax_state(jm, jd, gvars, dvars):

@@ -164,6 +164,32 @@ def test_detector_trainer_needs_cuda_or_an_explicit_device(tmp_path):
         train_detector.train(args, None)
 
 
+def test_event_commands_need_cuda_or_an_explicit_device(tmp_path):
+    """The event half's commands and models run on CUDA unless given the
+    CPU, and raise where the card is missing (``aedat_to_csv``, a format
+    conversion with no tensor work, takes no device)."""
+    if torch.cuda.is_available():
+        return
+    from spacecraft_pose_estimation_tpu_torch.events import slomo
+    from spacecraft_pose_estimation_tpu_torch.tools import convert_aedats, e2v, evaluate_event_pipeline, v2e
+
+    for tool, args in ((v2e, ["--synthetic_input", "spacecraft_pose_estimation_tpu_torch.events.synthetic_input",
+                              "-o", str(tmp_path / "v2e")]),
+                       (e2v, ["-i", "e.csv", "-o", str(tmp_path), "--width", "8", "--height", "8"]),
+                       (convert_aedats, ["--recordings-dir", ".", "--output-dir", str(tmp_path),
+                                         "--calibration-file", "c.json"]),
+                       (evaluate_event_pipeline, ["--recordings-dir", ".", "--calibration-file", "c.json",
+                                                  "--landmarks-file", "l.csv", "--detector-checkpoint", "d.npz",
+                                                  "--landmark-checkpoint", "h.npz", "--output-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            tool.main(args)
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            tool.main(args + ["--device", "cuda"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        slomo.SuperSloMo()
+    assert next(slomo.SuperSloMo(device="cpu").parameters()).device.type == "cpu"
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     """Without CUDA, or without the repo around it, chip_smoke.py exits

@@ -170,3 +170,37 @@ def jax_detection_draws(jmodel, variables, key, b: int, num_anchors: int, num_ca
         out["roi_neg"].append(jax.random.uniform(kn, (num_candidates,)))
         out["roi_gather"].append(jax.random.uniform(k2, (num_candidates,)))
     return {k: np.stack([np.asarray(x) for x in v]) for k, v in out.items()}
+
+
+def np_tree(tree):
+    return jax.tree_util.tree_map(np.array, tree)
+
+
+def load_adam(opt, model, opt_state):
+    """optax's Adam moments and count -> the ``torch.optim.Adam`` state of ``model``'s parameters."""
+    import optax
+
+    from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict
+
+    adam = next(s for s in jax.tree_util.tree_leaves(opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+                if isinstance(s, optax.ScaleByAdamState))
+    opt.inner.state.clear()
+    if int(adam.count) == 0:
+        return
+    mu, nu = (flax_to_state_dict({"params": np_tree(m)}) for m in (adam.mu, adam.nu))
+    for name, p in model.named_parameters():
+        opt.inner.state[p] = {"step": torch.tensor(float(adam.count)), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+
+
+def load_jax_state(ts, js):
+    """A JAX ``DAState`` (both models' parameters and BN statistics, both
+    Adam states, the step) -> the port's ``DAState`` ``ts``."""
+    from spacecraft_pose_estimation_tpu_torch.convert import flax_to_state_dict
+
+    ts.generator.load_state_dict(flax_to_state_dict({"params": np_tree(js.gen_params),
+                                                     "batch_stats": np_tree(js.gen_stats)}))
+    ts.discriminator.load_state_dict(flax_to_state_dict({"params": np_tree(js.disc_params),
+                                                         "batch_stats": np_tree(js.disc_stats)}))
+    load_adam(ts.gen_optimizer, ts.generator, js.gen_opt)
+    load_adam(ts.disc_optimizer, ts.discriminator, js.disc_opt)
+    ts.step = int(js.step)
