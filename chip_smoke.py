@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training and event-camera paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training, event-camera and DVS-training paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -141,7 +141,23 @@ toolkit. It
    checked, the AEDAT2 scene equal to the CSV stream after microsecond
    truncation, K1, K2 and K4 launched (counters reset just before, read
    just after) and each held to its plain version on the phase's inputs;
-15. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+15. trains on event frames: renders a synthetic scene
+   (``tools.make_synthetic_scene``, 48 frames of 1280x720), writes its GT
+   from a probe run of ``tools.v2e`` (``clean``, duration exposure 0.02 s),
+   then runs ``tools.train_pipeline_dvs`` in process at that exposure:
+   v2e, the split, the COCO conversion, the no-preset detector
+   (X101-32x8d FPN at 768, batch 8, K2 in the Pallas read window, K2b,
+   K4 at N = 2000) for 4 steps and the ``events`` preset (HRNet-W32) for
+   one epoch with its validation (K1); the launch counters of K1, K2, K2b
+   and K4 reset just before and read just after, each kernel held to its
+   plain version on the pipeline's inputs; checks both trainers' losses
+   finite and their ``.npz`` written, and every COCO annotation's box and
+   12 keypoints; holds ``EVENT_STACK`` and ``SPEEDPLUS_STACK`` on two of
+   its frames letterboxed to 768^2, the card against the CPU on the card's
+   draws stage by stage (the event stages exact, the others within 1e-3
+   grey, threshold flips counted against 1e-3 of the pixels), times both
+   stacks, and runs 2 detector steps with ``--photometric-augs event``;
+16. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -177,8 +193,12 @@ TENSOR_CORE_SOURCES = ("int8_conv_requant.cu", "basic_block_chain.cu",  # K5a, K
                        "bottleneck_chain.cu", "up_exchange.cu")  # K6, K7
 
 
+_LAST_LOGGED = [""]  # shown on standard error if the script fails
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    _LAST_LOGGED[0] = msg
 
 
 def card_line() -> str:
@@ -189,10 +209,37 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+HEALTH_FIELDS = "driver_version,ecc.errors.uncorrected.volatile.total,ecc.errors.corrected.volatile.total"
+
+
+def card_health() -> str:
+    """The driver's version and the card's ECC error counts since its last
+    reset, to read a fault by; a diagnostic that never raises."""
+    try:
+        out = subprocess.run(["nvidia-smi", f"--query-gpu={HEALTH_FIELDS}", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        return f"{HEALTH_FIELDS}: {(out.stdout or out.stderr).strip()}"
+    except Exception as e:  # it is printed beside the failure, never in its place
+        return f"nvidia-smi {HEALTH_FIELDS}: {e}"
+
+
 def sync() -> None:
     import torch
 
     torch.cuda.synchronize()
+
+
+def kernel_sync(what: str) -> None:
+    """Wait for the kernel just launched and name it if it faulted. A fault
+    on the card is raised by the first later call that waits for the
+    device, often the plain version checked beside the kernel, so the
+    coverage checks wait here, before and after each launch."""
+    import torch
+
+    try:
+        torch.cuda.synchronize()
+    except Exception as e:
+        raise RuntimeError(f"{what} faulted on the card: {e}") from e
 
 
 def time_ms(fn, reps: int) -> float:
@@ -512,7 +559,9 @@ def check_pooler_coverage(torch, m) -> None:
         kw = dict(sampling_ratio=2, window=POOLER_WINDOW, impl=impl)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the window-coverage warning: these boxes exceed it on purpose
+            sync()
             got = m.roi_align.roi_align_multilevel(*args, **kw)
+            kernel_sync(f"K2 on the coverage boxes ({impl}, {dtype}, C {c})")
             want = m.roi_align.roi_align_multilevel_plain(*args, **kw)
         sync()
         err, share, ok = compare(got, want, None)
@@ -524,7 +573,9 @@ def check_pooler_coverage(torch, m) -> None:
         grad_out = torch.randn(r, 7, 7, c, generator=gen).cuda()
         shapes = [tuple(f.shape) for f in feats]
         bargs = (grad_out, shapes, dtype, boxes, batch_idx, 7, POOLER_STRIDES, 2, POOLER_WINDOW, 224.0, 4, impl)
+        sync()
         got = m.roi_align.roi_align_multilevel_backward(*bargs)
+        kernel_sync(f"K2b on the coverage boxes ({impl}, {dtype}, C {c})")
         want = m.roi_align.roi_align_multilevel_backward_plain(*bargs)
         sync()
         scale = max(w.float().abs().max().item() for w in want)
@@ -541,6 +592,7 @@ def check_pooler_coverage(torch, m) -> None:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
                 m.roi_align.roi_align_multilevel(leaves, boxes, batch_idx, 7, POOLER_STRIDES, **kw).backward(grad_out)
+            kernel_sync(f"K2 and K2b through autograd ({impl}, bf16, C 256)")
             auto = max((f.grad.float() - w.float()).abs().max().item() for f, w in zip(leaves, want))
             log(f"K2 backward through autograd ({impl} window, bf16, C 256): max_abs_err {auto:.3g} "
                 f"(limit {limit:.3g})")
@@ -578,8 +630,10 @@ def check_pooler_backward_tiles(torch, m) -> None:
         for case, (bx, bi) in cases.items():
             grad_out = grad_all[no_p4] if case == "no box on P4" else grad_all[:bx.shape[0]].contiguous()
             bargs = (grad_out, shapes, dtype, bx, bi, 7, POOLER_STRIDES, 2, POOLER_WINDOW, 224.0, 4, impl)
+            sync()
             got = m.roi_align.roi_align_multilevel_backward(*bargs)
             again = m.roi_align.roi_align_multilevel_backward(*bargs)
+            kernel_sync(f"K2b on the tiling boxes, {case} ({impl}, {dtype}, C {c})")
             # with no box autograd has no graph to differentiate: the answer is zeros
             want = (m.roi_align.roi_align_multilevel_backward_plain(*bargs) if bx.shape[0] else
                     [torch.zeros(sh, dtype=dtype, device=bx.device) for sh in shapes])
@@ -660,7 +714,10 @@ def check_single_coverage(torch, m) -> None:
                 for c in (256, 16):
                     feat = torch.randn(h, w, c, generator=gen).to(boxes.device, dtype)
                     args = (feat, boxes, 7, scale, 2, POOLER_WINDOW)
-                    got, want = ra.roi_align_single(*args), ra.roi_align_single_plain(*args)
+                    sync()
+                    got = ra.roi_align_single(*args)
+                    kernel_sync(f"K3 on a {h}x{w} map at scale {scale} ({dtype}, C {c})")
+                    want = ra.roi_align_single_plain(*args)
                     sync()
                     err, share, ok = compare(got, want, None)
                     outside = got[-52:-48].abs().max().item()  # the 4 boxes wholly outside the map
@@ -719,7 +776,9 @@ def check_nms_coverage(torch, m) -> None:
     for n in NMS_COVERAGE_N:
         boxes, valid = (t.cuda() for t in nms_edge_problems(torch, n, 4, gen))
         for thresh in (0.0, 0.5, 0.99):
+            sync()
             got = m.nms.nms_mask_sorted(boxes, valid, thresh)
+            kernel_sync(f"K4 at N {n}, IoU {thresh}")
             want = m.nms.nms_mask_sorted_plain(boxes, valid, thresh)
             sync()
             off = int((got != want).sum())
@@ -1394,7 +1453,9 @@ def evaluate_phase(torch, m, dev, r101):
 
 def staged_phase(torch, m, dev, scene) -> None:
     """The staged evaluation's three stage functions in process, on the
-    evaluate phase's frames (on the card: its machine has no cv2) and
+    evaluate phase's frames (kept on the card, so no frame goes through a
+    file; cv2 does import on the card's machine, as the "optional
+    packages" line of every run logs) and
     weights, their artifacts through a temporary directory as the file
     contract has them: ``export_boxes`` (real_test.json), ``test_landmarks``
     (pred.mat; the events preset, flip test off, batch 8) and
@@ -2875,6 +2936,239 @@ def events_phase(torch, m, dev, card):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# training on event frames: the DVS training pipeline and the photometric stacks
+# ---------------------------------------------------------------------------
+
+DVS_FRAMES, DVS_EXPOSURE, DVS_DET_ITERS, DVS_LM_EPOCHS, DVS_AUG_ITERS = 48, 0.02, 4, 1, 2
+DVS_LANDMARKS = 12  # craft_geometry: 8 body corners and 2 on each panel
+STACK_BATCH, STACK_SIZE = 2, 768
+STACK_TOL, STACK_FLIP_BAR = 1e-3, 1e-3  # the tests' bars: grey, and flipped threshold pixels (a share)
+# each threshold stage: its pre-threshold field, the threshold, and how far a flip reaches in the output
+STACK_THRESHOLDS = {"random_stars": ("star_field", lambda d: 160.0, 6),
+                    "random_haze": ("haze_field", lambda d: d["thresh"], None),
+                    "random_streaks": ("streak_field", lambda d: d["thresh"], None)}
+
+
+def check_coco_dicts(m, dicts_dir: str, split_dir: str) -> dict[str, int]:
+    """Each split's COCO json: one image a frame of its split folder, one
+    annotation an image with a finite box of positive size and 12 finite
+    keypoints of visibility 1 or 2. Returns the images a split."""
+    import os
+
+    counts = {}
+    for split in ("train", "validation", "test"):
+        coco = m.coco_io.load_coco(os.path.join(dicts_dir, f"synthetic_{split}.json"))
+        names = sorted(im["file_name"] for im in coco["images"])
+        if names != sorted(os.listdir(os.path.join(split_dir, split))) or not names:
+            raise RuntimeError(f"dvs: synthetic_{split}.json names {len(names)} images, not its split's frames")
+        if len(coco["annotations"]) != len(names):
+            raise RuntimeError(f"dvs: synthetic_{split}.json has {len(coco['annotations'])} annotations")
+        for ann in coco["annotations"]:
+            kps = [ann["keypoints"][i:i + 3] for i in range(0, len(ann["keypoints"]), 3)]
+            box = ann["bbox"]
+            if (len(kps) != DVS_LANDMARKS or not all(math.isfinite(v) for v in box + ann["keypoints"])
+                    or box[2] <= 0 or box[3] <= 0 or any(k[2] not in (1.0, 2.0) for k in kps)):
+                raise RuntimeError(f"dvs: an invalid annotation in synthetic_{split}.json: {ann}")
+        counts[split] = len(names)
+    return counts
+
+
+def check_stacks_against_cpu(torch, m, images) -> None:
+    """``EVENT_STACK`` and ``SPEEDPLUS_STACK`` on a batch of event frames at
+    768^2, the card against the CPU on the card's draws, stage by stage on
+    the same input: the event stages exact; the others within 1e-3 grey,
+    the threshold stages' flipped pixels counted against 1e-3 of the field
+    and the output held away from their reach (a whole image where the
+    later warps and blurs spread a flip over the frame); a stage fails
+    where every image holds a flip. Then each whole stack card against CPU
+    (the event stack exact, SPEED+ within 1e-3 grey on the images that no
+    stage flipped) and timed on the card (CUDA events), SPEED+ also at the
+    detector's batch of 8."""
+    aug = m.augment
+    b, h, w = images.shape[:3]
+    for names in (aug.EVENT_STACK, aug.SPEEDPLUS_STACK):
+        draws = aug.sample_stack(aug.stack_generator(42, 0, images.device), b, h, w, names)
+        draws_cpu = [{k: v.cpu() for k, v in d.items()} for d in draws]
+        x = images.cpu()
+        clean = torch.ones(b, dtype=torch.bool)  # images with no flipped threshold pixel in any stage
+        for name, d, dc in zip(names, draws, draws_cpu):
+            fn = aug._REGISTRY[name][0]
+            t0 = time.perf_counter()
+            got = fn(x.cuda(), d)
+            sync()
+            card_s = time.perf_counter() - t0
+            want = fn(x, dc)
+            diff = (got.cpu() - want).abs()
+            flips, keep = 0, torch.ones(diff.shape[:3], dtype=torch.bool)
+            if name in STACK_THRESHOLDS:
+                field, thresh, reach = STACK_THRESHOLDS[name]
+                th = torch.as_tensor(thresh(dc), dtype=torch.float32).reshape(-1, 1, 1)
+                on_card = getattr(aug, field)(x.cuda(), d)[..., 0].cpu()
+                flipped = (on_card < th) != (getattr(aug, field)(x, dc)[..., 0] < th)
+                flips = int(flipped.sum())
+                clean &= ~flipped.flatten(1).any(1)
+                if reach is None:  # the flip reaches its whole image
+                    keep &= ~flipped.flatten(1).any(1)[:, None, None]
+                else:  # away from each flip by more than its reach
+                    keep = torch.nn.functional.max_pool2d(flipped[:, None].float(), 2 * reach + 1, 1, reach)[:, 0] == 0
+            if not keep.any():
+                raise RuntimeError(f"the photometric stage {name}: every image holds a flipped threshold pixel")
+            err = diff[keep].max().item()
+            exact = name in ("event_noise", "event_lines", "fill_black")
+            log(f"stack {name} at {b}x{h}x{w}: card vs CPU max |err| {err:.3g} (limit {0.0 if exact else STACK_TOL}; "
+                f"{flips} flipped threshold pixels, limit {STACK_FLIP_BAR} of {b * h * w}; {int(keep.sum())} pixels "
+                f"compared); card {card_s * 1e3:.2f} ms with its first calls")
+            if err > (0.0 if exact else STACK_TOL) or flips > STACK_FLIP_BAR * b * h * w:
+                raise RuntimeError(f"the photometric stage {name} on the card disagrees with the CPU: {err}, {flips}")
+            x = want
+        if not clean.any():
+            raise RuntimeError(f"the stack {'+'.join(names)}: every image holds a flipped threshold pixel")
+        whole_err = (aug.apply_stack(images, names, draws).cpu() - x)[clean].abs().max().item()
+        limit = 0.0 if names == aug.EVENT_STACK else STACK_TOL
+        ms = time_ms(lambda: aug.apply_stack(images, names, draws), 3)
+        msg = (f"stack {'+'.join(names)}: {ms:.3f} ms a batch of {b} at {h}x{w} on the card (CUDA events, draws "
+               f"given); the whole stack card vs CPU max |err| {whole_err:.3g} on {int(clean.sum())} of {b} images "
+               f"(limit {limit})")
+        if names == aug.SPEEDPLUS_STACK:
+            big = images.repeat(8 // b, 1, 1, 1)
+            draws8 = aug.sample_stack(aug.stack_generator(42, 1, images.device), big.shape[0], h, w, names)
+            msg += f"; {time_ms(lambda: aug.apply_stack(big, names, draws8), 3):.3f} ms a batch of {big.shape[0]}"
+        log(msg)
+        if whole_err > limit:
+            raise RuntimeError(f"the stack {'+'.join(names)} on the card differs from the CPU's: {whole_err}")
+
+
+def dvs_scene(m, root: str, exposure: float, num_frames: int | None = None):
+    """The DVS pipeline's inputs under ``root``: ``make_synthetic_scene
+    render`` (1280x720, its defaults; ``num_frames`` frames when given) into
+    ``root/scene``, then its GT into ``root/gt``: ``make_synthetic_scene gt``
+    on the event frames of a ``tools.v2e`` probe at the pipeline's settings
+    (``clean``, a duration exposure of ``exposure``, no SloMo), whose stems
+    the pipeline's own v2e run repeats. The probe's output is deleted.
+    Returns (paths, seconds a stage, the probe's event frames)."""
+    import os
+    import shutil
+
+    scene = os.path.join(root, "scene")
+    paths = {"scene": scene, "frames": os.path.join(scene, "frames"), "gt": os.path.join(root, "gt"),
+             "landmarks": os.path.join(scene, "landmarks.csv"),
+             "calibration": os.path.join(scene, "calibration.json")}
+    seconds = {}
+    t0 = time.perf_counter()
+    m.make_synthetic_scene.main(["render", "--output-dir", scene]
+                                + ([] if num_frames is None else ["--num-frames", str(num_frames)]))
+    seconds["render"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = m.v2e.main(["-i", paths["frames"], "-o", os.path.join(root, "probe"), "--dvs_params", "clean",
+                        "--dvs_exposure", "duration", str(exposure)])
+    seconds["v2e probe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m.make_synthetic_scene.main(["gt", "--scene-dir", scene, "--event-frames-dir",
+                                 os.path.join(probe.output_folder, "event-frames"), "--gt-dir", paths["gt"]])
+    seconds["gt"] = time.perf_counter() - t0
+    shutil.rmtree(probe.output_folder)
+    return paths, seconds, probe.frame_times.shape[0]
+
+
+def dvs_phase(torch, m, dev, card):
+    """The DVS training pipeline on the card: a rendered 1280x720 scene, its
+    GT from a v2e probe, then ``tools.train_pipeline_dvs`` in process (v2e
+    at one exposure, the split, the COCO conversion, the no-preset X101
+    detector at 768 and batch 8, the events-preset HRNet); the photometric
+    stacks card against CPU at 768^2 and 2 detector updates with the event
+    stack. Returns the K1, K2, K2b and K4 rows on the pipeline's own inputs
+    and its launch counts."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        paths, seconds, n_event_frames = dvs_scene(m, root, DVS_EXPOSURE, DVS_FRAMES)
+        work = os.path.join(root, "work")
+
+        cfg = m.rcnn.FASTER_RCNN_X101_SPACECRAFT
+        batch = 8
+        n_train, n_nms = batch * cfg.roi.batch_size_per_image, cfg.rpn.pre_nms_topk_train
+        k1 = Capture(*m.kernels["K1"][:2])
+        k2 = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[1].shape[0] == n_train)
+        k2b = Capture(m.roi_align, "roi_align_multilevel_backward", keep=lambda a: a[3].shape[0] == n_train)
+        k4 = Capture(m.nms, "nms_mask_sorted", keep=lambda a: a[0].shape[1] == n_nms)
+        det_steps = Timed(m.train_detector, "make_detection_train_step", factory=True, keep=True)
+        lm_steps = Timed(m.train_landmarks, "make_train_step", factory=True, keep=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with k1, k2, k2b, k4, det_steps, lm_steps:
+            reset_counts(m)
+            out = m.train_pipeline_dvs.main([
+                "--frames-dir", paths["frames"], "--gt-dir", paths["gt"], "--landmarks-file", paths["landmarks"],
+                "--work-dir", work, "--exposures", str(DVS_EXPOSURE), "--detector-iters", str(DVS_DET_ITERS),
+                "--landmark-epochs", str(DVS_LM_EPOCHS)])
+            sync()
+            launches = read_counts(m)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        seconds.update(out.seconds)
+        det_losses = [r["loss_total"].item() for r in det_steps.results]
+        lm_losses = [r["loss"].item() for r in lm_steps.results]
+        split_dir = out.event_dirs[0] + "_split"
+        counts = check_coco_dicts(m, out.dict_dirs[0], split_dir)
+        ckpts = {name: sorted(os.listdir(os.path.join(d, "checkpoints")))
+                 for name, d in (("detector", out.detector_dir), ("landmarks", out.landmarks_dir))}
+        log(f"dvs pipeline (train_pipeline_dvs on {card}): {DVS_FRAMES} rendered 1280x720 frames, exposure "
+            f"{DVS_EXPOSURE} s -> {n_event_frames} event frames, split {json.dumps(counts)}; the "
+            f"no-preset detector (X101-32x8d FPN, 768^2, batch {batch}, ROI batch {cfg.roi.batch_size_per_image}, "
+            f"pooler {cfg.roi.pooler_impl}) for {DVS_DET_ITERS} steps: {[round(v, 4) for v in det_steps.ms]} ms, "
+            f"loss_total {[round(v, 5) for v in det_losses]}; the events preset for {DVS_LM_EPOCHS} epoch: steps "
+            f"{[round(v, 4) for v in lm_steps.ms]} ms, loss {[round(v, 6) for v in lm_losses]}; checkpoints "
+            f"{json.dumps(ckpts)}; stage seconds {json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+            f"peak memory {peak_gb:.4f} GB; launches {json.dumps(launches)}")
+        if len(det_losses) != DVS_DET_ITERS or not all(math.isfinite(v) for v in det_losses + lm_losses) \
+                or not lm_losses:
+            raise RuntimeError(f"dvs: a loss is not finite or a step is missing: {det_losses} {lm_losses}")
+        for key in ("K1", "K2", "K2b", "K4"):
+            if launches[key] == 0:
+                raise RuntimeError(f"kernel {key} was not launched by the DVS training pipeline")
+        for name, d in (("detector", out.detector_dir), ("landmarks", out.landmarks_dir)):
+            if not any(os.path.exists(os.path.join(d, "checkpoints", c, "model.npz")) for c in ckpts[name]):
+                raise RuntimeError(f"dvs: the {name} trainer wrote no model.npz")
+        rows = [crop_row(torch, m, dev, k1.calls[-1], "crop_bilinear (dvs pipeline: train_landmarks validate, "
+                                                      "event frames)"),
+                pooler_row(torch, m, k2.calls[-1], f"roi_align_multilevel (dvs pipeline: train_detector no preset, "
+                                                   f"{n_train} ROIs, {cfg.roi.pooler_impl} read window)"),
+                pooler_backward_row(torch, m, k2b.calls[-1], f"roi_align_multilevel_backward (dvs pipeline: "
+                                                             f"{n_train} ROIs, bf16 gradient)")]
+        rows += nms_rows(torch, m, dev, [k4.calls[-1]], "dvs pipeline: ")
+        del k1, k2, k2b, k4, det_steps, lm_steps
+
+        # the photometric stacks on two of the pipeline's training frames, letterboxed as the trainer feeds them
+        t0 = time.perf_counter()
+        examples = m.detection_dataset.DetectionExamples(os.path.join(out.dict_dirs[0], "synthetic_train.json"),
+                                                         os.path.join(split_dir, "train"))
+        images = next(m.detection_dataset.detection_batches(examples, STACK_BATCH, (STACK_SIZE, STACK_SIZE),
+                                                            train=False, augment=False, device=dev,
+                                                            num_workers=0))["image"]
+        check_stacks_against_cpu(torch, m, images)
+        seconds["stacks check"] = time.perf_counter() - t0
+        # two detector updates with the event stack on the pipeline's training split
+        t0 = time.perf_counter()
+        aug_steps = Timed(m.train_detector, "make_detection_train_step", factory=True, keep=True)
+        with aug_steps:
+            m.train_detector.main(["--train-json", os.path.join(out.dict_dirs[0], "synthetic_train.json"),
+                                   "--image-dir", os.path.join(split_dir, "train"), "--output",
+                                   os.path.join(root, "det_event_augs"), "--max-iter", str(DVS_AUG_ITERS),
+                                   "--batch-size", str(batch), "--photometric-augs", "event"])
+        aug_losses = [r["loss_total"].item() for r in aug_steps.results]
+        seconds["train_detector --photometric-augs event"] = time.perf_counter() - t0
+        log(f"train_detector --photometric-augs event ({DVS_AUG_ITERS} steps, no preset, batch {batch}): steps "
+            f"{[round(v, 4) for v in aug_steps.ms]} ms, loss_total {[round(v, 5) for v in aug_losses]}")
+        if len(aug_losses) != DVS_AUG_ITERS or not all(math.isfinite(v) for v in aug_losses):
+            raise RuntimeError(f"dvs: the event-stack detector steps failed: {aug_losses}")
+        del examples, images
+    log(f"dvs phase: {time.perf_counter() - t_phase:.1f} s (stage seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})})")
+    return rows, launches
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -2961,6 +3255,8 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.events import emulator, slomo
     from spacecraft_pose_estimation_tpu_torch.events import io as ev_io
     from spacecraft_pose_estimation_tpu_torch.tools import convert_aedats, evaluate_event_pipeline, v2e
+    from spacecraft_pose_estimation_tpu_torch.data import augment
+    from spacecraft_pose_estimation_tpu_torch.tools import make_synthetic_scene, train_pipeline_dvs
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
@@ -2972,7 +3268,9 @@ def load_port():
                         train_landmarks_da=train_landmarks_da, adversarial=adversarial, discriminator=discriminator,
                         detection_dataset=detection_dataset, detection_state=detection_state,
                         train_detector=train_detector, convert=convert, emulator=emulator, slomo=slomo, ev_io=ev_io,
-                        v2e=v2e, convert_aedats=convert_aedats, evaluate_event_pipeline=evaluate_event_pipeline)
+                        v2e=v2e, convert_aedats=convert_aedats, evaluate_event_pipeline=evaluate_event_pipeline,
+                        augment=augment, make_synthetic_scene=make_synthetic_scene,
+                        train_pipeline_dvs=train_pipeline_dvs)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -2999,6 +3297,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     log(card)
+    log(card_health())
     # full float32 wherever float32 runs (the serving models run bf16 and int8)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3087,6 +3386,11 @@ def main() -> int:
     # the event-camera half: v2e at 1280x720, and the event evaluation of DAVIS346
     # recordings through K1, K2 and K4
     report += kernel_report(*events_phase(torch, m, dev, card))
+    torch.cuda.empty_cache()
+
+    # training on event frames: tools/train_pipeline_dvs.py on a rendered scene (K1,
+    # K2, K2b and K4 on its inputs) and the photometric stacks
+    report += kernel_report(*dvs_phase(torch, m, dev, card))
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
@@ -3096,4 +3400,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except Exception:
+        print(f"chip_smoke: the last line logged before the failure: {_LAST_LOGGED[0]}", file=sys.stderr, flush=True)
+        print(f"chip_smoke: {card_health()}", file=sys.stderr, flush=True)
+        raise
+    sys.exit(rc)

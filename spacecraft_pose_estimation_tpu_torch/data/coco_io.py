@@ -1,25 +1,30 @@
-"""The file contract of the evaluation entry and its stages: COCO json, pred.mat, poses.
+"""The pipeline's file contract: COCO json, pred.mat, poses, the frame split.
 
-A copy of the subset of the JAX package's ``data/coco_io.py`` that
-``evaluate.py`` and the stage tools (``tools/``) use:
+A copy of the JAX package's ``data/coco_io.py``:
 
+* ground-truth conversion (``poses_to_coco``): the 3-D landmarks projected
+  through K[R|t] (and Brown distortion), the box their min/max grown by 10%
+  *of the width* on both axes, visibility 2 strictly inside the frame
+  else 1; the SPEED+ flavour's 1900-px visibility test and its
+  all-visible quirk are options;
 * predicted-box export (``real_test.json``): one annotation per image,
   the best box (the whole frame when nothing is detected), keypoints all
   2.0 dummies; read back as per-annotation example records;
 * ``pred.mat`` keypoints {'preds': (B, J, 3) [x, y, maxval]};
 * ``opencv_poses.json`` [{image_name, T (3x1), rotation_matrix (3x3)}] and
   the landmarks' projection for its overlays;
-* the 3-D landmark CSV, read by its ``x,y,z`` header with the ``csv``
-  module (the JAX package reads it with pandas).
+* the random train/validation/test split of frames (``split_files``);
+* the 3-D landmark CSV, read by its ``x,y,z`` header with pandas, as the
+  JAX package reads it.
 
 NumPy and SciPy on the host: this is IO, not compute.
 """
 
 from __future__ import annotations
 
-import csv
 import json
 import os
+import random
 from typing import Sequence
 
 import numpy as np
@@ -139,6 +144,69 @@ def project_landmarks(landmarks: np.ndarray, R: np.ndarray, t: np.ndarray, K: np
     return np.stack([u, v], axis=1)
 
 
+def visible_keypoints(points2d: np.ndarray, width: float, height: float) -> np.ndarray:
+    """(N, 3) [x, y, vis]: vis=2 strictly inside the image, else 1."""
+    inside = (
+        (points2d[:, 0] > 0)
+        & (points2d[:, 0] < width)
+        & (points2d[:, 1] > 0)
+        & (points2d[:, 1] < height)
+    )
+    vis = np.where(inside, 2.0, 1.0)
+    return np.column_stack([points2d, vis])
+
+
+def landmarks_bbox(points2d: np.ndarray) -> list[float]:
+    """Keypoint min/max box grown by 10% of its *width* on both axes (the
+    reference takes y's margin from the width too)."""
+    min_xy = points2d.min(axis=0)
+    max_xy = points2d.max(axis=0)
+    w, h = max_xy - min_xy
+    tol = w * 0.1
+    return [float(min_xy[0] - tol), float(min_xy[1] - tol), float(w + 2 * tol), float(h + 2 * tol)]
+
+
+def poses_to_coco(
+    file_names: Sequence[str],
+    rotations: np.ndarray,  # (B, 3, 3) world->camera
+    translations: np.ndarray,  # (B, 3)
+    landmarks: np.ndarray,  # (N, 3)
+    K: np.ndarray,
+    width: int,
+    height: int,
+    image_ids: Sequence[int] | None = None,
+    dist: np.ndarray | None = None,
+    visibility_width: float | None = None,
+    shuffle_seed: int | None = None,
+    force_visible: bool = False,
+) -> dict:
+    """Ground-truth poses -> COCO keypoints dict, one annotation an image
+    whose id is the image's.
+
+    ``image_ids`` default to each file's numeric stem. ``visibility_width``
+    replaces the width in the visibility test (the SPEED+ converter's 1900
+    px); ``force_visible`` marks every keypoint 2, in the frame or not (what
+    the SPEED+ converter does). ``shuffle_seed`` shuffles the images, then
+    the annotations, with one ``random.Random(shuffle_seed)``.
+    """
+    if image_ids is None:
+        image_ids = [int(os.path.basename(f).split(".")[0]) for f in file_names]
+    vis_w = visibility_width if visibility_width is not None else width
+    images, anns = [], []
+    for i, (fname, image_id) in enumerate(zip(file_names, image_ids)):
+        pts2d = project_landmarks(landmarks, rotations[i], translations[i], K, dist)
+        images.append(image_record(fname, width, height, image_id))
+        kps = visible_keypoints(pts2d, vis_w, height)
+        if force_visible:
+            kps[:, 2] = 2.0
+        anns.append(keypoint_annotation(kps, landmarks_bbox(pts2d), image_id, ann_id=image_id))
+    if shuffle_seed is not None:
+        rng = random.Random(shuffle_seed)
+        rng.shuffle(images)
+        rng.shuffle(anns)
+    return build_coco_dict(images, anns, landmarks.shape[0])
+
+
 def save_coco(coco: dict, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -197,11 +265,35 @@ def save_opencv_poses(
         f.write(json.dumps(poses, indent=2))
 
 
+def load_opencv_poses(path: str) -> list[dict]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def split_files(
+    files: Sequence[str],
+    fractions: tuple[float, float, float] = (0.7, 0.15, 0.15),
+    seed: int | None = None,
+) -> dict[str, list[str]]:
+    """Random train/validation/test split: the files shuffled by
+    ``random.Random(seed)``, the first ``int(fractions[0] * n)`` to train,
+    the next ``int(fractions[1] * n)`` to validation, the rest to test."""
+    files = list(files)
+    rng = random.Random(seed)
+    rng.shuffle(files)
+    n = len(files)
+    n_train = int(fractions[0] * n)
+    n_val = int(fractions[1] * n)
+    return {
+        "train": files[:n_train],
+        "validation": files[n_train:n_train + n_val],
+        "test": files[n_train + n_val:],
+    }
+
+
 def load_landmarks_csv(path: str) -> np.ndarray:
     """3-D landmark CSV with an x,y,z header -> (N, 3) float64, the columns
-    found by name."""
-    with open(path, newline="") as f:
-        rows = list(csv.reader(f))
-    header, body = rows[0], [r for r in rows[1:] if r]
-    cols = [header.index(name) for name in ("x", "y", "z")]
-    return np.array([[float(r[c]) for c in cols] for r in body], np.float64).reshape(-1, 3)
+    found by name, read by pandas as the JAX package reads it."""
+    import pandas as pd
+
+    return pd.read_csv(path)[["x", "y", "z"]].values.astype(np.float64)

@@ -10,5 +10,9 @@ camera's commands: ``v2e`` (frames -> SuperSloMo -> DVS events and event
 frames), ``e2v`` (events CSV -> frames), ``convert_aedats`` (recordings ->
 undistorted frames per scene), ``evaluate_event_pipeline`` (those frames
 through the evaluation entry) and ``aedat_to_csv`` (AEDAT-4 -> CSV, a
-format conversion on the host, the one command without ``--device``).
+format conversion on the host without ``--device``); and the DVS training
+pipeline: ``make_synthetic_scene`` (a labelled rendered scene and its GT),
+``split_images`` (the train/validation/test split), ``convert_to_coco``
+(GT poses -> COCO keypoints; these three host tools take no device) and
+``train_pipeline_dvs`` (v2e -> split -> COCO -> both trainers, in process).
 """

@@ -16,9 +16,12 @@ and, with ``--val-json``, box AP at one detection an image every
 restarted on the same ``OUT`` resumes from the latest checkpoint and goes
 on with the batch after its last one.
 
-RetinaNet (``--arch retinanet``, ``config_20``) and the photometric
-augmentation stacks (``--photometric-augs event|speedplus``) are not
-ported: they raise. It runs on CUDA unless given ``--device cpu``.
+``--photometric-augs event|speedplus`` runs the event or SPEED+ stack
+(``data/augment.EVENT_STACK`` / ``SPEEDPLUS_STACK``) on each training
+batch's letterboxed float32 BGR images before the step, with the draws of
+a generator on the device seeded from (42, step). RetinaNet (``--arch
+retinanet``, ``config_20``) is not ported: it raises. It runs on CUDA
+unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..data import augment
 from ..data.coco_eval import evaluate_detections, padded_detections_to_list
 from ..data.detection_dataset import DetectionExamples, detection_batches
 from ..device import resolve_device
@@ -71,7 +75,7 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--checkpoint-period", type=int, default=None)
     ap.add_argument("--flip", action="store_true", help="horizontal flip with p=0.5 (config_1-style)")
     ap.add_argument("--photometric-augs", choices=["none", "event", "speedplus"], default="none",
-                    help="device-side photometric stack (not ported: only none)")
+                    help="the device-side photometric stack run on each training batch")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -126,6 +130,19 @@ def build_schedule(args: argparse.Namespace):
     return multistep_schedule(args.lr, milestones, gamma, warmup_steps=warmup)
 
 
+PHOTOMETRIC_STACKS = {"none": None, "event": augment.EVENT_STACK, "speedplus": augment.SPEEDPLUS_STACK}
+
+
+def photometric_augment(images: torch.Tensor, names, step: int, draws=None) -> torch.Tensor:
+    """Update ``step``'s photometric stack ``names`` on the (B, H, W, 3)
+    float32 batch, with ``draws`` (one dict a stage) or the step's own from
+    ``augment.stack_generator(SAMPLING_SEED, step)`` on the images' device."""
+    if draws is None:
+        gen = augment.stack_generator(SAMPLING_SEED, step, images.device)
+        draws = augment.sample_stack(gen, images.shape[0], images.shape[1], images.shape[2], names)
+    return augment.apply_stack(images, names, draws)
+
+
 def evaluate(model: GeneralizedRCNN, examples: DetectionExamples, batch_size: int, size: int,
              device=None) -> dict[str, float]:
     """Box AP at one detection an image over ``examples``, letterboxed without
@@ -146,9 +163,6 @@ def train(args: argparse.Namespace, train_examples: DetectionExamples,
     """Train the detector of ``args`` (from :func:`parse_args`) on
     ``train_examples``, checkpoints and metrics under ``args.output``;
     returns the trainer (its ``state`` and ``storage``)."""
-    if args.photometric_augs != "none":
-        raise NotImplementedError(f"--photometric-augs {args.photometric_augs}: the photometric stacks are not "
-                                  "ported")
     device = resolve_device(device if device is not None else args.device)
     model = build_model(args, device)
     logger.info("model params: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
@@ -161,8 +175,11 @@ def train(args: argparse.Namespace, train_examples: DetectionExamples,
     data = detection_batches(train_examples, args.batch_size, (size, size), train=True, flip=args.flip,
                              device=device, start=state.step)
     raw_step = make_detection_train_step()
+    stack = PHOTOMETRIC_STACKS[args.photometric_augs]
 
     def step_fn(state, batch):
+        if stack is not None:
+            batch = dict(batch, image=photometric_augment(batch["image"], stack, state.step))
         return raw_step(state, batch, generator=step_generator(SAMPLING_SEED, state.step))
 
     storage = MetricStorage()

@@ -2,8 +2,8 @@
 
 ``config`` (presets, ``apply_overrides``), ``data/camera``, the
 ``data/coco_io`` subset the evaluation entry writes (files compared as
-loaded arrays and parsed JSON), ``load_landmarks_csv`` without pandas
-against the pandas reader, and ``serving.letterbox_linear`` against the
+loaded arrays and parsed JSON), ``load_landmarks_csv`` against the JAX
+package's reader, and ``serving.letterbox_linear`` against the
 JAX entry's cv2 letterbox (``data/detection_dataset.letterbox``) within
 1e-2 grey, in float32.
 """

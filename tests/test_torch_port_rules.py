@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "spacecraft_pose_estimation_tpu")
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_ablate.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_ablate.py", ROOT / "chip_dvs_run.py",
+                                       ROOT / "chip_fault_hunt.py"]
 
 
 def _imported_modules(path: Path):
@@ -205,3 +206,22 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_dvs_pipeline_commands_need_cuda_or_an_explicit_device(tmp_path):
+    """The DVS training pipeline's driver runs on CUDA unless given the CPU;
+    its data tools (the split, the synthetic scene, the COCO conversion) are
+    host code and take no device."""
+    from spacecraft_pose_estimation_tpu_torch.tools import (
+        convert_to_coco, make_synthetic_scene, split_images, train_pipeline_dvs,
+    )
+
+    for tool in (convert_to_coco, make_synthetic_scene, split_images):
+        with pytest.raises(SystemExit):
+            tool.main(["--device", "cpu"])
+    if torch.cuda.is_available():
+        return
+    args = ["--frames-dir", ".", "--gt-dir", ".", "--landmarks-file", "l.csv", "--work-dir", str(tmp_path / "w")]
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train_pipeline_dvs.main(args + extra)

@@ -11,8 +11,9 @@ to validate), ``--preset config_1 --tiny --input-size 64 --batch-size 2``:
   and gives the trained model's detections, 0 apart;
 * a run of 2 updates, then one resumed to 4, ends bit-equal to one run of
   4 updates: parameters, momentum and step;
-* ``--arch retinanet``, ``--preset config_20`` and ``--photometric-augs``
-  other than ``none`` raise; ``--help`` runs without JAX.
+* ``--arch retinanet`` and ``--preset config_20`` raise; ``--help`` runs
+  without JAX. (``--photometric-augs`` is held in
+  ``test_torch_photometric.py``.)
 """
 
 import json
@@ -105,8 +106,7 @@ def test_a_resumed_run_equals_an_uninterrupted_one(scene, tmp_path):
         assert all(torch.equal(s[k], resumed["optimizer"]["state"][i][k]) for k in s), i
 
 
-@pytest.mark.parametrize("extra,match", [(["--arch", "retinanet", "--preset", "config_20"], "RetinaNet"),
-                                         (["--photometric-augs", "event"], "photometric")])
+@pytest.mark.parametrize("extra,match", [(["--arch", "retinanet", "--preset", "config_20"], "RetinaNet")])
 def test_unported_options_raise(scene, tmp_path, extra, match):
     a = [x for x in args(scene, tmp_path, 1, val=False) if x not in ("--preset", "config_1")] + extra
     with pytest.raises(NotImplementedError, match=match):
