@@ -25,7 +25,9 @@ the bf16 P2-P5 of 4 images at 800^2, C 256, a quarter of each image's clustered 
 graphs, turn by turn in one process. With ``--before TREE``, a checkout of the port as it was when K2b
 summed with float32 atomics (the commit before the owner-computes K2b), the kernel id ``K2b-atomic`` times
 that K2b too, split into its memset and cast alone, its atomic kernel alone, and the atomic kernel with
-each ROI's gradient sent to a private buffer of its own (no two ROIs add into one address). Only the
+each ROI's gradient sent to a private buffer of its own (no two ROIs add into one address), and ``K4-before``
+times that tree's K4 beside this one's on every K4 shape it takes (up to 2,048 boxes before K4 took 8,192;
+the shapes add the evaluation's 40x1000, training's RPN 20x2000 and RetinaNet's 10x4441). Only the
 unedited source and the exact
 alternatives are held to the plain versions: the others compute wrong answers
 on purpose, and their times say what the removed piece costs. Prints the
@@ -136,16 +138,18 @@ VARIANTS = {
                                                 "#pragma unroll 1\n        for (int b = q;")]),
     "K4 walk through empty quarters (exact)": (("K4",), [("nms_mask_sorted.cu",
                                                           "        if (!(alive >> q & 0xffffull)) continue;", "")]),
+    # --before's K4, on the shapes it takes
+    "K4 before (exact)": (("K4-before",), []),
 }
 # variants that must still agree with the plain versions: the committed sources and the other exact designs
 EXACT = ("as committed",) + tuple(name for name in VARIANTS if name.endswith("(exact)"))
-BEFORE = ("K2b-atomic",)  # kernel ids built from --before's sources
+BEFORE = ("K2b-atomic", "K4-before")  # kernel ids built from --before's sources
 SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_block_chain.cu", "basic_block_chain"),
            "K6": ("bottleneck_chain.cu", "bottleneck_chain"), "K7": ("up_exchange.cu", "up_exchange"),
            "K2": ("roi_align_multilevel.cu", "roi_align_multilevel"), "K3": ("roi_align_multilevel.cu", "roi_align_single"),
            "K2b": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
            "K2b-atomic": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
-           "K4": ("nms_mask_sorted.cu", "nms_mask_sorted")}
+           "K4": ("nms_mask_sorted.cu", "nms_mask_sorted"), "K4-before": ("nms_mask_sorted.cu", "nms_mask_sorted")}
 CHAINS = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128), (16, 16, 16, 256)]  # W32 branches, 4 blocks
 CONVS = [  # (B, H, W, Cin, Cout, k, stride): R101 at the 768 letterbox, HRNet-W32 at 512
     (4, 192, 192, 64, 256, 1, 1), (4, 192, 192, 256, 64, 1, 1), (4, 192, 192, 64, 64, 3, 1),
@@ -215,12 +219,13 @@ def graph_ms(torch, fn, calls: int = 10, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-def pooler_nms_workloads(torch, ra, nms):
+def pooler_nms_workloads(torch, ra, nms, k4_before: bool = False):
     """K2, K3 and K4 (label, kernel id, wrapper call, plain result) at the serving shapes: K2 on 256 boxes
     over 4 images that reach all four R101-FPN levels (bf16, 256 channels); K3 on 64 boxes of sides
     16-112 px (P2's range) on the first image's P2 map at scale 0.25, as in its chip_smoke.py phase; K4 on
     the RPN's 20 problems of 256 boxes at IoU 0.7 and the box head's 4 of 64 at 0.5 (chip_smoke's seeded
-    edge problems)."""
+    edge problems), then the evaluation's 40 of 1000, training's RPN 20 of 2000 and RetinaNet's 10 of 4441.
+    With ``k4_before``, each K4 shape of at most 2,048 boxes again as ``K4-before``."""
     import chip_smoke as cs
 
     gen = torch.Generator().manual_seed(0)
@@ -244,6 +249,14 @@ def pooler_nms_workloads(torch, ra, nms):
     single = (feats[0][0], p2, 7, 0.25, 2, cs.POOLER_WINDOW)
     out.append(("K3 64 boxes, P2 of 192x192x256 bf16 at scale 0.25 -> 64x7x7x256 f32", "K3",
                 functools.partial(ra.roi_align_single, *single), ra.roi_align_single_plain(*single)))
+    large = torch.Generator().manual_seed(1)  # its own draws: the shapes above keep their inputs
+    for p, n, thresh, share in ((40, 1000, 0.7, 0.8), (20, 2000, 0.7, 0.8), (10, 4441, 0.5, 1.0)):
+        b, v = (t.cuda() for t in cs.nms_edge_problems(torch, n, p, large, share))
+        out.append((f"K4 {p}x{n} at IoU {thresh}, {share:.0%} valid", "K4",
+                    functools.partial(nms.nms_mask_sorted, b, v, thresh), nms.nms_mask_sorted_plain(b, v, thresh)))
+    if k4_before:
+        out += [(label, "K4-before", call, want) for label, key, call, want in out
+                if key == "K4" and call.args[1].shape[1] <= 2048]
     return out
 
 
@@ -394,11 +407,12 @@ def main() -> int:
     print(f"built {len(fns)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = {"K5a": int8_conv.KERNEL, "K5": int8_blocks.CHAIN, "K6": int8_blocks.BOTTLENECK,
                "K7": int8_blocks.EXCHANGE, "K2": roi_align.KERNEL, "K3": roi_align.SINGLE, "K4": nms.KERNEL,
-               "K2b": roi_align.BACKWARD,
+               "K2b": roi_align.BACKWARD, "K4-before": nms.KERNEL,  # one wrapper: each variant points it at its K4
                "K2b-atomic": _cuda.Kernel(*SOURCES["K2b-atomic"][::-1], ATOMIC_ARGTYPES)}
     times: dict = {}
     work = (workloads(torch, int8_conv, int8_blocks) if set(keys) & set(INT8) else []) + \
-        (pooler_nms_workloads(torch, roi_align, nms) if set(keys) & {"K2", "K3", "K4"} else []) + \
+        (pooler_nms_workloads(torch, roi_align, nms, "K4-before" in keys)
+         if set(keys) & {"K2", "K3", "K4", "K4-before"} else []) + \
         (k2b_workloads(torch, roi_align, keys, kernels["K2b-atomic"] if "K2b-atomic" in keys else None)
          if set(keys) & {"K2b", "K2b-atomic"} else [])
     for _ in range(2):  # two turns through the variants, to show the spread
@@ -415,7 +429,7 @@ def main() -> int:
                     raise RuntimeError(f"{label}: {name!r} disagrees with the plain version")
                 if name == "as committed" and key == "K2b" and not all(map(torch.equal, got, call())):
                     raise RuntimeError(f"{label}: two calls of K2b differ")
-                calls = 50 if key in ("K2", "K3", "K4") else 10  # ~1 ms a replay, as chip_smoke.py's k
+                calls = 50 if key in ("K2", "K3", "K4", "K4-before") else 10  # ~1 ms a replay, as chip_smoke.py's k
                 times.setdefault(label, {}).setdefault(name, []).append(round(graph_ms(torch, call, calls), 5))
     for label, by_variant in times.items():
         print(json.dumps({"shape": label, "device_ms": by_variant}), flush=True)

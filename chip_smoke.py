@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training, event-camera and DVS-training paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), event-camera and DVS-training paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -21,14 +21,18 @@ toolkit. It
    at spatial scales 0.25, 0.3 and 1/12 (boxes across every edge, larger
    than the window, zero-area, wholly outside the map; a CUDA call with 12
    channels must raise), and K4 exactly on seeded problems of 1, 63, 65,
-   1024, 1025, 1500, 2000 and 2048 boxes with duplicates, ties, zero-area
-   boxes and no valid box (2049 must raise);
+   1024, 1025, 1500, 2000, 2048, 2049, 4096, 4441, 5000 and 8192 boxes
+   with duplicates, ties, zero-area boxes and no valid box (8193 must
+   raise);
    then checks the tiny detector + HRNet serving path on the card against
    the same path on the CPU (plain PyTorch versions of the kernels), in
    the bf16 form and in the int8 form with every fused route on, the
    latter also on a tiny grouped trunk (K5a on merged groups), and the
    PnP solvers against a known pose (RANSAC also with 3 of 11 points 200
-   px off, and against the CPU on the same noise);
+   px off, and against the CPU on the same noise), and RANSAC on identical
+   seeded keypoints (101 frames of 12 landmarks, half of them off) at 256
+   and 512 hypotheses twice in the process and once in a fresh one: every
+   step bit-equal, or the first that differs named;
 3. serves full-width clips of both forms: R101-FPN
    (``FASTER_RCNN_R101_SERVING_1OBJ``, 768 letterbox) and HRNet-W32
    (11 joints, 512 crops) on uint8 1920x1200 frames, weights from seeds.
@@ -122,7 +126,22 @@ toolkit. It
    repeated batch lower loss_total;
    prints the step ms, images/s, peak memory, the box AP, the train
    step's own split by CUDA events and a profiled step;
-14. runs the event-camera half: first the ``noisy`` emulator at 48x64 on
+14. trains RetinaNet: first ``RETINANET_TINY`` in float32 on the card
+   against the CPU (3 EMA SGD updates on the same batch); then
+   ``tools.train_detector.train`` with ``--preset config_20`` at full
+   width (R101 RetinaNet at 800^2, batch 10, flips, SGD 1e-4 with warmup
+   500, the EMA loss normalizer, bf16 activations over float32 weights,
+   the seeded trunk's FrozenBN calibrated on a training batch) on 20
+   seeded 1920x1200 frames, 6 steps (2 warm-up, 4 timed; cut from 20000)
+   and one evaluation on 10 more, whose NMS is K4 on 10 problems of 4441
+   candidates (K4's counter reset just before, read just after; K4 held to
+   its plain version on that call as scored and with every candidate
+   valid); checks the metrics and parameters finite, the final ``.npz``
+   loaded into a fresh RetinaNet (0 apart) and that 8 updates on one
+   repeated batch lower loss_total below its value after the first;
+   prints the step ms, images/s, peak memory, the box AP, the step's
+   split by CUDA events and a profiled step;
+15. runs the event-camera half: first the ``noisy`` emulator at 48x64 on
    the card against the CPU on the same draws (at most 1e-4 of the event
    maps' entries flipped), chunks against one run on the card (bit-equal)
    and SuperSloMo at 96x64 against the CPU (1e-4); then ``tools.v2e`` at
@@ -141,7 +160,7 @@ toolkit. It
    checked, the AEDAT2 scene equal to the CSV stream after microsecond
    truncation, K1, K2 and K4 launched (counters reset just before, read
    just after) and each held to its plain version on the phase's inputs;
-15. trains on event frames: renders a synthetic scene
+16. trains on event frames: renders a synthetic scene
    (``tools.make_synthetic_scene``, 48 frames of 1280x720), writes its GT
    from a probe run of ``tools.v2e`` (``clean``, duration exposure 0.02 s),
    then runs ``tools.train_pipeline_dvs`` in process at that exposure:
@@ -157,7 +176,7 @@ toolkit. It
    draws stage by stage (the event stages exact, the others within 1e-3
    grey, threshold flips counted against 1e-3 of the pixels), times both
    stacks, and runs 2 detector steps with ``--photometric-augs event``;
-16. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+17. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -455,6 +474,92 @@ def check_ransac_gate(torch, m, world, R, t, K, dist, px) -> None:
     if not (err <= 1e-3 and dev_err <= 1e-4 and gpu["inliers"][0].sum().item() == 8):
         raise RuntimeError(f"RANSAC PnP on the card: pose error {err}, card vs CPU {dev_err}, "
                            f"{int(gpu['inliers'][0].sum())} inliers")
+
+
+RANSAC_REPEAT_FRAMES, RANSAC_REPEAT_POINTS = 101, 12  # the DVS accuracy run's test split and landmarks
+RANSAC_REPEAT_HYPOTHESES = (256, 512)  # the evaluation entry's, the staged export_poses'
+RANSAC_STEPS = ("gumbel", "valid", "hypothesis R", "hypothesis t", "hypothesis errors", "R", "t", "inliers")
+
+
+def ransac_repeat_inputs(torch, m):
+    """101 frames of a 12-landmark body under seeded poses, 2 px of noise
+    and about half the landmarks 40-150 px off (as a landmark model that
+    learned only some of them gives them), seeded confidences; on the card:
+    world, px, K, dist, conf."""
+    g = torch.Generator().manual_seed(13)
+    b, n = RANSAC_REPEAT_FRAMES, RANSAC_REPEAT_POINTS
+    world = torch.randn(n, 3, generator=g) * 0.6
+    R = m.geometry.quat_to_dcm(torch.randn(b, 4, generator=g))
+    t = torch.cat([torch.randn(b, 2, generator=g) * 0.3, 8 + 4 * torch.rand(b, 1, generator=g)], -1)
+    K = torch.tensor([[2988.6, 0, 960.0], [0, 2988.3, 600.0], [0, 0, 1]])
+    dist = torch.tensor(EVAL_DIST)
+    px = m.geometry.project_points(world, R, t, K, dist) + torch.randn(b, n, 2, generator=g) * 2
+    off = (torch.rand(b, n, 1, generator=g) < 0.5) * torch.sign(torch.randn(b, n, 2, generator=g))
+    px = px + off * (40 + 110 * torch.rand(b, n, 2, generator=g))
+    conf = 0.2 + 0.8 * torch.rand(b, n, generator=g)
+    return [x.cuda() for x in (world, px, K, dist, conf)]
+
+
+def ransac_repeat_trace(torch, m, hypotheses: int) -> dict:
+    """The port's ``pnp_ransac`` on ``ransac_repeat_inputs`` with its own
+    draw (generator 0 on the card), and its steps: the Gumbel noise that
+    draw gives, the confidence mask, each hypothesis's EPnP pose and every
+    point's error under it; then the entry's R, t and inliers. {step: CPU
+    tensor}, in ``RANSAC_STEPS`` order."""
+    world, px, K, dist, conf = ransac_repeat_inputs(torch, m)
+    b, n = px.shape[:2]
+    with torch.inference_mode():
+        gumbel = m.pnp.gumbel_noise((b, hypotheses, n), torch.Generator(device="cuda").manual_seed(0), "cuda")
+        valid = m.pnp.adaptive_confidence_mask(conf, min_count=15)
+        Rs, ts, errs = m.pnp.ransac_hypotheses(world.expand(b, n, 3), px, K, dist, valid, gumbel, 6)
+        out = m.pnp.pnp_ransac(world, px, K, dist, conf, num_hypotheses=hypotheses)
+    steps = (gumbel, valid, Rs, ts, errs, out["R"], out["t"], out["inliers"])
+    return {k: v.cpu() for k, v in zip(RANSAC_STEPS, steps)}
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype == torch.float32:  # NaNs included, bit for bit
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+def check_ransac_repeats(torch, m) -> None:
+    """RANSAC PnP on identical keypoints on the card: ``ransac_repeat_trace``
+    at 256 and 512 hypotheses twice in this process and once in a fresh
+    one. Every step must be equal bit for bit; else the first step that
+    differs is named and the run fails."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fresh.pt")
+        code = ("import sys, torch\n"
+                f"sys.path.insert(0, {root!r})\n"
+                "import chip_smoke as cs\n"
+                "m = cs.load_port()\n"
+                f"torch.save({{h: cs.ransac_repeat_trace(torch, m, h) for h in {RANSAC_REPEAT_HYPOTHESES!r}}}, "
+                f"{path!r})\n")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the fresh RANSAC process failed: {proc.stderr[-2000:]}")
+        fresh = torch.load(path, weights_only=True)
+    for h in RANSAC_REPEAT_HYPOTHESES:
+        first = ransac_repeat_trace(torch, m, h)
+        runs = {"a second call in this process": ransac_repeat_trace(torch, m, h), "a fresh process": fresh[h]}
+        for label, other in runs.items():
+            differ = [k for k in RANSAC_STEPS if not same_bits(first[k], other[k])]
+            log(f"RANSAC on identical keypoints ({RANSAC_REPEAT_FRAMES} frames x {RANSAC_REPEAT_POINTS} landmarks, "
+                f"{h} hypotheses) against {label}: steps differing {differ or 'none'}; poses finite "
+                f"{bool(torch.isfinite(first['R']).all() and torch.isfinite(first['t']).all())}, inliers "
+                f"{int(first['inliers'].sum())}")
+            if differ:
+                raise RuntimeError(f"RANSAC at {h} hypotheses gives other results on identical inputs in {label}: "
+                                   f"first differing step {differ[0]!r} (all: {differ})")
+    log(f"RANSAC repeat gate: {time.perf_counter() - t0:.1f} s")
 
 
 def crop_numbers(torch, args):
@@ -762,16 +867,19 @@ def nms_edge_problems(torch, n: int, p: int, gen, valid_share: float = 0.8):
             torch.gather(valid, 1, order).contiguous())
 
 
-NMS_COVERAGE_N = (1, 63, 65, 1024, 1025, 1500, 2000, 2048)
+NMS_COVERAGE_N = (1, 63, 65, 1024, 1025, 1500, 2000, 2048, 2049, 4096, 4441, 5000, 8192)
 
 
 def check_nms_coverage(torch, m) -> None:
     """K4 exact against its plain version at N = 1, 63, 65 and 1024 (edges
     of its 64-bit words and its largest problem with 128 KB of mask in
-    shared memory), 1025, 1500, 2000 (the RPN's in training) and 2048 (mask
-    in the global workspace), with duplicates, ties, zero-area boxes and an
-    all-invalid problem, at IoU thresholds 0, 0.5 and 0.99; a problem of
-    2049 boxes must raise."""
+    shared memory), 1025, 1500, 2000 (the RPN's in training), 2048 (the
+    last with one removed-word a lane of the walking warp), 2049, 4096,
+    4441 (RetinaNet's five levels at 800^2; 3 words a lane), 5000 (the most
+    RetinaNet gives at any size) and 8192 (4 words a lane, the most), the
+    mask in the global workspace above 1024, with duplicates, ties,
+    zero-area boxes and an all-invalid problem, at IoU thresholds 0, 0.5 and
+    0.99; a problem of 8193 boxes must raise."""
     gen = torch.Generator().manual_seed(5)
     for n in NMS_COVERAGE_N:
         boxes, valid = (t.cuda() for t in nms_edge_problems(torch, n, 4, gen))
@@ -1187,29 +1295,46 @@ def pooler_row(torch, m, call, name):
                 peak=FP32_FLOPS, numbers=tuple(pool_totals), extra={"tap_load_bytes": tap_bytes})
 
 
-def nms_rows(torch, m, dev, calls, label):
-    """K4's rows on a detector call's two captured calls: the RPN's, then the box head's."""
+def nms_pairs(keep, valid) -> float:
+    """The IoUs greedy NMS needs on these inputs: each kept box against
+    the valid boxes after it in its own problem (padding and earlier boxes
+    take none)."""
+    after = valid.flip(1).cumsum(1).flip(1) - valid.long()  # valid boxes j > i
+    return float((after * (keep & valid)).sum())
+
+
+def nms_row(torch, m, dev, nms_args, name):
+    """K4's row on one call's arguments (boxes, valid, threshold). Its bound
+    counts 15 operations an IoU pair that greedy NMS needs (``nms_pairs``)."""
     try:
         import torchvision.ops as tv_ops  # a yardstick only: the port never calls it
     except ImportError:
         tv_ops = None
+    boxes, valid, thresh = nms_args
+    p, n = valid.shape
+    keep = m.nms.nms_mask_sorted_plain(boxes, valid, thresh)
+    kept = float(keep.sum())
+    pairs = nms_pairs(keep, valid)
+    lib = None
+    if tv_ops is not None:
+        idxs = torch.arange(p, device=dev)[:, None].expand(p, n)[valid]
+        order = torch.arange(n, 0, -1, device=dev, dtype=torch.float32)[None].expand(p, n)[valid]
+        lib = (lambda b=boxes[valid], s=order, i=idxs, th=thresh: tv_ops.batched_nms(b, s, i, th))
+    return dict(id="K4", name=name, source="spacecraft_pose_estimation_tpu_torch/csrc/nms_mask_sorted.cu",
+                replaces="spacecraft_pose_estimation_tpu/ops/pallas_nms.py:67",
+                run_k=lambda a=nms_args: m.nms.nms_mask_sorted(*a),
+                run_p=lambda a=nms_args: m.nms.nms_mask_sorted_plain(*a),
+                run_lib=lib, tol=0.0, peak=FP32_FLOPS, numbers=(p * n * (16 + 1 + 1), pairs * 15.0),
+                extra={"valid": int(valid.sum()), "kept": int(kept), "iou_pairs": int(pairs)})
+
+
+def nms_rows(torch, m, dev, calls, label):
+    """K4's rows on a detector call's two captured calls: the RPN's, then the box head's."""
     rows = []
     for i, (nms_args, _) in enumerate(calls):
-        boxes, valid, thresh = nms_args
-        p, n = valid.shape
-        kept = float(m.nms.nms_mask_sorted_plain(boxes, valid, thresh).sum())
-        lib = None
-        if tv_ops is not None:
-            idxs = torch.arange(p, device=dev)[:, None].expand(p, n)[valid]
-            order = torch.arange(n, 0, -1, device=dev, dtype=torch.float32)[None].expand(p, n)[valid]
-            lib = (lambda b=boxes[valid], s=order, i=idxs, th=thresh: tv_ops.batched_nms(b, s, i, th))
-        rows.append(dict(id="K4", name=f"nms_mask_sorted ({label}{'rpn' if i == 0 else 'box head'} {p}x{n})",
-                         source="spacecraft_pose_estimation_tpu_torch/csrc/nms_mask_sorted.cu",
-                         replaces="spacecraft_pose_estimation_tpu/ops/pallas_nms.py:67",
-                         run_k=lambda a=nms_args: m.nms.nms_mask_sorted(*a),
-                         run_p=lambda a=nms_args: m.nms.nms_mask_sorted_plain(*a),
-                         run_lib=lib, tol=0.0, peak=FP32_FLOPS, numbers=(p * n * (16 + 1 + 1), kept * n * 15.0),
-                         extra={"valid": int(valid.sum()), "kept": int(kept)}))
+        p, n = nms_args[1].shape
+        rows.append(nms_row(torch, m, dev, nms_args, f"nms_mask_sorted ({label}{'rpn' if i == 0 else 'box head'} "
+                                                     f"{p}x{n})"))
     return rows
 
 
@@ -2396,9 +2521,14 @@ def det_step_split(torch, m, state, batch, card) -> None:
     CUDA events that wrappers around its ``model.losses`` and
     ``optimizer.step`` record (3 steps, the last reported): the losses'
     forward; the backward (from the losses to SGD: zero_grad, backward, the
-    frozen parameters' zero gradients, the gradient norm); SGD. Then
-    torch.profiler over one more step."""
+    frozen parameters' zero gradients, RetinaNet's EMA rescale, the gradient
+    norm); SGD. Then torch.profiler over one more step. A RetinaNet state
+    takes its step: no sampling draws, the EMA loss normalizer."""
     model, opt = state.model, state.optimizer
+    retina = isinstance(model, m.retinanet.RetinaNet)
+    b = batch["image"].shape[0]
+    what = f"R101 RetinaNet 800^2, batch {b}" if retina else f"X101-32x8d FPN 800^2, batch {b}"
+    label = f"{'RetinaNet' if retina else 'detector'} train step ({'config_20' if retina else 'config_1'}, batch {b})"
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
 
     def between(fn, first: int, last: int):
@@ -2410,22 +2540,22 @@ def det_step_split(torch, m, state, batch, card) -> None:
 
         return call
 
-    step = m.detection_state.make_detection_train_step()
-    gen = lambda: m.landmark_loop.step_generator(42, 0)
+    step = m.detection_state.make_detection_train_step(needs_sampling_rng=not retina, ema_loss_normalizer=retina)
+    run = lambda: step(state, batch, generator=m.landmark_loop.step_generator(42, 0))
     spans = []
     model.losses, opt.step = between(model.losses, 0, 1), between(opt.step, 2, 3)
     try:
         for _ in range(3):
-            step(state, batch, generator=gen())
+            run()
             sync()
             spans.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
     finally:
         del model.losses, opt.step  # the instance's wrappers: the class's methods again
     fwd, bwd, sgd = spans[-1]
-    log(f"detector train step split by CUDA events (X101-32x8d FPN 800^2, batch 4) on {card} (all "
+    log(f"{'RetinaNet' if retina else 'detector'} train step split by CUDA events ({what}) on {card} (all "
         f"{[[round(v, 4) for v in r] for r in spans]}): losses forward {fwd:.4f} ms, backward {bwd:.4f} ms, "
         f"SGD {sgd:.4f} ms")
-    profile_call(torch, lambda: step(state, batch, generator=gen()), "detector train step (config_1, batch 4)")
+    profile_call(torch, run, label)
 
 
 def det_repeated_batch(torch, m, dev, args, batch, card) -> None:
@@ -2543,6 +2673,222 @@ def det_phase(torch, m, dev, card):
         torch.cuda.empty_cache()
         det_repeated_batch(torch, m, dev, args, train_batch, card)
     log(f"detector training phase: {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
+RETINA_TRAIN_FRAMES, RETINA_VAL_FRAMES, RETINA_STEPS, RETINA_REPEATS = 20, 10, 6, 8
+# a sweep of 1e-6 to 3e-5 on the card: from 3e-5 the loss climbs again after the second update
+RETINA_REPEAT_LR = 1e-5
+
+
+def calibrate_frozen_bn(torch, m, model, images) -> None:
+    """Set every FrozenBN's statistics to those of its input on ``images``
+    (scale 1, bias 0), in forward order in one pass, so the seeded trunk
+    keeps its activations at about unit scale as a pretrained trunk's
+    folded BN does. Without it the random R101's features put RetinaNet's
+    logits in the thousands: loss_cls ~1e5 at the first step and NaN by
+    the fourth, even at the warmup's lr of 1e-7 (H100, config_20)."""
+    def pre(mod, inputs):
+        x = inputs[0].float()
+        mod.mean.copy_(x.mean(dim=(0, 2, 3)))
+        mod.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+        mod.scale.fill_(1.0)
+        mod.bias.zero_()
+
+    hooks = [mod.register_forward_pre_hook(pre) for mod in model.modules()
+             if isinstance(mod, m.resnet_backbone.FrozenBN)]
+    try:
+        with torch.no_grad():
+            model.pyramid(images)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_retina_train_tiny_against_cpu(torch, m) -> None:
+    """``RETINANET_TINY`` in float32 (TF32 off) on the card against the CPU:
+    3 EMA SGD updates (lr 1e-3, momentum 0.9, weight decay 1e-4) from the
+    same weights on the same batch. The losses, ``num_fg``, the loss
+    normalizer and the grad norms within 1e-4 relative; the parameters
+    within 1 lr, at most 1% of them beyond 1e-3 lr (the tiny detector
+    check's bars)."""
+    data = tiny_det_batch(torch)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = m.retinanet.RetinaNet(m.retinanet.RETINANET_TINY, device=device,
+                                      generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():  # tests/test_torch_retinanet.py's conditioning: a small stem, tame heads
+            model.backbone.stem.conv.weight.mul_(1e-2)
+            gen = torch.Generator().manual_seed(7)
+            for conv in (model.head.cls_score, model.head.bbox_pred):
+                conv.weight.copy_(0.05 * torch.randn(conv.weight.shape, generator=gen))
+        opt = m.optim.build_optimizer("sgd", model.parameters(), m.optim.multistep_schedule(DET_TINY_LR, [2]),
+                                      weight_decay=1e-4, momentum=0.9)
+        state = m.detection_state.DetTrainState(model, opt)
+        step = m.detection_state.make_detection_train_step(needs_sampling_rng=False, ema_loss_normalizer=True)
+        batch = {k: v.to(device) for k, v in data.items()}
+        mets = [{k: v.item() for k, v in step(state, batch).items()} for _ in range(3)]
+        runs[device] = (mets, {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (mc, sc), (mg, sg) = runs["cpu"], runs["cuda"]
+    rel = lambda k: max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-6) for a, b in zip(mc, mg))
+    loss_err = max(rel(k) for k in mc[0] if k.startswith("loss") or k == "num_fg")
+    gn_err = rel("grad_norm")
+    dp = torch.cat([((sg[k] - v).abs() / DET_TINY_LR).flatten() for k, v in sc.items()])
+    share = (dp > 1e-3).float().mean().item()
+    log(f"tiny RetinaNet train steps, card vs CPU (RETINANET_TINY, 3 EMA SGD updates, f32): loss_total "
+        f"{[round(a['loss_total'], 6) for a in mg]}, loss_normalizer {[round(a['loss_normalizer'], 6) for a in mg]}, "
+        f"num_fg {[a['num_fg'] for a in mg]}; losses relative err {loss_err:.3g} (limit 1e-4), grad norms "
+        f"{gn_err:.3g} (limit 1e-4), parameters max {dp.max().item():.3g} lr (limit 1), share beyond 1e-3 lr "
+        f"{share:.3g} (limit 0.01) of {dp.numel()}")
+    if not (loss_err <= 1e-4 and gn_err <= 1e-4 and dp.max().item() <= 1.0 and share <= 0.01):
+        raise RuntimeError(f"tiny RetinaNet train steps differ between the card and the CPU: loss {loss_err}, grad "
+                           f"norm {gn_err}, parameters {dp.max().item()} lr, share {share}")
+
+
+def retina_nms_rows(torch, m, dev, call, label):
+    """K4's rows on RetinaNet's evaluation call: as the model scored it, and
+    on the same sorted candidate boxes with every candidate valid (the
+    coverage set: a model that scores few candidates above
+    ``score_thresh`` leaves most rows out of phase 1). The second is no
+    call of the path: its name says so, and its ``launches`` is, as on
+    every row, K4's count in the path's run."""
+    (boxes, valid, thresh), _ = call
+    p, n = valid.shape
+    return [nms_row(torch, m, dev, (boxes, v, thresh), f"nms_mask_sorted ({label} {p}x{n}, {what})")
+            for what, v in (("as scored", valid),
+                            ("coverage, not a path call: every candidate valid", torch.ones_like(valid)))]
+
+
+def retina_repeated_batch(torch, m, dev, args, batch, card) -> None:
+    """RETINA_REPEATS updates of a fresh config_20 model (its FrozenBN
+    calibrated on the batch) on one augmented batch of 10, SGD at a constant RETINA_REPEAT_LR (momentum 0.9, weight
+    decay 1e-4), the EMA step: the mean loss_total of the last 3 must be
+    below that after the first update (not only below the first, which the
+    first update's drop from the random heads' loss would pass alone). Then
+    the step's split and a profiled step."""
+    model = m.train_detector.build_model(args, dev)
+    calibrate_frozen_bn(torch, m, model, batch["image"])
+    opt = m.optim.build_optimizer("sgd", model.parameters(), RETINA_REPEAT_LR, weight_decay=1e-4, momentum=0.9)
+    state = m.detection_state.DetTrainState(model, opt)
+    step = m.detection_state.make_detection_train_step(needs_sampling_rng=False, ema_loss_normalizer=True)
+    losses, ms = [], []
+    for _ in range(RETINA_REPEATS):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(step(state, batch)["loss_total"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    last = sum(losses[-3:]) / 3
+    log(f"RetinaNet train step on one repeated batch of {args.batch_size} (config_20 R101 800^2, bf16, SGD at a "
+        f"constant {RETINA_REPEAT_LR}) on {card}: loss_total {[round(v, 6) for v in losses]}; after the first "
+        f"update {losses[1]:.6f}, mean of the last 3 {last:.6f} (must be lower); step {median(ms[2:]):.4f} ms (median "
+        f"of steps 3-{RETINA_REPEATS})")
+    if not (all(math.isfinite(v) for v in losses) and last < losses[1]):
+        raise RuntimeError(f"{RETINA_REPEATS} RetinaNet updates on one batch did not lower loss_total: {losses}")
+    det_step_split(torch, m, state, batch, card)
+
+
+def retina_phase(torch, m, dev, card):
+    """``tools.train_detector.train`` with ``--preset config_20`` at full
+    width on the card; returns K4's rows on its evaluation's call and the
+    run's launch counts."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    check_retina_train_tiny_against_cpu(torch, m)
+    with tempfile.TemporaryDirectory() as out_dir:
+        train_json, train_ex = detection_scene(torch, m, dev, RETINA_TRAIN_FRAMES, 41, out_dir, "retina_train")
+        val_json, val_ex = detection_scene(torch, m, dev, RETINA_VAL_FRAMES, 42, out_dir, "retina_val")
+        args = m.train_detector.parse_args([
+            "--preset", "config_20", "--train-json", train_json, "--val-json", val_json, "--image-dir", out_dir,
+            "--output", os.path.join(out_dir, "run"), "--max-iter", str(RETINA_STEPS)])
+        cfg = m.train_detector.model_config(args)
+        log(f"train_detector config: --preset config_20 (R101 RetinaNet, depth {cfg.backbone.depth}, "
+            f"{args.input_size}^2, batch {args.batch_size}, {cfg.num_convs}-conv towers, top {cfg.topk_candidates} "
+            f"a level, NMS {cfg.nms_thresh}, flip {args.flip}), SGD lr {args.lr} warmup {args.solver.warmup_iters} "
+            f"momentum 0.9 weight decay 1e-4, the EMA loss normalizer, bf16 over float32, seeded weights with FrozenBN "
+            f"calibrated on a training batch; {RETINA_TRAIN_FRAMES} "
+            f"training and {RETINA_VAL_FRAMES} validation frames of {FRAME_HW[1]}x{FRAME_HW[0]}, {RETINA_STEPS} steps "
+            f"(cut from {args.solver.max_iter}), one evaluation at the end")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        steps = Timed(m.train_detector, "make_detection_train_step", factory=True, keep=True)
+        k4 = Capture(m.nms, "nms_mask_sorted", keep=lambda a: a[0].shape[0] == args.batch_size)
+        calib = next(m.detection_dataset.detection_batches(train_ex, args.batch_size, (args.input_size,) * 2,
+                                                           flip=True, num_workers=0))["image"]
+        build = m.train_detector.build_model
+
+        def calibrated(a, device):  # the trainer's seeded model, its FrozenBN calibrated on a training batch
+            model = build(a, device)
+            calibrate_frozen_bn(torch, m, model, calib)
+            return model
+
+        m.train_detector.build_model = calibrated
+        try:
+            with steps, k4:
+                reset_counts(m)
+                t1 = time.perf_counter()
+                trainer = m.train_detector.train(args, train_ex, val_ex, dev)
+                sync()
+                wall = time.perf_counter() - t1
+                launches = read_counts(m)
+        finally:
+            m.train_detector.build_model = build
+        del calib
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        state = trainer.state
+        mets = [{k: float(v) for k, v in met.items()} for met in steps.results]
+        losses = [met["loss_total"] for met in mets]
+        finite = all(math.isfinite(v) for met in mets for v in met.values()) and all(
+            bool(torch.isfinite(v).all()) for v in state.model.state_dict().values())
+        ap = {k: v[0] for k, v in trainer.storage.latest().items() if k.startswith("bbox/")}
+        step_ms = median(steps.ms[2:])
+        log(f"train_detector (config_20 on {card}): {wall:.4f} s in all; train step {step_ms:.4f} ms (median of "
+            f"steps 3-{RETINA_STEPS}; all {[round(v, 4) for v in steps.ms]}) = "
+            f"{args.batch_size / step_ms * 1e3:.3f} images/s; peak memory {peak_gb:.4f} GB "
+            f"(torch.cuda.max_memory_allocated; {held_gb:.4f} GB of it held before the run); loss_total "
+            f"{[round(v, 5) for v in losses]}; num_fg {[met['num_fg'] for met in mets]}; loss_normalizer "
+            f"{[round(met['loss_normalizer'], 4) for met in mets]}; grad_norm {[round(met['grad_norm'], 4) for met in mets]}; "
+            f"EvalHook box AP at one detection an image {json.dumps(ap)}; launches {json.dumps(launches)}")
+        if not finite or len(losses) != RETINA_STEPS:
+            raise RuntimeError(f"train_detector config_20: a metric or a parameter is not finite: {mets}")
+        if launches["K4"] == 0:
+            raise RuntimeError("kernel K4 was not launched by the RetinaNet trainer's evaluation")
+        if "bbox/AP" not in ap:
+            raise RuntimeError(f"the RetinaNet trainer's EvalHook reported no AP: {ap}")
+        (boxes, valid, _), _ = k4.calls[-1]
+        levels = {lvl: math.ceil(args.input_size / st) for lvl, st in m.retinanet.RETINA_STRIDES.items()}
+        want_n = sum(min(cfg.topk_candidates, s * s * 9) for s in levels.values())
+        log(f"RetinaNet evaluation's NMS: K4 on {tuple(boxes.shape[:2])} (levels {levels}: {want_n} candidates an "
+            f"image), {int(valid.sum())} above score_thresh {cfg.score_thresh}")
+        if tuple(boxes.shape[:2]) != (args.batch_size, want_n):
+            raise RuntimeError(f"RetinaNet's NMS ran on {tuple(boxes.shape[:2])}, not {args.batch_size}x{want_n}")
+        # the final checkpoint's .npz, loaded into a fresh RetinaNet
+        npz = os.path.join(args.output, "checkpoints", str(state.step), "model.npz")
+        loaded = m.retinanet.RetinaNet(cfg, dtype=torch.bfloat16, device=dev)
+        loaded.load_state_dict(m.convert.flax_to_state_dict({"params": m.evaluate.load_npz_variables(npz)["params"]}))
+        trained = state.model.state_dict()
+        params_equal = all(torch.equal(v, trained[k]) for k, v in loaded.state_dict().items())
+        batch = next(m.detection_dataset.detection_batches(val_ex, args.batch_size, (args.input_size,) * 2,
+                                                           train=False, augment=False, num_workers=0))
+        with torch.no_grad():
+            a, b = loaded(batch["image"]), state.model(batch["image"])
+        box_err = (a["boxes"] - b["boxes"]).abs().max().item()
+        log(f"train_detector config_20: the final .npz ({os.path.getsize(npz)} bytes) into a RetinaNet: parameters "
+            f"equal {params_equal}; detections on {args.batch_size} validation frames {box_err} px from the trained "
+            f"model's (limit 0), valid equal {torch.equal(a['valid'], b['valid'])}, "
+            f"{int(b['valid'].sum())} valid; the state's loss_normalizer {float(state.loss_normalizer):.4f}")
+        if not params_equal or box_err != 0 or not torch.equal(a["valid"], b["valid"]):
+            raise RuntimeError(f"the trained RetinaNet's .npz gives other detections: {box_err}")
+        del loaded, a, b
+        rows = retina_nms_rows(torch, m, dev, k4.calls[-1], "train_detector config_20 evaluation:")
+        train_batch = next(m.detection_dataset.detection_batches(train_ex, args.batch_size, (args.input_size,) * 2,
+                                                                 flip=True, num_workers=0))
+        del trainer, state, k4
+        torch.cuda.empty_cache()
+        retina_repeated_batch(torch, m, dev, args, train_batch, card)
+    log(f"RetinaNet training phase: {time.perf_counter() - t0:.1f} s")
     return rows, launches
 
 
@@ -3240,7 +3586,7 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.data import camera
     from spacecraft_pose_estimation_tpu_torch.data import coco_io, detection_dataset, landmark_dataset
     from spacecraft_pose_estimation_tpu_torch.models import (
-        backbone_int8, hrnet, hrnet_int8, layers, rcnn, resnet_backbone,
+        backbone_int8, hrnet, hrnet_int8, layers, rcnn, resnet_backbone, retinanet,
     )
     from spacecraft_pose_estimation_tpu_torch.models import discriminator
     from spacecraft_pose_estimation_tpu_torch.tools import (
@@ -3270,7 +3616,7 @@ def load_port():
                         train_detector=train_detector, convert=convert, emulator=emulator, slomo=slomo, ev_io=ev_io,
                         v2e=v2e, convert_aedats=convert_aedats, evaluate_event_pipeline=evaluate_event_pipeline,
                         augment=augment, make_synthetic_scene=make_synthetic_scene,
-                        train_pipeline_dvs=train_pipeline_dvs)
+                        train_pipeline_dvs=train_pipeline_dvs, retinanet=retinanet)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -3316,6 +3662,7 @@ def main() -> int:
     check_single_coverage(torch, m)
     check_nms_coverage(torch, m)
     check_tiny_against_cpu(torch, m)
+    check_ransac_repeats(torch, m)
 
     dev = torch.device("cuda")
     args = (rcnn.FASTER_RCNN_R101_SERVING_1OBJ, hrnet.POSE_HRNET_W32, FRAME_HW, 768, serving.SERVING_PIPELINE)
@@ -3381,6 +3728,10 @@ def main() -> int:
 
     # tools/train_detector.py's config_1 at full width: K2, its backward and K4 at N = 2000
     report += kernel_report(*det_phase(torch, m, dev, card))
+    torch.cuda.empty_cache()
+
+    # tools/train_detector.py's config_20: the R101 RetinaNet at full width, K4 at 10x4441 in its evaluation
+    report += kernel_report(*retina_phase(torch, m, dev, card))
     torch.cuda.empty_cache()
 
     # the event-camera half: v2e at 1280x720, and the event evaluation of DAVIS346

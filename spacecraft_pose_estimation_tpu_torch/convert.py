@@ -1,8 +1,9 @@
 """Weight bridges to and from the JAX package: variable trees and quantized trees.
 
-The port's module names mirror the Flax trees of ``HRNet`` and
-``GeneralizedRCNN`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
-``backbone.res2_b0.shortcut``, ``roi_heads.box_head.fc1`` ...), so the map
+The port's module names mirror the Flax trees of ``HRNet``,
+``GeneralizedRCNN`` and ``RetinaNet`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
+``backbone.res2_b0.shortcut``, ``roi_heads.box_head.fc1``, ``head.cls_conv0``,
+``p6`` ...), so the map
 is by name: conv kernels go from HWIO to OIHW, transposed-conv kernels
 (the modules named ``deconv``, ``deconv0`` ...: the CMS heads' and
 PoseResNet's) are flipped in space and laid out (in, out, kh, kw), dense
@@ -49,8 +50,8 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     """Map {"params": ..., "batch_stats": ...} onto ``state_dict`` names.
 
     Works for ``models.hrnet.HRNet``, ``models.pose_resnet.PoseResNet``,
-    ``models.discriminator.MultiScaleDiscriminator`` and
-    ``models.rcnn.GeneralizedRCNN``;
+    ``models.discriminator.MultiScaleDiscriminator``,
+    ``models.rcnn.GeneralizedRCNN`` and ``models.retinanet.RetinaNet``;
     load the result with ``load_state_dict(..., strict=True)`` so that a
     name the two sides disagree on raises.
     """

@@ -13,15 +13,16 @@
 // calls are the RPN's 20 problems of 256 boxes and the box head's 4 of 64.
 //
 // Design: one block per problem (an image's pyramid level in the RPN, an
-// image in the box head), N <= 2048, in two phases.
+// image in the box head or in RetinaNet), N <= 8192, in two phases.
 // 1. In parallel, with no order between them: for each valid row i and
 //    each j > i, bit j of mask[i] is set when IoU(i, j) > threshold. mask
 //    is N x ceil(N / 64) uint64 words in shared memory (8 KB at N = 256,
 //    128 KB at 1,024) for N <= 1,024, the serving and evaluation calls.
 //    Above that it does not fit an SM (512 KB at 2,048, where training's
-//    RPN runs at N = 2,000), so it goes to a global workspace of the same
-//    layout, 512 KB a problem, which the wrapper allocates and L2 holds;
-//    the kernel is otherwise the same. The tasks (column word wd, row i <= its last box)
+//    RPN runs at N = 2,000; 2.49 MB at 4,441, RetinaNet's five levels at
+//    800^2; 8 MB at 8,192), so it goes to a global workspace of the same
+//    layout, which the wrapper allocates and L2 holds; the kernel is
+//    otherwise the same. The tasks (column word wd, row i <= its last box)
 //    are dealt to the warps in turn in column-major order; a warp keeps
 //    its column's 64 boxes in registers (two per lane), reads each row's
 //    box as a broadcast, and builds the word with two __ballot_sync. The
@@ -30,16 +31,21 @@
 //    RN(inter / u) > threshold, u = fmaxf(uni, 1e-12), is the old one bit
 //    for bit: two exact residuals settle it without dividing (see
 //    over_threshold). One __syncthreads.
-// 2. One warp walks the boxes in order, a 64-box word at a time. Lane w
-//    holds removed-word w in a register (N / 64 <= 32 words); the word's
-//    alive (valid, not removed) bits reach every lane with one __shfl_sync.
-//    Box b of the word is kept iff still alive when reached; then it clears
-//    its later boxes of the word (its row's own word, the same for every
-//    lane) and the lanes of later words OR in its row's words. The loop over
-//    b is unrolled, so each bit test is a constant mask, and a row's loads
-//    do not wait for the walk; the walk's chain is two register operations
+// 2. One warp walks the boxes in order, a 64-box word at a time. Lane l
+//    holds removed-words l, l + 32, l + 64 and l + 96 in registers, LW of
+//    them (LW = ceil(W / 32), a template argument: 1 up to 2,048 boxes, 3
+//    at 4,441, 4 at 8,192); the word's alive (valid, not removed) bits
+//    reach every lane with one __shfl_sync. Box b of the word is kept iff
+//    still alive when reached; then it clears its later boxes of the word
+//    (its row's own word, the same for every lane) and each lane ORs its
+//    row's words into those of its later words. The loop over b is
+//    unrolled, so each bit test is a constant mask, and a row's loads do
+//    not wait for the walk; the walk's chain is two register operations
 //    per box, and a quarter of a word with no alive box is skipped. No
 //    block barrier inside the walk.
+// Shared memory: 21 bytes a box (box, area, valid flag) and the kept words,
+// plus the mask up to 1,024 boxes: 173 KB at 8,192, under the 227 KB a
+// block may have, which is what caps N there.
 //
 // Why the bits j > i are enough: if i is kept and a kept j < i had IoU(j, i)
 // > threshold, j would have removed i, so a kept i removes no kept j < i;
@@ -50,9 +56,10 @@
 
 namespace {
 
-constexpr int kMaxBoxes = 2048;
+constexpr int kMaxBoxes = 8192;
 constexpr int kMaxSmemBoxes = 1024;  // the largest N whose mask stays in shared memory
-constexpr int kMaxWords = kMaxBoxes / 64;  // one a lane of the walking warp
+constexpr int kMaxWords = kMaxBoxes / 64;
+constexpr int kMaxLaneWords = kMaxWords / 32;  // words a lane of the walking warp holds at most
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ constexpr size_t smem_bytes(int n, bool mask_in_smem) {
@@ -72,6 +79,7 @@ __device__ __forceinline__ bool over_threshold(float inter, float u, float t, fl
   return inter / u > t;
 }
 
+template <int LW>
 __global__ void __launch_bounds__(1024)
 nms_mask_sorted_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
                        bool* __restrict__ keep, uint64_t* gmask, int N, float threshold) {
@@ -139,13 +147,23 @@ nms_mask_sorted_kernel(const float* __restrict__ boxes, const uint8_t* __restric
 
   // phase 2: one warp walks the boxes in order, a word at a time
   if (warp == 0) {
-    uint64_t removed = 0, kept = 0;  // lane w: word w
-    const int wl = min(lane, W - 1);  // lanes past the row's words read its last one, unused
+    uint64_t removed[LW], kept[LW];  // lane l, slot s: word l + 32 s
+    int wl[LW];  // the words a lane ORs in; past the row's last, its last one, unused
+#pragma unroll
+    for (int s = 0; s < LW; ++s) {
+      removed[s] = kept[s] = 0;
+      wl[s] = min(lane + 32 * s, W - 1);
+    }
     for (int wd = 0; wd < W; ++wd) {
       const int j = wd * 64 + lane;
       const uint64_t lo = __ballot_sync(kFull, j < N && v[j]);
       const uint64_t hi = __ballot_sync(kFull, j + 32 < N && v[j + 32]);
-      uint64_t alive = (lo | (hi << 32)) & ~__shfl_sync(kFull, removed, wd);
+      const int ws = wd >> 5;  // the slot of word wd, the same in every lane
+      uint64_t removed_wd = 0;
+#pragma unroll
+      for (int s = 0; s < LW; ++s)
+        if (s == ws) removed_wd = removed[s];
+      uint64_t alive = (lo | (hi << 32)) & ~__shfl_sync(kFull, removed_wd, wd & 31);
       const int last = min(64, N - wd * 64) - 1;  // rows past it are not there: their bits are 0
 #pragma unroll
       for (int q = 0; q < 64; q += 16) {
@@ -154,21 +172,49 @@ nms_mask_sorted_kernel(const float* __restrict__ boxes, const uint8_t* __restric
         for (int b = q; b < q + 16; ++b) {
           // row i = 64 wd + b holds bits j > i only, in its words wd..W-1
           const uint64_t* row = mask + static_cast<size_t>(wd * 64 + min(b, last)) * W;
-          const uint64_t own = row[wd], mine = row[wl];
+          const uint64_t own = row[wd];
+          uint64_t mine[LW];
+#pragma unroll
+          for (int s = 0; s < LW; ++s) mine[s] = row[wl[s]];
           if (alive & (1ull << b)) {  // the same in every lane
             alive &= ~own;
-            if (lane > wd) removed |= mine;
+#pragma unroll
+            for (int s = 0; s < LW; ++s)
+              if (lane + 32 * s > wd) removed[s] |= mine[s];
           }
         }
       }
-      if (lane == wd) kept = alive;
+#pragma unroll
+      for (int s = 0; s < LW; ++s)
+        if (s == ws && lane == (wd & 31)) kept[s] = alive;
     }
-    if (lane < W) kept_s[lane] = kept;
+#pragma unroll
+    for (int s = 0; s < LW; ++s)
+      if (lane + 32 * s < W) kept_s[lane + 32 * s] = kept[s];
   }
   __syncthreads();
 
   for (int j = threadIdx.x; j < N; j += blockDim.x)
     keep[base + j] = (kept_s[j >> 6] >> (j & 63)) & 1;
+}
+
+template <int LW>
+cudaError_t launch(const void* boxes, const void* valid, void* keep, void* workspace, int P, int N,
+                   float threshold, cudaStream_t stream) {
+  const bool in_smem = N <= kMaxSmemBoxes;
+  // the most shared memory any call asks for: the mask of 1,024 boxes, or the boxes of 8,192
+  constexpr size_t most = smem_bytes(kMaxSmemBoxes, true) > smem_bytes(kMaxBoxes, false)
+                              ? smem_bytes(kMaxSmemBoxes, true) : smem_bytes(kMaxBoxes, false);
+  static_assert(most <= 232448, "more shared memory than a block may have");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      nms_mask_sorted_kernel<LW>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
+  if (attr != cudaSuccess) return attr;
+  // a warp per 8 rows, at most 32 warps
+  const int threads = 32 * min(32, (N + 7) / 8);
+  nms_mask_sorted_kernel<LW><<<P, threads, smem_bytes(N, in_smem), stream>>>(
+      static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
+      static_cast<bool*>(keep), in_smem ? nullptr : static_cast<uint64_t*>(workspace), N, threshold);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -181,16 +227,15 @@ extern "C" int nms_mask_sorted(const void* boxes, const void* valid, void* keep,
                                int P, int N, float threshold, void* stream) {
   if (P == 0 || N == 0) return 0;
   if (N > kMaxBoxes) return static_cast<int>(cudaErrorInvalidValue);
-  const bool in_smem = N <= kMaxSmemBoxes;
-  if (!in_smem && workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      nms_mask_sorted_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(kMaxSmemBoxes, true)));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  // a warp per 8 rows, at most 32 warps
-  const int threads = 32 * min(32, (N + 7) / 8);
-  nms_mask_sorted_kernel<<<P, threads, smem_bytes(N, in_smem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<bool*>(keep), in_smem ? nullptr : static_cast<uint64_t*>(workspace), N, threshold);
+  if (N > kMaxSmemBoxes && workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int lane_words = ((N + 63) / 64 + 31) / 32;
+  static_assert(kMaxLaneWords == 4, "one instantiation a lane-word count");
+  const cudaError_t err =
+      lane_words == 1 ? launch<1>(boxes, valid, keep, workspace, P, N, threshold, s)
+      : lane_words == 2 ? launch<2>(boxes, valid, keep, workspace, P, N, threshold, s)
+      : lane_words == 3 ? launch<3>(boxes, valid, keep, workspace, P, N, threshold, s)
+                        : launch<4>(boxes, valid, keep, workspace, P, N, threshold, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   SPE_RETURN_LAUNCH_STATUS();
 }

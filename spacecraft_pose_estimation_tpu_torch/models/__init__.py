@@ -1,4 +1,4 @@
-"""Models of the port: the landmark nets, the domain discriminator and the Faster R-CNN detector, and their int8 forms."""
+"""Models of the port: the landmark nets, the domain discriminator, the Faster R-CNN and RetinaNet detectors, and the int8 forms."""
 
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Feature Pyramid Network with the LastLevelMaxPool p6 (port of ``models/fpn.py``)."""
+"""Feature Pyramid Network, with or without the LastLevelMaxPool p6 (port of ``models/fpn.py``)."""
 
 from __future__ import annotations
 
@@ -10,13 +10,18 @@ FPN_STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64}
 
 
 class FPN(nn.Module):
-    """1x1 laterals, nearest top-down sum, 3x3 outputs, p6 = p5[::2, ::2].
+    """1x1 laterals, nearest top-down sum, 3x3 outputs and, with
+    ``last_level_max_pool``, p6 = p5[::2, ::2].
 
-    Takes and returns NCHW dicts: {res2..res5} -> {p2..p6}.
+    Takes and returns NCHW dicts. The levels of ``in_channels`` feed the
+    pyramid (the JAX module's ``in_levels``): {res2..res5} -> {p2..p6} for
+    the Faster R-CNN; RetinaNet's {res3..res5} -> {p3..p5}, without the
+    max-pool (it builds learned p6 and p7 itself).
     """
 
-    def __init__(self, in_channels: dict[str, int], out_channels: int = 256):
+    def __init__(self, in_channels: dict[str, int], out_channels: int = 256, last_level_max_pool: bool = True):
         super().__init__()
+        self.last_level_max_pool = last_level_max_pool
         self.names = sorted(in_channels)  # fine -> coarse
         for n in self.names:
             self.add_module(f"lateral_{n}", Conv(in_channels[n], out_channels, 1))
@@ -33,6 +38,6 @@ class FPN(nn.Module):
         for n, o in zip(self.names, outs):
             p = f"p{int(n[3:])}"
             results[p] = getattr(self, f"output_{p}")(o)
-        # LastLevelMaxPool: a 1x1 max-pool at stride 2 is a strided slice
-        results["p6"] = results["p5"][:, :, ::2, ::2]
+        if self.last_level_max_pool:  # a 1x1 max-pool at stride 2 is a strided slice
+            results["p6"] = results["p5"][:, :, ::2, ::2]
         return results

@@ -1,10 +1,9 @@
 """Named detector presets (port of ``models/zoo.py``: ``object_detection_utils.py`` config_1..config_20).
 
-Each name maps to an architecture, an ``RCNNConfig``, the input size, the
+Each name maps to an architecture, an ``RCNNConfig`` (``config_1``-
+``config_4``) or a ``RetinaNetConfig`` (``config_20``), the input size, the
 flip and the SOLVER block the reference trains that config with.
-``config_4`` pins the input size to the frame height. ``config_20`` is
-RetinaNet, which the port does not have: it is listed, and building it
-raises.
+``config_4`` pins the input size to the frame height.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from typing import Any
 
 from .rcnn import FASTER_RCNN_X101_SPACECRAFT
 from .resnet_backbone import RESNET101_FPN
+from .retinanet import RetinaNetConfig
 from .roi_heads import ROIHeadsConfig
 
 
@@ -35,7 +35,7 @@ class SolverPreset:
 @dataclasses.dataclass(frozen=True)
 class DetectorPreset:
     arch: str  # 'faster_rcnn' | 'retinanet'
-    config: Any  # an RCNNConfig; None for RetinaNet, which is not ported
+    config: Any  # an RCNNConfig or a RetinaNetConfig
     input_size: int | None = None  # None -> pin to image height (config_4)
     flip: bool = False
     solver: SolverPreset | None = None
@@ -91,11 +91,12 @@ DETECTOR_PRESETS: dict[str, DetectorPreset] = {
                             steps=(8000,), eval_period=5000),
         notes="X101-FPN pinned-size class-agnostic (the eval preset)",
     ),
-    # RetinaNet R101 3x: not ported
+    # RetinaNet R101 3x
     "config_20": DetectorPreset(
         arch="retinanet",
-        config=None,
+        config=RetinaNetConfig(backbone=RESNET101_FPN, num_classes=1),
         input_size=800,
+        # config_20's INPUT block is commented out upstream: detectron2's default horizontal flip
         flip=True,
         solver=SolverPreset(max_iter=20000, base_lr=0.0001, ims_per_batch=10, warmup_iters=500,
                             steps=(6000, 10000, 15000), eval_period=10000),
@@ -114,7 +115,5 @@ def get_detector_preset(name: str, image_height: int | None = None) -> DetectorP
 
 
 def build_detector_config(preset: DetectorPreset):
-    """The preset's ``RCNNConfig``; RetinaNet raises."""
-    if preset.arch != "faster_rcnn":
-        raise NotImplementedError(f"--arch {preset.arch}: RetinaNet is not ported")
+    """The preset's ``RCNNConfig`` or ``RetinaNetConfig``."""
     return preset.config

@@ -3,10 +3,12 @@
     python -m spacecraft_pose_estimation_tpu_torch.tools.train_detector --preset config_1 \\
         --train-json train.json --image-dir DIR [--val-json val.json] --output OUT [--device cpu] [--tiny ...]
 
-The Faster R-CNN of a ``--preset`` (``config_1``-``config_4``, the
-reference registry's model, input size, flip and SOLVER schedule; any
-explicit flag overrides its field) or, without one, the X101-FPN of
-``config_4``; bf16 activations over float32 weights; SGD with momentum 0.9
+The detector of a ``--preset`` (the Faster R-CNN of ``config_1``-
+``config_4`` or the R101 RetinaNet of ``config_20``: the reference
+registry's model, input size, flip and SOLVER schedule; any explicit flag
+overrides its field) or, without one, the X101-FPN of ``config_4`` (the
+R101 RetinaNet with ``--arch retinanet``; ``--tiny`` takes ``RCNN_TINY``
+or ``RETINANET_TINY``); bf16 activations over float32 weights; SGD with momentum 0.9
 and weight decay 1e-4 on every parameter under detectron2's multistep
 schedule with warmup; the hook-driven trainer with periodic checkpoints
 and, with ``--val-json``, box AP at one detection an image every
@@ -14,14 +16,15 @@ and, with ``--val-json``, box AP at one detection an image every
 ``OUT/checkpoints/<step>/model.npz`` is what ``evaluate
 --detector-checkpoint`` and ``tools.export_boxes --checkpoint`` read; a run
 restarted on the same ``OUT`` resumes from the latest checkpoint and goes
-on with the batch after its last one.
+on with the batch after its last one. RetinaNet draws nothing for
+sampling; its step normalizes the losses by the EMA of the foreground
+count (``train/detection_state``), which the checkpoints keep.
 
 ``--photometric-augs event|speedplus`` runs the event or SPEED+ stack
 (``data/augment.EVENT_STACK`` / ``SPEEDPLUS_STACK``) on each training
 batch's letterboxed float32 BGR images before the step, with the draws of
-a generator on the device seeded from (42, step). RetinaNet (``--arch
-retinanet``, ``config_20``) is not ported: it raises. It runs on CUDA
-unless given ``--device cpu``.
+a generator on the device seeded from (42, step). It runs on CUDA unless
+given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..data.coco_eval import evaluate_detections, padded_detections_to_list
 from ..data.detection_dataset import DetectionExamples, detection_batches
 from ..device import resolve_device
 from ..models.rcnn import FASTER_RCNN_X101_SPACECRAFT, RCNN_TINY, GeneralizedRCNN
+from ..models.retinanet import RETINANET_TINY, RetinaNet, RetinaNetConfig
 from ..models.zoo import build_detector_config, get_detector_preset
 from ..train.checkpoint import CheckpointManager
 from ..train.detection_state import DetTrainState, make_detection_train_step
@@ -106,18 +110,21 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
 
 
 def model_config(args: argparse.Namespace):
-    """The ``RCNNConfig`` of ``args``: ``RCNN_TINY`` with ``--tiny``, else the
-    preset's, else ``config_4``'s X101-FPN. RetinaNet raises."""
-    if args.arch != "faster_rcnn":
-        raise NotImplementedError(f"--arch {args.arch}: RetinaNet is not ported")
-    cfg = FASTER_RCNN_X101_SPACECRAFT if args.preset_config is None else build_detector_config(args.preset_config)
-    return RCNN_TINY if args.tiny else cfg
+    """The ``RCNNConfig`` or ``RetinaNetConfig`` of ``args``: the tiny one
+    with ``--tiny``, else the preset's, else ``config_4``'s X101-FPN or the
+    one-class R101 RetinaNet."""
+    retina = args.arch == "retinanet"
+    if args.tiny:
+        return RETINANET_TINY if retina else RCNN_TINY
+    if args.preset_config is not None:
+        return build_detector_config(args.preset_config)
+    return RetinaNetConfig(num_classes=1) if retina else FASTER_RCNN_X101_SPACECRAFT
 
 
-def build_model(args: argparse.Namespace, device) -> GeneralizedRCNN:
+def build_model(args: argparse.Namespace, device) -> GeneralizedRCNN | RetinaNet:
     """The detector of ``args`` from seed 0, bf16 activations over float32 weights."""
-    return GeneralizedRCNN(model_config(args), dtype=torch.bfloat16, device=device,
-                           generator=torch.Generator().manual_seed(0))
+    arch = RetinaNet if args.arch == "retinanet" else GeneralizedRCNN
+    return arch(model_config(args), dtype=torch.bfloat16, device=device, generator=torch.Generator().manual_seed(0))
 
 
 def build_schedule(args: argparse.Namespace):
@@ -143,7 +150,7 @@ def photometric_augment(images: torch.Tensor, names, step: int, draws=None) -> t
     return augment.apply_stack(images, names, draws)
 
 
-def evaluate(model: GeneralizedRCNN, examples: DetectionExamples, batch_size: int, size: int,
+def evaluate(model: GeneralizedRCNN | RetinaNet, examples: DetectionExamples, batch_size: int, size: int,
              device=None) -> dict[str, float]:
     """Box AP at one detection an image over ``examples``, letterboxed without
     augmentation (the reference's COCOEvaluator(max_dets_per_image=1))."""
@@ -174,7 +181,8 @@ def train(args: argparse.Namespace, train_examples: DetectionExamples,
     size = args.input_size
     data = detection_batches(train_examples, args.batch_size, (size, size), train=True, flip=args.flip,
                              device=device, start=state.step)
-    raw_step = make_detection_train_step()
+    retina = args.arch == "retinanet"
+    raw_step = make_detection_train_step(needs_sampling_rng=not retina, ema_loss_normalizer=retina)
     stack = PHOTOMETRIC_STACKS[args.photometric_augs]
 
     def step_fn(state, batch):

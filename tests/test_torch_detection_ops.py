@@ -14,8 +14,10 @@
 * the ``config_4`` deviation: ``pooler_impl="pallas"``, which ``jax.grad``
   cannot differentiate, trains in the port, and its ROI heads' gradient
   equals the windowed pooler's where the two windows pick the same taps;
-* K4's plain version at N = 1025, 2000 and 2048 against the XLA
-  ``nms_mask``, and the wrapper raising at 2049.
+* K4's plain version at N = 1025, 2000, 2048, 4441 (RetinaNet's
+  candidates at 800^2) and 5000 against the XLA ``nms_mask``, the
+  class-aware ``batched_nms_mask`` at 4441 against the JAX one, and the
+  wrapper raising at 8193.
 
 Masks and indices must be equal; floats within 1e-6 relative (1e-6 of the
 scale where a value is near 0); the pooler's gradient within 1e-5 of its
@@ -328,7 +330,7 @@ def _nms_problem(rng, k, all_invalid=False):
 
 
 @pytest.mark.parametrize("k,thresh,all_invalid", [(1025, 0.7, False), (2000, 0.7, False), (2000, 0.5, True),
-                                                   (2048, 0.3, False)])
+                                                   (2048, 0.3, False), (4441, 0.5, False), (5000, 0.5, False)])
 def test_nms_plain_at_training_sizes_matches_jax(k, thresh, all_invalid):
     boxes, scores, valid = _nms_problem(np.random.default_rng(k), k, all_invalid)
     want = np.asarray(jax.jit(jnms.nms_mask, static_argnums=2)(jnp.asarray(boxes), jnp.asarray(scores), thresh,
@@ -338,6 +340,23 @@ def test_nms_plain_at_training_sizes_matches_jax(k, thresh, all_invalid):
     assert (not got.any()) if all_invalid else 0 < got.sum() < valid.sum()
 
 
+def test_batched_nms_plain_at_retinanet_size_matches_jax():
+    """RetinaNet's call: 4,441 candidates of two classes, scores thresholded."""
+    rng = np.random.default_rng(7)
+    boxes, scores, valid = _nms_problem(rng, 4441)
+    classes = rng.integers(0, 2, 4441).astype(np.int32)
+    want = np.asarray(jax.jit(jnms.batched_nms_mask, static_argnums=3)(
+        jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(classes), 0.5, jnp.asarray(valid)))
+    got = n(tnms.batched_nms_mask(t(boxes), t(scores), t(classes), 0.5, t(valid)))
+    np.testing.assert_array_equal(got, want)
+    single = n(tnms.nms_mask(t(boxes), t(scores), 0.5, t(valid)))
+    assert 0 < single.sum() < got.sum() < valid.sum()  # the classes do not suppress each other
+
+
 def test_nms_raises_above_2048_boxes():
-    with pytest.raises(ValueError, match="at most 2048"):
-        tnms.nms_mask_sorted(torch.zeros(1, 2049, 4), torch.ones(1, 2049, dtype=torch.bool), 0.5)
+    """The cap was 2,048 boxes; K4 now takes 8,192 a problem and raises above."""
+    same = torch.tensor([0.0, 0.0, 10.0, 10.0]).expand(1, 2049, 4)
+    got = tnms.nms_mask_sorted(same, torch.ones(1, 2049, dtype=torch.bool), 0.5)
+    assert got.shape == (1, 2049) and bool(got[0, 0]) and not got[0, 1:].any()  # duplicates of the first
+    with pytest.raises(ValueError, match="at most 8192"):
+        tnms.nms_mask_sorted(torch.zeros(1, 8193, 4), torch.ones(1, 8193, dtype=torch.bool), 0.5)
