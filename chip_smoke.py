@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), event-camera and DVS-training paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, event-camera and DVS-training paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -126,7 +126,31 @@ toolkit. It
    repeated batch lower loss_total;
    prints the step ms, images/s, peak memory, the box AP, the train
    step's own split by CUDA events and a profiled step;
-14. trains RetinaNet: first ``RETINANET_TINY`` in float32 on the card
+14. moves weights in and out: builds from seeds, in the reference's
+   names, an HRNet-W32 ``pose_hrnet`` ``.pth`` (11 joints, with
+   ``num_batches_tracked``), the X101-32x8d FPN as a detectron2 ``.pth``
+   and as a Caffe2 zoo ``.pkl`` (342 blobs, BN absorbed into scale and
+   bias, the background class first); imports each with
+   ``tools.import_weights`` (no leaf skipped; every imported tensor bit-equal
+   to its source after the layout map, but final_layer under the
+   PRETRAINED_LAYERS filter and FrozenBN mean/var from the ``.pkl``);
+   resumes ``tools.train_detector --preset config_1`` from the imported
+   detector for 2 steps (the resume logged at update 0, SGD at weight
+   decay 1e-4 and momentum 0.9, losses finite, K2, K2b and K4 launched)
+   and ``tools.train_landmarks`` (``events``, AUTO_RESUME) from the
+   imported HRNet for one epoch of 2 steps with its validation (resumed at
+   epoch 1, K1 launched); runs ``evaluate.run_scene`` on 8 frames with the
+   imported detector's ``.npz`` and with the source's tensors loaded
+   directly (boxes, keypoints and poses bit-equal; K2 and K4 launched);
+   exports the HRNet back with ``tools.export_weights`` (keys and tensors
+   the source's) and the pose pipeline with ``tools.export_model`` at the
+   JAX defaults, which a fresh ``python3`` that imports only the port
+   loads and runs on 8 seeded frames (keypoints within 1e-3 px of the
+   eager pipeline's, poses finite, K1 launched once a call); K1 is held to
+   its plain version on the program's own crop call (read there by a
+   ``torch.fx.Interpreter``) and timed; the program's ms a batch is
+   printed beside the eager pipeline's;
+15. trains RetinaNet: first ``RETINANET_TINY`` in float32 on the card
    against the CPU (3 EMA SGD updates on the same batch); then
    ``tools.train_detector.train`` with ``--preset config_20`` at full
    width (R101 RetinaNet at 800^2, batch 10, flips, SGD 1e-4 with warmup
@@ -141,7 +165,7 @@ toolkit. It
    repeated batch lower loss_total below its value after the first;
    prints the step ms, images/s, peak memory, the box AP, the step's
    split by CUDA events and a profiled step;
-15. runs the event-camera half: first the ``noisy`` emulator at 48x64 on
+16. runs the event-camera half: first the ``noisy`` emulator at 48x64 on
    the card against the CPU on the same draws (at most 1e-4 of the event
    maps' entries flipped), chunks against one run on the card (bit-equal)
    and SuperSloMo at 96x64 against the CPU (1e-4); then ``tools.v2e`` at
@@ -160,7 +184,7 @@ toolkit. It
    checked, the AEDAT2 scene equal to the CSV stream after microsecond
    truncation, K1, K2 and K4 launched (counters reset just before, read
    just after) and each held to its plain version on the phase's inputs;
-16. trains on event frames: renders a synthetic scene
+17. trains on event frames: renders a synthetic scene
    (``tools.make_synthetic_scene``, 48 frames of 1280x720), writes its GT
    from a probe run of ``tools.v2e`` (``clean``, duration exposure 0.02 s),
    then runs ``tools.train_pipeline_dvs`` in process at that exposure:
@@ -176,7 +200,7 @@ toolkit. It
    draws stage by stage (the event stages exact, the others within 1e-3
    grey, threshold flips counted against 1e-3 of the pixels), times both
    stacks, and runs 2 detector steps with ``--photometric-augs event``;
-17. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+18. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -1237,6 +1261,25 @@ def profile_call(torch, fn, label: str) -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"profile {label}: device busy {busy_us:.0f} us of {wall_us:.0f} us wall (profiler on) = "
         f"{busy_us / wall_us:.4f}; {sum(e.count for e in kernels)} kernel launches")
+
+
+def profile_counts(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device's kernel time
+    (``busy_us``), the call's wall time, its kernel launches and the host's
+    ATen operator calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    return {"busy_us": sum(e.self_device_time_total for e in kernels), "wall_us": wall_us,
+            "kernel_launches": sum(e.count for e in kernels),
+            "aten_calls": sum(e.count for e in events if e.key.startswith("aten::"))}
 
 
 def check_fused_against_per_op(torch, m, run, captures) -> None:
@@ -2676,6 +2719,494 @@ def det_phase(torch, m, dev, card):
     return rows, launches
 
 
+BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+C2_BRANCH = {"conv1": "branch2a", "conv2": "branch2b", "conv3": "branch2c", "shortcut": "branch1"}
+WEIGHTS_DET_FRAMES, WEIGHTS_DET_STEPS, WEIGHTS_LM_FRAMES, WEIGHTS_EVAL_FRAMES = 8, 2, 48, 8
+WEIGHTS_LANDMARK_MODEL, X101_C2_BLOBS = "pose_hrnet", 342  # the events preset's model; the X101 zoo pickle's blobs
+EXPORT_SIZES = ("--image-size", "512", "512", "--frame-size", "1920", "1200")  # tools/export_model.py's defaults
+EXPORT_REPS = 5
+
+
+def hrnet_reference_name(key: str) -> str:
+    """A port HRNet state-dict key -> its name in the reference's ``pose_hrnet``
+    (``lib/models/pose_hrnet.py``), re-derived here from the module layout."""
+    *path, kind, leaf = key.split(".")
+    if path == []:  # final_layer.{weight,bias}
+        return key
+    tail = "weight" if kind == "conv" else BN_LEAVES[leaf]
+    pos = "0" if kind == "conv" else "1"
+    head = path[0]
+    if head.startswith("stem"):
+        return f"{'conv' if kind == 'conv' else 'bn'}{head[-1]}.{tail}"
+    if head.startswith("transition"):
+        unit = path[1]
+        if unit.startswith("adapt"):
+            return f"{head}.{unit[5:]}.{pos}.{tail}"
+        i, j = unit[3:].split("_")
+        return f"{head}.{i}.{j}.{pos}.{tail}"
+    if head == "layer1":
+        base, rest = f"layer1.{path[1][5:]}", path[2:]
+    else:
+        s, mod = head[5:].split("_m")
+        if path[1] == "fuse":
+            idx = path[2][2:] if path[2].startswith("up") else path[2][4:]
+            return f"stage{s}.{mod}.fuse_layers.{'.'.join(idx.split('_'))}.{pos}.{tail}"
+        base, rest = f"stage{s}.{mod}.branches.{path[1][6:]}.{path[2][5:]}", path[3:]
+    if rest[0] == "down":
+        return f"{base}.downsample.{pos}.{tail}"
+    return f"{base}.{'conv' if kind == 'conv' else 'bn'}{rest[0][4:]}.{tail}"
+
+
+def hrnet_reference_state(torch, model) -> dict:
+    """``model``'s tensors under the reference's names, each BN with its
+    ``num_batches_tracked``, as a torch checkpoint holds them."""
+    out = {}
+    for key, v in model.state_dict().items():
+        name = hrnet_reference_name(key)
+        out[name] = v.detach().clone()
+        if name.endswith(".running_var"):
+            out[name.removesuffix("running_var") + "num_batches_tracked"] = torch.tensor(1000)
+    return out
+
+
+def d2_reference_state(torch, det, p: int = 7) -> dict:
+    """The X101 detector's tensors under detectron2's GeneralizedRCNN names;
+    fc1 back to the NCHW flatten of d2's ``FastRCNNConvFCHead``."""
+    out = {}
+    for key, v in det.state_dict().items():
+        mods, v = key.split("."), v.detach().clone()
+        if mods[0] == "backbone":
+            blk = mods[1]
+            pre = ("backbone.bottom_up.stem.conv1" if blk == "stem"
+                   else f"backbone.bottom_up.res{blk[3]}.{blk.split('_b')[1]}.{mods[2]}")
+            out[pre + (".weight" if mods[-2] == "conv" else ".norm." + BN_LEAVES[mods[-1]])] = v
+        elif mods[0] == "fpn":
+            unit = mods[1]
+            name = f"fpn_lateral{unit[-1]}" if unit.startswith("lateral") else f"fpn_output{unit[-1]}"
+            out[f"backbone.{name}.{mods[2]}"] = v
+        elif mods[0] == "rpn_head":
+            unit = {"conv": "conv", "objectness": "objectness_logits", "deltas": "anchor_deltas"}[mods[1]]
+            out[f"proposal_generator.rpn_head.{unit}.{mods[2]}"] = v
+        elif mods[1] == "box_head":
+            if mods[2] == "fc1" and mods[3] == "weight":
+                v = v.reshape(v.shape[0], p, p, -1).permute(0, 3, 1, 2).reshape(v.shape[0], -1).contiguous()
+            out[key] = v
+        else:  # roi_heads.predictor.{cls_score,bbox_pred}
+            out[f"roi_heads.box_predictor.{mods[2]}.{mods[3]}"] = v
+    return out
+
+
+def c2_reference_blobs(torch, det, d2: dict, gen) -> tuple[dict, dict]:
+    """The X101 detector as a Caffe2 zoo ``.pkl``'s blobs (Caffe2 names, BN
+    absorbed into scale and bias, the background class first and its 4
+    deltas in ``bbox_pred``, fc6 in the NCHW flatten) -> (blobs, the port
+    state dict the import must give: FrozenBN mean and var at 0 and 1)."""
+    import numpy as np
+
+    blobs, want = {}, {k: v.detach().clone() for k, v in det.state_dict().items()}
+    sd = det.state_dict()
+    last_block = {}  # each stage's last block: the FPN blobs are named after it
+    for key in sd:
+        if key.startswith("backbone.res"):
+            s, i = key.split(".")[1][3:].split("_b")
+            last_block[int(s)] = max(last_block.get(int(s), 0), int(i))
+    for key, v in sd.items():
+        mods, leaf = key.split("."), key.split(".")[-1]
+        if mods[0] == "backbone":
+            blk = mods[1]
+            unit = "conv1" if blk == "stem" else f"res{blk[3]}_{blk.split('_b')[1]}_{C2_BRANCH[mods[2]]}"
+            prefix = "res_conv1" if blk == "stem" else unit
+            if mods[-2] == "conv":
+                blobs[f"{unit}_w"] = v.numpy().copy()
+            elif leaf == "scale":  # absorb: s = scale / sqrt(var + eps), b = bias - mean * s
+                norm = key.removesuffix("scale")
+                s = (sd[norm + "scale"].double() * torch.rsqrt(sd[norm + "var"].double() + 1e-5)).float()
+                b = (sd[norm + "bias"].double() - sd[norm + "mean"].double() * s.double()).float()
+                blobs[f"{prefix}_bn_s"], blobs[f"{prefix}_bn_b"] = s.numpy(), b.numpy()
+                want[norm + "scale"], want[norm + "bias"] = s, b
+                want[norm + "mean"], want[norm + "var"] = torch.zeros_like(s), torch.ones_like(s)
+        elif mods[0] == "fpn":
+            s = int(mods[1][-1])
+            tag = (f"fpn_inner_res{s}_{last_block[s]}_sum" + ("_lateral" if s < 5 else "")
+                   if mods[1].startswith("lateral") else f"fpn_res{s}_{last_block[s]}_sum")
+            blobs[f"{tag}_{leaf[0]}"] = v.numpy().copy()
+        elif mods[0] == "rpn_head":
+            tag = {"conv": "conv_rpn_fpn2", "objectness": "rpn_cls_logits_fpn2", "deltas": "rpn_bbox_pred_fpn2"}
+            blobs[f"{tag[mods[1]]}_{leaf[0]}"] = v.numpy().copy()
+        elif mods[1] == "box_head":
+            tag = {"fc1": "fc6", "fc2": "fc7"}[mods[2]]
+            blobs[f"{tag}_{leaf[0]}"] = d2[key].numpy().copy()
+        elif mods[2] == "cls_score":  # the background class first
+            blobs[f"cls_score_{leaf[0]}"] = torch.cat([v[-1:], v[:-1]]).numpy()
+        else:  # bbox_pred: 4 deltas of the background class first
+            bg = torch.randn((4, *v.shape[1:]), generator=gen)
+            blobs[f"bbox_pred_{leaf[0]}"] = torch.cat([bg, v]).numpy()
+    return {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in blobs.items()}, want
+
+
+def perturb_frozen_bn(torch, m, det, gen) -> None:
+    """FrozenBN statistics off their 0/1 start (scale and bias near 1 and 0,
+    mean N(0, 0.1), var U(0.5, 1.5)): a checkpoint's, whose every leaf
+    then tells a misplaced one."""
+    with torch.no_grad():
+        for mod in det.modules():
+            if isinstance(mod, m.resnet_backbone.FrozenBN):
+                n = mod.scale.numel()
+                mod.scale.add_(0.05 * torch.randn(n, generator=gen))
+                mod.bias.add_(0.05 * torch.randn(n, generator=gen))
+                mod.mean.copy_(0.1 * torch.randn(n, generator=gen))
+                mod.var.copy_(0.5 + torch.rand(n, generator=gen))
+
+
+class LogLines(contextlib.AbstractContextManager):
+    """Collect the messages of the loggers ``names`` while active."""
+
+    def __init__(self, *names):
+        import logging
+
+        self.loggers = [logging.getLogger(n) for n in names]
+        self.lines = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                outer.lines.append(record.getMessage())
+
+        self.handler = Handler(level=logging.INFO)
+
+    def __enter__(self):
+        import logging
+
+        for lg in self.loggers:
+            lg.addHandler(self.handler)
+            self.levels = getattr(self, "levels", []) + [lg.level]
+            lg.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        for lg, level in zip(self.loggers, self.levels):
+            lg.removeHandler(self.handler)
+            lg.setLevel(level)
+
+
+def imported_state(torch, ck_dir: str) -> dict:
+    import os
+
+    return torch.load(os.path.join(ck_dir, "0", "state.pt"), map_location="cpu", weights_only=True)["model"]
+
+
+def differing(got: dict, want: dict, skip=()) -> list[str]:
+    """The keys of ``want`` whose tensor in ``got`` is missing or differs by a bit."""
+    import torch
+
+    return [k for k, v in want.items() if not k.startswith(skip)
+            and (k not in got or got[k].dtype != v.dtype or not torch.equal(got[k], v))]
+
+
+def check_import(report: dict, label: str, want_mapped: int, want_ignored: int, seconds: float, paths) -> None:
+    import os
+
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in paths}
+    log(f"import_weights {label}: {report['sources']} entries, {report['mapped']} leaves loaded (want "
+        f"{want_mapped}), {len(report['skipped'])} skipped {report['skipped'][:5]}, {report['ignored']} ignored "
+        f"(want {want_ignored}); {seconds:.3f} s; sizes (bytes) {json.dumps(sizes)}")
+    if report["skipped"] or report["mapped"] != want_mapped or report["ignored"] != want_ignored:
+        raise RuntimeError(f"import_weights {label}: unexpected leaves: {report}")
+
+
+EXPORT_RUNNER = r'''
+import json, sys, time
+import torch
+import spacecraft_pose_estimation_tpu_torch.ops.warp as warp
+
+inputs, program_path, out_path, reps = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+inp = torch.load(inputs, map_location="cuda")
+t0 = time.perf_counter()
+program = torch.export.load(program_path).module()
+load_s = time.perf_counter() - t0
+warp.KERNEL.launches = 0
+t0 = time.perf_counter()
+out = program(inp["frames"], inp["boxes"])
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(reps):
+    program(inp["frames"], inp["boxes"])
+end.record()
+torch.cuda.synchronize()
+ms = start.elapsed_time(end) / reps
+launches = warp.KERNEL.launches
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    program(inp["frames"], inp["boxes"])
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+events = prof.key_averages()
+kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+profiled = {"busy_us": sum(e.self_device_time_total for e in kernels), "wall_us": wall_us,
+            "kernel_launches": sum(e.count for e in kernels),
+            "aten_calls": sum(e.count for e in events if e.key.startswith("aten::"))}
+seen = []
+
+
+class Recorder(torch.fx.Interpreter):
+    def call_function(self, target, args, kwargs):
+        if target is torch.ops.spe_port.crop_bilinear.default:
+            seen.append(args)
+        return super().call_function(target, args, kwargs)
+
+
+Recorder(program).run(inp["frames"], inp["boxes"])
+frames, params, out_w, out_h = seen[0]
+torch.save({"out": [o.cpu() for o in out], "params": params.cpu(), "out_size": (out_w, out_h),
+            "frames_are_input": frames.data_ptr() == inp["frames"].data_ptr()}, out_path)
+print(json.dumps({"load_s": load_s, "first_s": first_s, "ms": ms, "launches": launches, "calls": 1 + reps,
+                  "profiled": profiled,
+                  "jax_imported": "jax" in sys.modules, "modules_of_the_jax_package":
+                  [n for n in sys.modules if n.split(".")[0] == "spacecraft_pose_estimation_tpu"]}))
+'''
+
+
+def weights_phase(torch, m, dev, card):
+    """Weights in and out at full width: synthetic reference files from seeds
+    (HRNet-W32 ``pose_hrnet`` ``.pth`` for the events preset's 11 joints,
+    the X101-32x8d FPN as a detectron2 ``.pth`` and as a Caffe2 zoo
+    ``.pkl`` of 342 blobs) through ``tools.import_weights``, each imported
+    tensor bit-equal to its source; ``tools.train_detector --preset
+    config_1`` resumed from the imported detector for 2 steps (K2, K2b, K4;
+    the trainer's weight decay 1e-4 and momentum 0.9 kept) and
+    ``tools.train_landmarks`` (``events``, AUTO_RESUME) from the imported
+    HRNet for one epoch with its validation (K1); ``evaluate.run_scene``
+    with the imported detector, boxes bit-equal to the source's;
+    ``tools.export_weights`` bit-equal to the source; ``tools.export_model``
+    at the JAX defaults, loaded in a fresh process (K1 launched once a
+    call there, keypoints within 1e-3 px of the eager pipeline's). Returns
+    K1's row on the exported program's own crop inputs and its launches in
+    that process."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(41)
+    with tempfile.TemporaryDirectory() as d:
+        # a. the sources, on the host
+        t0 = time.perf_counter()
+        hr_src = m.models.build_landmark_model(WEIGHTS_LANDMARK_MODEL, NUM_JOINTS, device="cpu",
+                                               generator=torch.Generator().manual_seed(42))
+        hr_sd = hrnet_reference_state(torch, hr_src)
+        det_src = m.rcnn.GeneralizedRCNN(m.rcnn.FASTER_RCNN_X101_SPACECRAFT, device="cpu",
+                                         generator=torch.Generator().manual_seed(43))
+        perturb_frozen_bn(torch, m, det_src, gen)
+        d2_sd = d2_reference_state(torch, det_src)
+        blobs, pkl_want = c2_reference_blobs(torch, det_src, d2_sd, gen)
+        paths = {"hrnet": os.path.join(d, "hrnet_w32.pth"), "d2": os.path.join(d, "model_final.pth"),
+                 "pkl": os.path.join(d, "model_final.pkl")}
+        torch.save(hr_sd, paths["hrnet"])
+        torch.save({"model": d2_sd, "iteration": 0}, paths["d2"])
+        with open(paths["pkl"], "wb") as f:
+            pickle.dump({"model": blobs, "__author__": "Caffe2", "matching_heuristics": True}, f)
+        n_frozen = sum(isinstance(mod, m.resnet_backbone.FrozenBN) for mod in det_src.modules())
+        log(f"weights sources: pose_hrnet {len(hr_sd)} entries ({sum(k.endswith('num_batches_tracked') for k in hr_sd)}"
+            f" num_batches_tracked), detectron2 {len(d2_sd)}, Caffe2 {len(blobs)} blobs ({n_frozen} FrozenBN); "
+            f"{time.perf_counter() - t0:.3f} s to build and write")
+        if len(blobs) != X101_C2_BLOBS:
+            raise RuntimeError(f"the X101 zoo pickle has {len(blobs)} blobs, not {X101_C2_BLOBS}")
+
+        # b. import
+        outs = {key: os.path.join(d, f"{key}_import") for key in paths}
+        reports, import_s = {}, {}
+        for key, argv in (("hrnet", ["--kind", "hrnet", "--model", WEIGHTS_LANDMARK_MODEL, "--num-joints",
+                                     str(NUM_JOINTS)]),
+                          ("d2", ["--kind", "detectron2"]), ("pkl", ["--kind", "detectron2"])):
+            t0 = time.perf_counter()
+            reports[key] = m.import_weights.main(["--torch-checkpoint", paths[key], "--output", outs[key], *argv])
+            import_s[key] = time.perf_counter() - t0
+        hr_keys, det_keys = hr_src.state_dict(), det_src.state_dict()
+        n_batches = sum(k.endswith("num_batches_tracked") for k in hr_sd)
+        ck = lambda key: [paths[key], os.path.join(outs[key], "0", "state.pt"), os.path.join(outs[key], "0", "model.npz")]
+        check_import(reports["hrnet"], "pose_hrnet (PRETRAINED_LAYERS)", len(hr_keys) - 2, n_batches + 2,
+                     import_s["hrnet"], ck("hrnet"))
+        check_import(reports["d2"], "detectron2 .pth", len(det_keys), 0, import_s["d2"], ck("d2"))
+        check_import(reports["pkl"], "Caffe2 .pkl", len(det_keys) - 2 * n_frozen, 0, import_s["pkl"], ck("pkl"))
+        bad = {"hrnet": differing(imported_state(torch, outs["hrnet"]), hr_keys, skip=("final_layer",)),
+               "d2": differing(imported_state(torch, outs["d2"]), det_keys),
+               "pkl": differing(imported_state(torch, outs["pkl"]), pkl_want)}
+        log(f"import_weights: tensors not bit-equal to their source after the layout map: "
+            f"{json.dumps({k: v[:5] for k, v in bad.items()})} (limit none; final_layer left out by the filter)")
+        if any(bad.values()):
+            raise RuntimeError(f"an imported tensor differs from its source: {bad}")
+        del blobs, pkl_want, d2_sd
+
+        # c. resume on the card from copies of the imports: the detector (config_1) and the landmarks (events)
+        shutil.copytree(outs["d2"], os.path.join(d, "det_run", "checkpoints"))
+        shutil.copytree(outs["hrnet"], os.path.join(d, "lm", "checkpoints"))
+        train_json, train_ex = detection_scene(torch, m, dev, WEIGHTS_DET_FRAMES, 31, d, "w_det")
+        args = m.train_detector.parse_args([
+            "--preset", "config_1", "--train-json", train_json, "--image-dir", d,
+            "--output", os.path.join(d, "det_run"), "--max-iter", str(WEIGHTS_DET_STEPS)])
+        steps = Timed(m.train_detector, "make_detection_train_step", factory=True, keep=True)
+        with steps, LogLines("train_detector") as lines:
+            reset_counts(m)
+            t0 = time.perf_counter()
+            trainer = m.train_detector.train(args, train_ex, None, dev)
+            sync()
+            det_s = time.perf_counter() - t0
+            launches = read_counts(m)
+        groups = trainer.state.optimizer.inner.param_groups
+        hyper = sorted({(g["weight_decay"], g["momentum"]) for g in groups})
+        losses = [met["loss_total"].item() for met in steps.results]
+        log(f"train_detector --preset config_1 resumed from the imported detector on {card}: {det_s:.3f} s, "
+            f"steps {[round(v, 4) for v in steps.ms]} ms, loss_total {[round(v, 5) for v in losses]}; log "
+            f"{[l for l in lines.lines if 'resumed' in l]}; SGD (weight_decay, momentum) {hyper} (want "
+            f"[(0.0001, 0.9)]; the import saved weight_decay 0); launches {json.dumps(launches)}")
+        if "resumed at update 0" not in lines.lines or hyper != [(1e-4, 0.9)]:
+            raise RuntimeError(f"train_detector did not resume from the import with its own hyperparameters: "
+                               f"{lines.lines}, {hyper}")
+        if len(losses) != WEIGHTS_DET_STEPS or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"train_detector from the import: losses {losses}")
+        for key in ("K2", "K2b", "K4"):
+            if launches[key] == 0:
+                raise RuntimeError(f"kernel {key} was not launched by the resumed detector trainer")
+        del trainer, steps, train_ex
+        torch.cuda.empty_cache()
+
+        cfg = m.config.apply_overrides(m.config.get_preset("events"),
+                                       ["TRAIN.END_EPOCH", "2", "TRAIN.AUTO_RESUME", "True"])
+        lm_train = landmark_scene(torch, m, dev, WEIGHTS_LM_FRAMES, 11, d, "w_lm_train")
+        lm_val = landmark_scene(torch, m, dev, TRAIN_VAL_FRAMES, 12, d, "w_lm_val")
+        with LogLines("train_landmarks") as lines:
+            reset_counts(m)
+            t0 = time.perf_counter()
+            state = m.train_landmarks.train(cfg, lm_train, os.path.join(d, "lm"), dev, lm_val)
+            sync()
+            lm_s = time.perf_counter() - t0
+            lm_launches = read_counts(m)
+        resumed = [l for l in lines.lines if l.startswith("resumed")]
+        log(f"train_landmarks (events, AUTO_RESUME) from the imported HRNet on {card}: {lm_s:.3f} s, {state.step} "
+            f"updates, log {resumed} (want epoch 1, as the JAX trainer: meta.get('epoch', 0) + 1); launches "
+            f"{json.dumps(lm_launches)}")
+        if resumed != ["resumed from step 0 (epoch 1)"] or state.step != WEIGHTS_LM_FRAMES // cfg.train.batch_size_per_chip:
+            raise RuntimeError(f"train_landmarks did not resume from the import at epoch 1: {resumed}, {state.step}")
+        if lm_launches["K1"] == 0:
+            raise RuntimeError("kernel K1 was not launched by the resumed trainer's validation")
+        del state, lm_train, lm_val
+        torch.cuda.empty_cache()
+
+        # d. the imported detector through the evaluation entry, against the source's tensors loaded directly
+        hr = m.evaluate.load_landmark_model(os.path.join(outs["hrnet"], "0", "model.npz"), WEIGHTS_LANDMARK_MODEL,
+                                            NUM_JOINTS, torch.bfloat16, dev)
+        lm3d = np.random.default_rng(2).normal(0, 0.8, (NUM_JOINTS, 3))
+        cam = m.camera.CameraModel(K=np.array([[2988.6, 0, 960.0], [0, 2988.3, 600.0], [0, 0, 1]]),
+                                   dist=np.array(EVAL_DIST), width=FRAME_HW[1], height=FRAME_HW[0])
+        frames = torch.randint(0, 256, (WEIGHTS_EVAL_FRAMES, *FRAME_HW, 3), dtype=torch.uint8, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(44))
+        names = [f"w{i:04d}.png" for i in range(WEIGHTS_EVAL_FRAMES)]
+        size = int(EXPORT_SIZES[1])
+        config = m.pipeline.PipelineConfig(image_size=(size, size), solver="gn")
+        det_imported = m.evaluate.load_detector(os.path.join(outs["d2"], "0", "model.npz"), False, False,
+                                                torch.bfloat16, dev)
+        det_direct = m.rcnn.GeneralizedRCNN(m.rcnn.FASTER_RCNN_X101_SPACECRAFT, dtype=torch.bfloat16, device=dev)
+        det_direct.load_state_dict(det_keys)
+        results = {}
+        for label, det in (("imported", det_imported), ("direct", det_direct)):
+            with tempfile.TemporaryDirectory() as out_dir:
+                reset_counts(m)
+                results[label] = m.evaluate.run_scene(frames, names, out_dir, det, hr, lm3d, cam,
+                                                      batch_size=WEIGHTS_EVAL_FRAMES, input_size=EVAL_SIZE,
+                                                      config=config)
+                results[label + " launches"] = read_counts(m)
+        same = all(np.array_equal(results["imported"][k], results["direct"][k]) for k in ("boxes", "preds", "R", "t"))
+        log(f"evaluate.run_scene with the detector of the imported .npz and with the source's tensors loaded "
+            f"directly ({WEIGHTS_EVAL_FRAMES} frames of {FRAME_HW[1]}x{FRAME_HW[0]}): boxes, keypoints and poses "
+            f"bit-equal {same}; first box {results['imported']['boxes'][0].tolist()}; launches "
+            f"{json.dumps(results['imported launches'])}")
+        if not same:
+            raise RuntimeError("the imported detector's evaluation differs from the source's")
+        for key in ("K2", "K4"):
+            if results["imported launches"][key] == 0:
+                raise RuntimeError(f"kernel {key} was not launched by the evaluation of the imported detector")
+        del det_imported, det_direct, results
+        torch.cuda.empty_cache()
+
+        # e. export: the weights back to the reference's names, and the pose pipeline as a program
+        t0 = time.perf_counter()
+        out_pth = os.path.join(d, "exported", "pose_hrnet.pth")
+        m.export_weights.main(["--checkpoint", outs["hrnet"], "--model", WEIGHTS_LANDMARK_MODEL, "--num-joints",
+                               str(NUM_JOINTS), "--output", out_pth])
+        export_w_s = time.perf_counter() - t0
+        exported = torch.load(out_pth, weights_only=True)
+        want_keys = {k for k in hr_sd if not k.endswith("num_batches_tracked")}
+        bad = differing(exported, {k: v for k, v in hr_sd.items() if k in want_keys}, skip=("final_layer",))
+        log(f"export_weights: {len(exported)} tensors ({os.path.getsize(out_pth)} bytes) in {export_w_s:.3f} s; keys "
+            f"equal the source's less num_batches_tracked {set(exported) == want_keys}; not bit-equal "
+            f"{bad[:5]} (final_layer is the import's own: the filter)")
+        if set(exported) != want_keys or bad:
+            raise RuntimeError(f"export_weights gives other keys or tensors: {bad[:5]}")
+
+        lm_csv, calib = os.path.join(d, "landmarks.csv"), os.path.join(d, "calibration.json")
+        with open(lm_csv, "w") as f:
+            f.write("x,y,z\n" + "".join(f"{x!r},{y!r},{z!r}\n" for x, y, z in lm3d.tolist()))
+        with open(calib, "w") as f:
+            json.dump({"intrinsics": {"camera_matrix": cam.K.tolist(), "distortion_coefficients": list(EVAL_DIST)}}, f)
+        program_path = os.path.join(d, "pose.pt2")
+        argv = ["--checkpoint", outs["hrnet"], "--landmarks-file", lm_csv, "--calibration-file", calib,
+                "--model", WEIGHTS_LANDMARK_MODEL, *EXPORT_SIZES, "--output", program_path]
+        t0 = time.perf_counter()
+        m.export_model.main(argv)
+        export_m_s = time.perf_counter() - t0
+        rng = np.random.default_rng(45)
+        wh = rng.uniform(200, 600, (WEIGHTS_EVAL_FRAMES, 2))
+        xy = rng.uniform(0, 1, (WEIGHTS_EVAL_FRAMES, 2)) * (np.array([FRAME_HW[1], FRAME_HW[0]]) - wh)
+        boxes = torch.tensor(np.concatenate([xy, wh], 1), dtype=torch.float32, device=dev)
+        inputs = os.path.join(d, "inputs.pt")
+        torch.save({"frames": frames, "boxes": boxes}, inputs)
+        prog = m.export_model.build_program(m.export_model.build_parser().parse_args(argv), dev)
+        eager = m.pipeline.make_pose_pipeline(prog.model, prog.lm3d, prog.K, prog.dist, prog.config)
+        want = eager(frames, boxes)
+        eager_ms = time_ms(lambda: eager(frames, boxes), EXPORT_REPS)
+        eager_profiled = profile_counts(torch, lambda: eager(frames, boxes))
+        out_path = os.path.join(d, "outputs.pt")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", EXPORT_RUNNER, inputs, program_path, out_path, str(EXPORT_REPS)],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                              timeout=600)
+        fresh_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"the exported program failed in a fresh process:\n{proc.stderr[-4000:]}")
+        ran = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(out_path, weights_only=True)
+        kp_err = (got["out"][0] - want["keypoints"].cpu()).abs().max().item()
+        finite = all(bool(torch.isfinite(o).all()) for o in got["out"][2:])
+        log(f"export_model ({WEIGHTS_LANDMARK_MODEL} bf16 at {size}, GN, batch {WEIGHTS_EVAL_FRAMES} of {FRAME_HW[1]}x{FRAME_HW[0]} "
+            f"uint8) on {card}: export and save {export_m_s:.3f} s, {os.path.getsize(program_path)} bytes; in a fresh "
+            f"process ({fresh_s:.3f} s in all): load {ran['load_s']:.3f} s, first call {ran['first_s']:.3f} s, "
+            f"{ran['ms']:.4f} ms a batch (CUDA events over {EXPORT_REPS} calls) against the eager pipeline's "
+            f"{eager_ms:.4f} ms here; K1 launches {ran['launches']} in {ran['calls']} calls; JAX imported "
+            f"{ran['jax_imported']}, modules of the JAX package {ran['modules_of_the_jax_package']}; keypoints "
+            f"{kp_err} px from the eager pipeline's (limit 1e-3); R, t, quat finite {finite}")
+        log(f"export_model: one profiled call (profiler on) of the exported program {json.dumps(ran['profiled'])}, "
+            f"of the eager pipeline {json.dumps(eager_profiled)} (busy_us: the device's kernel time; aten_calls: "
+            f"the host's ATen operator calls)")
+        if kp_err > 1e-3 or not finite or ran["launches"] != ran["calls"] or ran["jax_imported"] \
+                or ran["modules_of_the_jax_package"] or not got["frames_are_input"]:
+            raise RuntimeError(f"the exported program disagrees with the eager pipeline or missed K1: {ran}")
+        call = ((frames, got["params"].to(dev), tuple(got["out_size"])), {})
+        row = crop_row(torch, m, dev, call, f"crop_bilinear (export_model: the exported program's call in a fresh "
+                                            f"process, batch {WEIGHTS_EVAL_FRAMES}, {size}^2 crops)")
+        del prog, eager, want, hr, frames
+    torch.cuda.empty_cache()
+    log(f"weights phase: {time.perf_counter() - t_phase:.1f} s")
+    return [row], {"K1": ran["launches"]}
+
+
 RETINA_TRAIN_FRAMES, RETINA_VAL_FRAMES, RETINA_STEPS, RETINA_REPEATS = 20, 10, 6, 8
 # a sweep of 1e-6 to 3e-5 on the card: from 3e-5 the loss climbs again after the second update
 RETINA_REPEAT_LR = 1e-5
@@ -3603,6 +4134,7 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.tools import convert_aedats, evaluate_event_pipeline, v2e
     from spacecraft_pose_estimation_tpu_torch.data import augment
     from spacecraft_pose_estimation_tpu_torch.tools import make_synthetic_scene, train_pipeline_dvs
+    from spacecraft_pose_estimation_tpu_torch.tools import export_model, export_weights, import_weights
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
@@ -3616,7 +4148,8 @@ def load_port():
                         train_detector=train_detector, convert=convert, emulator=emulator, slomo=slomo, ev_io=ev_io,
                         v2e=v2e, convert_aedats=convert_aedats, evaluate_event_pipeline=evaluate_event_pipeline,
                         augment=augment, make_synthetic_scene=make_synthetic_scene,
-                        train_pipeline_dvs=train_pipeline_dvs, retinanet=retinanet)
+                        train_pipeline_dvs=train_pipeline_dvs, retinanet=retinanet, import_weights=import_weights,
+                        export_weights=export_weights, export_model=export_model)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -3728,6 +4261,11 @@ def main() -> int:
 
     # tools/train_detector.py's config_1 at full width: K2, its backward and K4 at N = 2000
     report += kernel_report(*det_phase(torch, m, dev, card))
+    torch.cuda.empty_cache()
+
+    # weights in and out: reference .pth / zoo .pkl files imported, the trainers resumed from them, the
+    # evaluation of the import, the export to .pth and the pose pipeline as a torch.export program (K1)
+    report += kernel_report(*weights_phase(torch, m, dev, card))
     torch.cuda.empty_cache()
 
     # tools/train_detector.py's config_20: the R101 RetinaNet at full width, K4 at 10x4441 in its evaluation

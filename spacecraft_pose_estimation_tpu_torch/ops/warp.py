@@ -7,7 +7,9 @@ full-frame ``ops/warp.crop_and_resize_mxu`` once the crop scale is clamped
 to the window's coverage (:func:`clamp_scales_to_window`). So the port has
 one crop, kernel K1 (``csrc/crop_bilinear.cu``), which samples the frame
 directly; :func:`crop_bilinear_plain` is the same function in eager
-PyTorch, taken for CPU tensors.
+PyTorch, taken for CPU tensors. Both sit behind one registered operator,
+``torch.ops.spe_port.crop_bilinear`` (:func:`crop_bilinear_op`), so that
+``torch.export`` records the crop as one node (``tools/export_model.py``).
 
 Training crops at a random rotation, which is not separable: that is the
 JAX package's gather path (``ops/warp.affine_warp`` and the rotated
@@ -96,23 +98,43 @@ def crop_bilinear_plain(frames: Tensor, params: Tensor, out_size: tuple[int, int
     return (rows * wy[:, :, :, None, None]).sum(2)
 
 
-def crop_bilinear(frames: Tensor, params: Tensor, out_size: tuple[int, int]) -> Tensor:
-    """Bilinear crop of (B, H, W, 3) uint8 frames to (B, OH, OW, 3) float32.
+@torch.library.custom_op("spe_port::crop_bilinear", mutates_args=(), device_types="cpu")
+def crop_bilinear_op(frames: Tensor, params: Tensor, out_w: int, out_h: int) -> Tensor:
+    """K1 as a registered operator, ``torch.ops.spe_port.crop_bilinear``:
+    the plain version on CPU tensors, the kernel on CUDA ones (below), so
+    that ``torch.export`` records it as one node. A program exported with
+    it loads once this module is imported."""
+    return crop_bilinear_plain(frames, params, (out_w, out_h))
 
-    ``params`` (B, 4) from :func:`crop_params`. CPU tensors take the plain
-    version; CUDA tensors launch K1.
-    """
-    if frames.device.type == "cpu":
-        return crop_bilinear_plain(frames, params, out_size)
+
+@crop_bilinear_op.register_kernel("cuda")
+def _crop_bilinear_cuda(frames: Tensor, params: Tensor, out_w: int, out_h: int) -> Tensor:
+    """Launch K1: the CUDA implementation of :func:`crop_bilinear_op`."""
     _cuda.check_cuda_tensor("frames", frames, torch.uint8, 4)
     _cuda.check_cuda_tensor("params", params, torch.float32, 2)
     b, h, w, ch = frames.shape
     if ch != 3 or tuple(params.shape) != (b, 4):
         raise ValueError(f"frames {tuple(frames.shape)} / params {tuple(params.shape)} disagree")
-    out_w, out_h = int(out_size[0]), int(out_size[1])
     out = torch.empty((b, out_h, out_w, 3), dtype=torch.float32, device=frames.device)
     KERNEL.launch(_cuda.ptr(frames), _cuda.ptr(params), _cuda.ptr(out), b, h, w, out_h, out_w)
     return out
+
+
+@crop_bilinear_op.register_fake
+def _crop_bilinear_fake(frames: Tensor, params: Tensor, out_w: int, out_h: int) -> Tensor:
+    return frames.new_empty((frames.shape[0], out_h, out_w, 3), dtype=torch.float32)
+
+
+def crop_bilinear(frames: Tensor, params: Tensor, out_size: tuple[int, int]) -> Tensor:
+    """Bilinear crop of (B, H, W, 3) uint8 frames to (B, OH, OW, 3) float32.
+
+    ``params`` (B, 4) from :func:`crop_params`. CPU tensors take the plain
+    version; CUDA tensors launch K1 (through :func:`crop_bilinear_op`);
+    tensors on any other device raise.
+    """
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"frames: expected a CPU or CUDA tensor, got {frames.device}")
+    return crop_bilinear_op(frames, params, int(out_size[0]), int(out_size[1]))
 
 
 def crop_and_resize(

@@ -11,7 +11,8 @@ Port of ``spacecraft_pose_estimation_tpu/pipeline.py``:
       -> PnP solve             (ops/pnp.py, solver "gn" or "ransac")
 
 The returned functions run under ``torch.inference_mode`` on the model's
-device.
+device; :class:`PoseProgram` is the same computation as a module that
+``torch.export`` traces (``tools/export_model.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch import nn
 
 from .ops import geometry, heatmap, pnp, warp
 
@@ -81,41 +83,74 @@ def _clamped_scales(scales: Tensor, config: PipelineConfig) -> Tensor:
     return warp.clamp_scales_to_window(scales, config.image_size, config.crop_window, coverage=cov)
 
 
-def make_landmark_stage(model, config: PipelineConfig = PipelineConfig()) -> Callable:
-    """Returns fn(frames, boxes) -> dict(keypoints, confidence, centers, scales, heatmaps).
+def landmark_outputs(model, config: PipelineConfig, frames: Tensor, boxes: Tensor) -> dict[str, Tensor]:
+    """The landmark stage on (B, H, W, 3) uint8 frames and (B, 4) xywh
+    boxes -> dict(keypoints, confidence, centers, scales, heatmaps), outside
+    any grad mode (:func:`make_landmark_stage` runs it under inference mode).
 
     Keypoints come back in source-frame pixels (the reference's pred.mat).
     Once the scale is clamped to the window, both JAX windowed crops equal
     the full-frame crop, so one crop serves every ``crop_window`` setting.
     """
+    centers, scales = boxes_to_center_scale(boxes, config.bbox_padding)
+    scales = _clamped_scales(scales, config)
+    crops = warp.crop_and_resize(frames, centers, scales, config.image_size)
+    # a model that folds the normalisation into its stem takes raw pixels
+    inputs = crops if getattr(model, "consumes_raw_pixels", False) else normalize_crops(crops)
+    heatmaps = model(inputs)
+    preds, maxvals = heatmap.decode_heatmaps(heatmaps, centers, scales, post_process=config.post_process)
+    return {
+        "keypoints": preds,  # (B, J, 2) source-frame pixels
+        "confidence": maxvals,  # (B, J)
+        "centers": centers,
+        "scales": scales,
+        "heatmaps": heatmaps,
+    }
+
+
+def pose_outputs(model, config: PipelineConfig, lm3d: Tensor, K: Tensor, dist: Tensor, frames: Tensor,
+                 boxes: Tensor, gumbel: Tensor | None = None,
+                 generator: torch.Generator | None = None) -> dict[str, Tensor]:
+    """:func:`landmark_outputs` plus R, t, quat by ``config.solver`` (see
+    :func:`make_pose_pipeline`), outside any grad mode; ``lm3d``, ``K`` and
+    ``dist`` are float32 tensors on the frames' device."""
+    out = landmark_outputs(model, config, frames, boxes)
+    if config.solver == "none":
+        return out
+    if config.solver == "ransac":
+        sol = pnp.pnp_ransac(
+            lm3d, out["keypoints"], K, dist, out["confidence"], gumbel=gumbel, generator=generator,
+            num_hypotheses=config.ransac_hypotheses, reproj_threshold=config.reproj_threshold,
+            refine_iters=config.refine_iters, min_count=config.min_keypoints,
+        )
+        R, t = sol["R"], sol["t"]
+    else:
+        w = pnp.adaptive_confidence_mask(out["confidence"], min_count=config.min_keypoints)
+        R, t = pnp.solve_pnp(lm3d, out["keypoints"], K, dist, w.to(torch.float32), refine_iters=config.refine_iters)
+    out.update({"R": R, "t": t, "quat": geometry.rotmat_to_quat(R)})
+    return out
+
+
+def make_landmark_stage(model, config: PipelineConfig = PipelineConfig()) -> Callable:
+    """Returns fn(frames, boxes) -> :func:`landmark_outputs`, under inference mode."""
 
     @torch.inference_mode()
     def run(frames: Tensor, boxes: Tensor) -> dict[str, Tensor]:
-        centers, scales = boxes_to_center_scale(boxes, config.bbox_padding)
-        scales = _clamped_scales(scales, config)
-        crops = warp.crop_and_resize(frames, centers, scales, config.image_size)
-        # a model that folds the normalisation into its stem takes raw pixels
-        inputs = crops if getattr(model, "consumes_raw_pixels", False) else normalize_crops(crops)
-        heatmaps = model(inputs)
-        preds, maxvals = heatmap.decode_heatmaps(
-            heatmaps, centers, scales, post_process=config.post_process
-        )
-        return {
-            "keypoints": preds,  # (B, J, 2) source-frame pixels
-            "confidence": maxvals,  # (B, J)
-            "centers": centers,
-            "scales": scales,
-            "heatmaps": heatmaps,
-        }
+        return landmark_outputs(model, config, frames, boxes)
 
     return run
+
+
+def _model_device(model) -> torch.device:
+    # a quantized model holds no parameters and names its device itself
+    return getattr(model, "device", None) or next(model.parameters()).device
 
 
 def make_pose_pipeline(
     model, landmarks_3d, K, dist, config: PipelineConfig = PipelineConfig()
 ) -> Callable:
     """Returns fn(frames, boxes, gumbel=None, generator=None) -> the
-    landmark outputs plus R, t, quat.
+    landmark outputs plus R, t, quat, under inference mode.
 
     ``landmarks_3d`` (J, 3), ``K`` (3, 3) and ``dist`` (5,) are moved to
     the model's device (its ``device`` attribute, else its parameters') as
@@ -125,30 +160,34 @@ def make_pose_pipeline(
     """
     if config.solver not in ("gn", "ransac", "none"):
         raise ValueError(f"solver must be 'gn', 'ransac' or 'none', got {config.solver!r}")
-    landmark_stage = make_landmark_stage(model, config)
-    # a quantized model holds no parameters and names its device itself
-    device = getattr(model, "device", None) or next(model.parameters()).device
+    device = _model_device(model)
     lm3d, K, dist = (torch.as_tensor(a, dtype=torch.float32).to(device) for a in (landmarks_3d, K, dist))
 
     @torch.inference_mode()
     def run(frames: Tensor, boxes: Tensor, gumbel: Tensor | None = None,
             generator: torch.Generator | None = None) -> dict[str, Tensor]:
-        out = landmark_stage(frames, boxes)
-        if config.solver == "none":
-            return out
-        if config.solver == "ransac":
-            sol = pnp.pnp_ransac(
-                lm3d, out["keypoints"], K, dist, out["confidence"], gumbel=gumbel, generator=generator,
-                num_hypotheses=config.ransac_hypotheses, reproj_threshold=config.reproj_threshold,
-                refine_iters=config.refine_iters, min_count=config.min_keypoints,
-            )
-            R, t = sol["R"], sol["t"]
-        else:
-            w = pnp.adaptive_confidence_mask(out["confidence"], min_count=config.min_keypoints)
-            R, t = pnp.solve_pnp(
-                lm3d, out["keypoints"], K, dist, w.to(torch.float32), refine_iters=config.refine_iters
-            )
-        out.update({"R": R, "t": t, "quat": geometry.rotmat_to_quat(R)})
-        return out
+        return pose_outputs(model, config, lm3d, K, dist, frames, boxes, gumbel, generator)
 
     return run
+
+
+class PoseProgram(nn.Module):
+    """:func:`make_pose_pipeline` with the ``"gn"`` solver as a
+    module for ``torch.export``: forward(frames, boxes) -> (keypoints,
+    confidence, R, t, quat), the JAX ``tools/export_model.py``'s
+    ``serving_fn``. Its forward enters no grad mode (export traces it);
+    ``landmarks_3d``, ``K`` and ``dist`` are float32 buffers on the model's
+    device."""
+
+    def __init__(self, model, landmarks_3d, K, dist, config: PipelineConfig = PipelineConfig()):
+        super().__init__()
+        if config.solver != "gn":
+            raise ValueError(f"PoseProgram solves by 'gn' (RANSAC draws noise per call), got {config.solver!r}")
+        self.model, self.config = model, config
+        device = _model_device(model)
+        for name, a in (("lm3d", landmarks_3d), ("K", K), ("dist", dist)):
+            self.register_buffer(name, torch.as_tensor(a, dtype=torch.float32).to(device))
+
+    def forward(self, frames: Tensor, boxes: Tensor) -> tuple[Tensor, ...]:
+        out = pose_outputs(self.model, self.config, self.lm3d, self.K, self.dist, frames, boxes)
+        return out["keypoints"], out["confidence"], out["R"], out["t"], out["quat"]

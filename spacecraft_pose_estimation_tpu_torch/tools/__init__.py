@@ -14,5 +14,11 @@ format conversion on the host without ``--device``); and the DVS training
 pipeline: ``make_synthetic_scene`` (a labelled rendered scene and its GT),
 ``split_images`` (the train/validation/test split), ``convert_to_coco``
 (GT poses -> COCO keypoints; these three host tools take no device) and
-``train_pipeline_dvs`` (v2e -> split -> COCO -> both trainers, in process).
+``train_pipeline_dvs`` (v2e -> split -> COCO -> both trainers, in process);
+and the weight files: ``import_weights`` (a reference HRNet or detectron2
+``.pth``, or a Caffe2 / detectron2 zoo ``.pkl`` -> a port checkpoint the
+trainers resume from) and ``export_weights`` (a landmark checkpoint -> a
+reference ``pose_hrnet`` ``.pth``), host conversions without ``--device``
+that write CPU tensors, and ``export_model`` (the pose pipeline as a
+``torch.export`` program, on CUDA unless given ``--device cpu``).
 """

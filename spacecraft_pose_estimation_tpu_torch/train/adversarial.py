@@ -68,6 +68,9 @@ class DAState:
                 "disc_optimizer": self.disc_optimizer.state_dict(), "step": int(self.step)}
 
     def load_state_dict(self, payload: dict) -> None:
+        """Both models, the step and each optimizer's per-parameter state where
+        it fits; the optimizers keep their own hyperparameters
+        (``Optimizer.load_state_dict``)."""
         self.generator.load_state_dict(payload["generator"])
         self.discriminator.load_state_dict(payload["discriminator"])
         self.gen_optimizer.load_state_dict(payload["gen_optimizer"])

@@ -69,7 +69,21 @@ class Optimizer:
         return self.inner.state_dict()
 
     def load_state_dict(self, state: dict) -> None:
-        self.inner.load_state_dict(state)
+        """Load the per-parameter state of a :meth:`state_dict` (momentum
+        traces, Adam moments) and keep this optimizer's own hyperparameters
+        (``weight_decay``, ``momentum``, ``nesterov``, ``betas`` ...): as in
+        optax, they come from the optimizer that was built, never from the
+        checkpoint. Where the saved state does not fit this optimizer
+        (another kind, i.e. other hyperparameter names, or other group or
+        parameter counts) nothing is loaded."""
+        groups, saved = self.inner.param_groups, state.get("param_groups", [])
+        n_params = sum(len(g["params"]) for g in groups)
+        fits = (len(saved) == len(groups)
+                and all(set(s) == set(g) and len(s["params"]) == len(g["params"]) for s, g in zip(saved, groups))
+                and all(0 <= int(i) < n_params for i in state.get("state", {})))
+        if fits:
+            own = [{k: v for k, v in g.items() if k != "params"} | {"params": s["params"]} for s, g in zip(saved, groups)]
+            self.inner.load_state_dict({"state": state["state"], "param_groups": own})
 
 
 def build_optimizer(name: str, params, learning_rate: Schedule | float, weight_decay: float = 0.0,

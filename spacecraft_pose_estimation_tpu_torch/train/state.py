@@ -35,14 +35,14 @@ class TrainState:
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": int(self.step)}
 
     def load_state_dict(self, payload: dict) -> None:
-        """Load a :meth:`state_dict`. Where the saved optimizer state does not
-        fit this optimizer (e.g. a placeholder one), only the model and the
-        step are taken."""
+        """Load a :meth:`state_dict`: the model, the step and the optimizer's
+        per-parameter state. The optimizer keeps its own hyperparameters,
+        and where the saved state does not fit it (another optimizer kind,
+        e.g. an imported checkpoint's placeholder) only the model and the
+        step are taken (``Optimizer.load_state_dict``), as the JAX
+        ``CheckpointManager.restore`` keeps the template's ``opt_state``."""
         self.model.load_state_dict(payload["model"])
-        try:
-            self.optimizer.load_state_dict(payload["optimizer"])
-        except (ValueError, KeyError):
-            pass
+        self.optimizer.load_state_dict(payload["optimizer"])
         self.step = int(payload["step"])
 
 

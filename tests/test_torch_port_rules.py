@@ -225,3 +225,49 @@ def test_dvs_pipeline_commands_need_cuda_or_an_explicit_device(tmp_path):
     for extra in ([], ["--device", "cuda"]):
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_pipeline_dvs.main(args + extra)
+
+
+def test_no_jax_check_covers_the_weight_modules():
+    """The weight bridges keep their own copies of the JAX package's numpy
+    modules: the import check above reaches each of them."""
+    sources = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert {"utils/torch_import.py", "utils/zoo_import.py", "utils/torch_export.py", "tools/import_weights.py",
+            "tools/export_weights.py", "tools/export_model.py"} <= sources
+
+
+def test_weight_commands_device_rules(tmp_path):
+    """``import_weights`` and ``export_weights`` are host conversions and take
+    no ``--device``; ``export_model`` runs on CUDA unless given ``--device
+    cpu`` and raises where the card is missing."""
+    from spacecraft_pose_estimation_tpu_torch.tools import export_model, export_weights, import_weights
+
+    for tool, args in ((import_weights, ["--torch-checkpoint", "w.pth", "--kind", "hrnet", "--output", "o"]),
+                       (export_weights, ["--checkpoint", ".", "--num-joints", "11", "--output", "w.pth"])):
+        with pytest.raises(SystemExit):
+            tool.main(args + ["--device", "cpu"])
+    if torch.cuda.is_available():
+        return
+    args = ["--checkpoint", str(tmp_path), "--landmarks-file", "l.csv", "--calibration-file", "c.json",
+            "--output", str(tmp_path / "p.pt2")]
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            export_model.main(args + extra)
+
+
+def test_registered_k1_launches_or_raises_and_never_takes_the_plain_version():
+    """K1's registered operator: its CUDA implementation launches the kernel
+    (it names no plain version) and refuses CPU tensors; CPU tensors
+    dispatch to the plain version."""
+    import inspect
+
+    from spacecraft_pose_estimation_tpu_torch.ops import warp
+
+    tree = ast.parse(inspect.getsource(warp._crop_bilinear_cuda))
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)} | {
+        n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert "crop_bilinear_plain" not in names and "launch" in names
+    frames, params = torch.zeros(1, 8, 8, 3, dtype=torch.uint8), torch.zeros(1, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        warp._crop_bilinear_cuda(frames, params, 4, 4)
+    out = torch.ops.spe_port.crop_bilinear(frames, params, 4, 4)
+    assert torch.equal(out, warp.crop_bilinear_plain(frames, params, (4, 4)))

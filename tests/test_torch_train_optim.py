@@ -83,3 +83,100 @@ def test_adam_ignores_weight_decay():
     assert isinstance(opt.inner, torch.optim.Adam) and not isinstance(opt.inner, torch.optim.AdamW)
     with pytest.raises(ValueError, match="unknown optimizer"):
         toptim.build_optimizer("lamb", [p], 1e-3)
+
+
+def _toy(seed):
+    model = torch.nn.Linear(4, 3)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(np.float32)))
+    return model
+
+
+def _grads(model, seed):
+    """g = c * p + d, the same rule on either side."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in model.named_parameters():
+        c, d = rng.uniform(0.5, 2.0, p.shape).astype(np.float32), rng.normal(size=p.shape).astype(np.float32)
+        p.grad = torch.from_numpy(c) * p.detach() + torch.from_numpy(d)
+        out[name] = (c, d)
+    return out
+
+
+def _saved(state):
+    import io
+
+    buf = io.BytesIO()
+    torch.save(state.state_dict(), buf)
+    buf.seek(0)
+    return torch.load(buf, weights_only=True)
+
+
+@pytest.mark.parametrize("saved_with", ["sgd", "adam"])
+def test_resume_keeps_the_trainers_hyperparameters(saved_with):
+    """A ``TrainState`` saved after one update of SGD (weight decay 0,
+    momentum 0.9) or Adam, restored into SGD with weight decay 1e-4 and
+    momentum 0.9: the group keeps 1e-4 and 0.9, and the next update equals
+    optax's ``add_decayed_weights`` + ``sgd`` (the JAX ``build_optimizer``)
+    from the same parameters and, where the saved state fits (SGD), the
+    same trace; Adam's state does not fit SGD, so only the model and the
+    step are taken, and the trace starts at 0."""
+    from spacecraft_pose_estimation_tpu_torch.train.state import TrainState
+
+    lr = 0.1
+    src = _toy(0)
+    kw = dict(weight_decay=0.0, momentum=0.9) if saved_with == "sgd" else {}
+    src_opt = toptim.build_optimizer(saved_with, src.parameters(), lr, **kw)
+    _grads(src, 1)
+    src_opt.step(0)
+    payload = _saved(TrainState(src, src_opt, step=1))
+
+    dst = _toy(5)
+    state = TrainState(dst, toptim.build_optimizer("sgd", dst.parameters(), lr, weight_decay=1e-4, momentum=0.9))
+    state.load_state_dict(payload)
+    group = state.optimizer.inner.param_groups[0]
+    assert (group["weight_decay"], group["momentum"], group["nesterov"]) == (1e-4, 0.9, False)
+    assert state.step == 1
+    for (name, p), q in zip(dst.named_parameters(), src.parameters()):
+        assert torch.equal(p, q), name
+    trace = {name: (src_opt.inner.state[q]["momentum_buffer"].numpy() if saved_with == "sgd" else np.zeros(q.shape,
+                                                                                                      np.float32))
+             for (name, _), q in zip(dst.named_parameters(), src.parameters())}
+    assert bool(state.optimizer.inner.state) == (saved_with == "sgd")
+
+    params = {name: jnp.asarray(p.detach().numpy().copy()) for name, p in dst.named_parameters()}
+    cd = _grads(dst, 2)
+    state.optimizer.step(state.step)
+    tx = joptim.build_optimizer("sgd", lr, weight_decay=1e-4, momentum=0.9)
+    opt_state = optax.tree_utils.tree_set(tx.init(params), trace={k: jnp.asarray(v) for k, v in trace.items()})
+    grads = {k: cd[k][0] * params[k] + cd[k][1] for k in params}
+    updates, _ = tx.update(grads, opt_state, params)
+    want = optax.apply_updates(params, updates)
+    for name, p in dst.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[name]), rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+def test_da_resume_keeps_each_optimizers_hyperparameters():
+    """``DAState`` takes the same rule for both of its optimizers: Adam's
+    state saved from a run whose discriminator used SGD at weight decay 0
+    is restored into SGD at 1e-4, which keeps 1e-4; a generator's Adam
+    state restored into Adam loads."""
+    from spacecraft_pose_estimation_tpu_torch.train.adversarial import DAState
+
+    def state(disc_wd):
+        gen, disc = _toy(0), _toy(1)
+        return DAState(gen, disc, toptim.build_optimizer("adam", gen.parameters(), 1e-3),
+                       toptim.build_optimizer("sgd", disc.parameters(), 1e-2, weight_decay=disc_wd))
+
+    src = state(0.0)
+    for model, opt in ((src.generator, src.gen_optimizer), (src.discriminator, src.disc_optimizer)):
+        _grads(model, 3)
+        opt.step(0)
+    src.step = 1
+    dst = state(1e-4)
+    dst.load_state_dict(_saved(src))
+    assert dst.step == 1 and dst.disc_optimizer.inner.param_groups[0]["weight_decay"] == 1e-4
+    for p, q in zip(dst.gen_optimizer.inner.param_groups[0]["params"], src.gen_optimizer.inner.param_groups[0]["params"]):
+        assert torch.equal(dst.gen_optimizer.inner.state[p]["exp_avg"], src.gen_optimizer.inner.state[q]["exp_avg"])
