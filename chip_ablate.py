@@ -27,7 +27,9 @@ summed with float32 atomics (the commit before the owner-computes K2b), the kern
 that K2b too, split into its memset and cast alone, its atomic kernel alone, and the atomic kernel with
 each ROI's gradient sent to a private buffer of its own (no two ROIs add into one address), and ``K4-before``
 times that tree's K4 beside this one's on every K4 shape it takes (up to 2,048 boxes before K4 took 8,192;
-the shapes add the evaluation's 40x1000, training's RPN 20x2000 and RetinaNet's 10x4441). Only the
+the shapes add the evaluation's 40x1000, training's RPN 20x2000 and RetinaNet's 10x4441); ``K2-before``
+and ``K2b-before`` time that tree's K2 and K2b on K2's call (the Pallas read window) and K2b's (the
+windowed one) and hold them bit for bit to this tree's (a change that adds a read keeps these). Only the
 unedited source and the exact
 alternatives are held to the plain versions: the others compute wrong answers
 on purpose, and their times say what the removed piece costs. Prints the
@@ -140,16 +142,20 @@ VARIANTS = {
                                                           "        if (!(alive >> q & 0xffffull)) continue;", "")]),
     # --before's K4, on the shapes it takes
     "K4 before (exact)": (("K4-before",), []),
+    # --before's K2 and K2b, on K2's and K2b's windowed calls: bit-equal to this tree's
+    "K2 and K2b before (exact)": (("K2-before", "K2b-before"), []),
 }
 # variants that must still agree with the plain versions: the committed sources and the other exact designs
 EXACT = ("as committed",) + tuple(name for name in VARIANTS if name.endswith("(exact)"))
-BEFORE = ("K2b-atomic", "K4-before")  # kernel ids built from --before's sources
+BEFORE = ("K2b-atomic", "K4-before", "K2-before", "K2b-before")  # kernel ids built from --before's sources
 SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_block_chain.cu", "basic_block_chain"),
            "K6": ("bottleneck_chain.cu", "bottleneck_chain"), "K7": ("up_exchange.cu", "up_exchange"),
            "K2": ("roi_align_multilevel.cu", "roi_align_multilevel"), "K3": ("roi_align_multilevel.cu", "roi_align_single"),
            "K2b": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
            "K2b-atomic": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
-           "K4": ("nms_mask_sorted.cu", "nms_mask_sorted"), "K4-before": ("nms_mask_sorted.cu", "nms_mask_sorted")}
+           "K4": ("nms_mask_sorted.cu", "nms_mask_sorted"), "K4-before": ("nms_mask_sorted.cu", "nms_mask_sorted"),
+           "K2-before": ("roi_align_multilevel.cu", "roi_align_multilevel"),
+           "K2b-before": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward")}
 CHAINS = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128), (16, 16, 16, 256)]  # W32 branches, 4 blocks
 CONVS = [  # (B, H, W, Cin, Cout, k, stride): R101 at the 768 letterbox, HRNet-W32 at 512
     (4, 192, 192, 64, 256, 1, 1), (4, 192, 192, 256, 64, 1, 1), (4, 192, 192, 64, 64, 3, 1),
@@ -219,13 +225,14 @@ def graph_ms(torch, fn, calls: int = 10, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-def pooler_nms_workloads(torch, ra, nms, k4_before: bool = False):
+def pooler_nms_workloads(torch, ra, nms, k4_before: bool = False, k2_before: bool = False):
     """K2, K3 and K4 (label, kernel id, wrapper call, plain result) at the serving shapes: K2 on 256 boxes
     over 4 images that reach all four R101-FPN levels (bf16, 256 channels); K3 on 64 boxes of sides
     16-112 px (P2's range) on the first image's P2 map at scale 0.25, as in its chip_smoke.py phase; K4 on
     the RPN's 20 problems of 256 boxes at IoU 0.7 and the box head's 4 of 64 at 0.5 (chip_smoke's seeded
     edge problems), then the evaluation's 40 of 1000, training's RPN 20 of 2000 and RetinaNet's 10 of 4441.
-    With ``k4_before``, each K4 shape of at most 2,048 boxes again as ``K4-before``."""
+    With ``k4_before``, each K4 shape of at most 2,048 boxes again as ``K4-before``; with ``k2_before``, K2's
+    again as ``K2-before``, its answer this tree's kernel's (bit for bit)."""
     import chip_smoke as cs
 
     gen = torch.Generator().manual_seed(0)
@@ -257,6 +264,8 @@ def pooler_nms_workloads(torch, ra, nms, k4_before: bool = False):
     if k4_before:
         out += [(label, "K4-before", call, want) for label, key, call, want in out
                 if key == "K4" and call.args[1].shape[1] <= 2048]
+    if k2_before:  # this tree's kernel, built as committed, gives the answer
+        out += [(label, "K2-before", call, call()) for label, key, call, _ in out if key == "K2"]
     return out
 
 
@@ -299,7 +308,10 @@ def k2b_workloads(torch, ra, keys, atomic):
     levels = ra.assign_levels(a["boxes"], 4, 2)
     label = (f"K2b 512 ROIs (per level P2..P5 {torch.bincount(levels, minlength=4).tolist()}), "
              "P2-P5 of 4x200x200x256 bf16, windowed")
-    out = [(label, "K2b", functools.partial(ra.roi_align_multilevel_backward, **a), want)] if "K2b" in keys else []
+    call = functools.partial(ra.roi_align_multilevel_backward, **a)
+    out = [(label, "K2b", call, want)] if "K2b" in keys else []
+    if "K2b-before" in keys:  # this tree's kernel, built as committed, gives the answer
+        out.append((label, "K2b-before", call, call()))
     if atomic is not None:
         go, shapes, boxes, bidx = a["grad_out"], a["shapes"], a["boxes"], a["batch_idx"]
         # level 0's buffer also holds a private window a ROI for the private-buffer variant
@@ -320,7 +332,10 @@ def k2b_workloads(torch, ra, keys, atomic):
 
 def agrees(torch, key, got, want) -> bool:
     """A variant's answer against the plain version's, with chip_smoke.py's bars: exact; K2/K3 within 1e-5
-    of the output's scale; K2b within 2^-7 of its bf16 gradient's scale."""
+    of the output's scale; K2b within 2^-7 of its bf16 gradient's scale. --before's K2 and K2b against this
+    tree's: bit for bit."""
+    if key in ("K2-before", "K2b-before"):
+        return all(map(torch.equal, got, want)) if isinstance(got, list) else torch.equal(got, want)
     if key.startswith("K2b"):
         scale = max(w.float().abs().max().item() for w in want)
         return max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want)) <= 2.0 ** -7 * scale
@@ -408,13 +423,14 @@ def main() -> int:
     kernels = {"K5a": int8_conv.KERNEL, "K5": int8_blocks.CHAIN, "K6": int8_blocks.BOTTLENECK,
                "K7": int8_blocks.EXCHANGE, "K2": roi_align.KERNEL, "K3": roi_align.SINGLE, "K4": nms.KERNEL,
                "K2b": roi_align.BACKWARD, "K4-before": nms.KERNEL,  # one wrapper: each variant points it at its K4
+               "K2-before": roi_align.KERNEL, "K2b-before": roi_align.BACKWARD,
                "K2b-atomic": _cuda.Kernel(*SOURCES["K2b-atomic"][::-1], ATOMIC_ARGTYPES)}
     times: dict = {}
     work = (workloads(torch, int8_conv, int8_blocks) if set(keys) & set(INT8) else []) + \
-        (pooler_nms_workloads(torch, roi_align, nms, "K4-before" in keys)
-         if set(keys) & {"K2", "K3", "K4", "K4-before"} else []) + \
+        (pooler_nms_workloads(torch, roi_align, nms, "K4-before" in keys, "K2-before" in keys)
+         if set(keys) & {"K2", "K3", "K4", "K4-before", "K2-before"} else []) + \
         (k2b_workloads(torch, roi_align, keys, kernels["K2b-atomic"] if "K2b-atomic" in keys else None)
-         if set(keys) & {"K2b", "K2b-atomic"} else [])
+         if set(keys) & {"K2b", "K2b-atomic", "K2b-before"} else [])
     for _ in range(2):  # two turns through the variants, to show the spread
         for name, by_key in fns.items():
             for key, fn in by_key.items():
@@ -429,7 +445,7 @@ def main() -> int:
                     raise RuntimeError(f"{label}: {name!r} disagrees with the plain version")
                 if name == "as committed" and key == "K2b" and not all(map(torch.equal, got, call())):
                     raise RuntimeError(f"{label}: two calls of K2b differ")
-                calls = 50 if key in ("K2", "K3", "K4", "K4-before") else 10  # ~1 ms a replay, as chip_smoke.py's k
+                calls = 50 if key in ("K2", "K3", "K4", "K4-before", "K2-before") else 10  # ~1 ms a replay, as chip_smoke's k
                 times.setdefault(label, {}).setdefault(name, []).append(round(graph_ms(torch, call, calls), 5))
     for label, by_variant in times.items():
         print(json.dumps({"shape": label, "device_ms": by_variant}), flush=True)

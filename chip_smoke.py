@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, event-camera and DVS-training paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera and DVS-training paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -11,10 +11,11 @@ toolkit. It
    kernels K5a, K5, K6 and K7: integer tensor-core instructions (IGMMA),
    no dp4a;
 2. holds K2 and its backward (``roi_align_multilevel_backward.cu``, in
-   both read windows) to their plain versions on seeded boxes that the
-   served proposals may not reach (every pyramid level, the image's edges,
-   boxes larger than the read window, level boundaries; f32 and bf16
-   features, 256 and 16 channels; the backward also on the 800^2
+   both read windows and in the gather read, which has none) to their
+   plain versions on seeded boxes that the served proposals may not reach
+   (every pyramid level, the image's edges, boxes larger than the read
+   window, level boundaries; P 7 and 14; f32 and bf16 features, 256 and 16
+   channels; the backward also on the 800^2
    pyramid, whose every level ends in partial tiles, with a level no box
    reaches and with no box at all, both exactly 0, and two calls equal
    bit for bit), K3 likewise on maps larger and smaller than its read window
@@ -150,7 +151,24 @@ toolkit. It
    its plain version on the program's own crop call (read there by a
    ``torch.fx.Interpreter``) and timed; the program's ms a batch is
    printed beside the eager pipeline's;
-15. trains RetinaNet: first ``RETINANET_TINY`` in float32 on the card
+15. runs the heads: first ``RCNN_TINY`` with both heads, ``FCOS_TINY``
+   and ``CascadeROIHeads`` in float32 on the card against the CPU
+   (inference, 3 SGD updates, the cascade's gradients); then
+   ``FASTER_RCNN_X101_SPACECRAFT`` with the mask and keypoint heads (11
+   keypoints, ``mask_resolution`` 14) in bf16 at 800^2, batch 4: 3 SGD
+   steps at config_1's solver on seeded polygons (their bitmasks and 11
+   keypoints a box), inference on 8 frames, the masks pasted and the
+   keypoints decoded into segm AP and keypoint AP; ``CascadeROIHeads`` on
+   that model's pyramid and 1,000 proposals an image, forward and backward;
+   ``FCOSConfig()`` (R50) in bf16 at 800^2, batch 4, FrozenBN calibrated, 4
+   steps and one evaluation on 8 frames (K4 on 8 problems of 2,843); each
+   path with its counters reset just before and read just after (K2 and
+   K2b in the gather read counted apart, ``K2 gather`` / ``K2b gather``),
+   K2 and K2b held to their plain versions on the paths' calls (K2b's bar
+   shown to reject three wrong gradients) and K4 exactly, on FCOS's call
+   and on boxes of its shape jittered around the GT boxes, where K4 must
+   suppress;
+16. trains RetinaNet: first ``RETINANET_TINY`` in float32 on the card
    against the CPU (3 EMA SGD updates on the same batch); then
    ``tools.train_detector.train`` with ``--preset config_20`` at full
    width (R101 RetinaNet at 800^2, batch 10, flips, SGD 1e-4 with warmup
@@ -165,7 +183,7 @@ toolkit. It
    repeated batch lower loss_total below its value after the first;
    prints the step ms, images/s, peak memory, the box AP, the step's
    split by CUDA events and a profiled step;
-16. runs the event-camera half: first the ``noisy`` emulator at 48x64 on
+17. runs the event-camera half: first the ``noisy`` emulator at 48x64 on
    the card against the CPU on the same draws (at most 1e-4 of the event
    maps' entries flipped), chunks against one run on the card (bit-equal)
    and SuperSloMo at 96x64 against the CPU (1e-4); then ``tools.v2e`` at
@@ -184,7 +202,7 @@ toolkit. It
    checked, the AEDAT2 scene equal to the CSV stream after microsecond
    truncation, K1, K2 and K4 launched (counters reset just before, read
    just after) and each held to its plain version on the phase's inputs;
-17. trains on event frames: renders a synthetic scene
+18. trains on event frames: renders a synthetic scene
    (``tools.make_synthetic_scene``, 48 frames of 1280x720), writes its GT
    from a probe run of ``tools.v2e`` (``clean``, duration exposure 0.02 s),
    then runs ``tools.train_pipeline_dvs`` in process at that exposure:
@@ -200,7 +218,7 @@ toolkit. It
    draws stage by stage (the event stages exact, the others within 1e-3
    grey, threshold flips counted against 1e-3 of the pixels), times both
    stacks, and runs 2 detector steps with ``--photometric-augs event``;
-18. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+19. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -660,7 +678,9 @@ def check_pooler_coverage(torch, m) -> None:
     """K2 and its backward against their plain versions on seeded boxes
     that the served proposals may not reach (random weights can put them
     all on one level): every level, the image's edges, boxes larger than
-    the read window, three boxes on level boundaries; f32 and bf16
+    the read window, three boxes on level boundaries; every read (the two
+    windows and the gather's whole level), at P = 7 (the box heads', the
+    cascade's) and 14 (the mask and keypoint heads'); f32 and bf16
     features, 256 and 16 channels; the forward to 1e-5 of the output's
     scale, the backward to ``pooler_grad_limit``, and once through
     autograd (``roi_align_multilevel`` under ``backward()``)."""
@@ -681,49 +701,49 @@ def check_pooler_coverage(torch, m) -> None:
         f"{wide} larger than the read window")
     if min(hist) == 0 or edge == 0 or wide == 0:
         raise RuntimeError("K2 coverage boxes miss a level, the edge or the window")
-    for impl, dtype, c in itertools.product(m.roi_align.IMPLS, (torch.float32, torch.bfloat16), (256, 16)):
+    for impl, p, dtype, c in itertools.product(m.roi_align.READS, (7, 14), (torch.float32, torch.bfloat16),
+                                               (256, 16)):
         feats = [torch.randn(n_img, POOLER_SIZE // s, POOLER_SIZE // s, c, generator=gen).to(boxes.device, dtype)
                  for s in POOLER_STRIDES]
-        args = (feats, boxes, batch_idx, 7, POOLER_STRIDES)
+        args = (feats, boxes, batch_idx, p, POOLER_STRIDES)
         kw = dict(sampling_ratio=2, window=POOLER_WINDOW, impl=impl)
+        case = f"{impl} read, P {p}, {dtype} features, C {c}"
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the window-coverage warning: these boxes exceed it on purpose
             sync()
             got = m.roi_align.roi_align_multilevel(*args, **kw)
-            kernel_sync(f"K2 on the coverage boxes ({impl}, {dtype}, C {c})")
+            kernel_sync(f"K2 on the coverage boxes ({case})")
             want = m.roi_align.roi_align_multilevel_plain(*args, **kw)
         sync()
         err, share, ok = compare(got, want, None)
-        log(f"K2 coverage, {impl} window, {dtype} features, C {c}: max_abs_err {err:.3g} of scale "
-            f"{want.abs().max().item():.3g}, share off {share:.3g} (limit 1e-5 of the scale)")
+        log(f"K2 coverage, {case}: max_abs_err {err:.3g} of scale {want.abs().max().item():.3g}, share off "
+            f"{share:.3g} (limit 1e-5 of the scale)")
         if not ok:
-            raise RuntimeError(f"K2 disagrees with its plain version on the coverage boxes ({impl}, {dtype}, C {c}): "
-                               f"{err}")
-        grad_out = torch.randn(r, 7, 7, c, generator=gen).cuda()
+            raise RuntimeError(f"K2 disagrees with its plain version on the coverage boxes ({case}): {err}")
+        grad_out = torch.randn(r, p, p, c, generator=gen).cuda()
         shapes = [tuple(f.shape) for f in feats]
-        bargs = (grad_out, shapes, dtype, boxes, batch_idx, 7, POOLER_STRIDES, 2, POOLER_WINDOW, 224.0, 4, impl)
+        bargs = (grad_out, shapes, dtype, boxes, batch_idx, p, POOLER_STRIDES, 2, POOLER_WINDOW, 224.0, 4, impl)
         sync()
         got = m.roi_align.roi_align_multilevel_backward(*bargs)
-        kernel_sync(f"K2b on the coverage boxes ({impl}, {dtype}, C {c})")
+        kernel_sync(f"K2b on the coverage boxes ({case})")
         want = m.roi_align.roi_align_multilevel_backward_plain(*bargs)
         sync()
         scale = max(w.float().abs().max().item() for w in want)
         limit = pooler_grad_limit(dtype, scale)
         err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
         same_dtype = all(g.dtype == dtype for g in got)
-        log(f"K2 backward coverage, {impl} window, {dtype} features, C {c}: max_abs_err {err:.3g} of scale {scale:.3g} "
-            f"(limit {limit:.3g}); per level P2..P5 nonzero cells "
-            f"{[int((g != 0).any(-1).sum()) for g in got]}")
+        log(f"K2 backward coverage, {case}: max_abs_err {err:.3g} of scale {scale:.3g} (limit {limit:.3g}); per "
+            f"level P2..P5 nonzero cells {[int((g != 0).any(-1).sum()) for g in got]}")
         if err > limit or not same_dtype:
-            raise RuntimeError(f"K2's backward disagrees with the plain gradient ({impl}, {dtype}, C {c}): {err}")
+            raise RuntimeError(f"K2's backward disagrees with the plain gradient ({case}): {err}")
         if dtype == torch.bfloat16 and c == 256:  # the same through autograd
             leaves = [f.detach().requires_grad_() for f in feats]
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                m.roi_align.roi_align_multilevel(leaves, boxes, batch_idx, 7, POOLER_STRIDES, **kw).backward(grad_out)
-            kernel_sync(f"K2 and K2b through autograd ({impl}, bf16, C 256)")
+                m.roi_align.roi_align_multilevel(leaves, boxes, batch_idx, p, POOLER_STRIDES, **kw).backward(grad_out)
+            kernel_sync(f"K2 and K2b through autograd ({impl} read, P {p}, bf16, C 256)")
             auto = max((f.grad.float() - w.float()).abs().max().item() for f, w in zip(leaves, want))
-            log(f"K2 backward through autograd ({impl} window, bf16, C 256): max_abs_err {auto:.3g} "
+            log(f"K2 backward through autograd ({impl} read, P {p}, bf16, C 256): max_abs_err {auto:.3g} "
                 f"(limit {limit:.3g})")
             if auto > limit:
                 raise RuntimeError(f"roi_align_multilevel's autograd gradient disagrees: {auto}")
@@ -753,7 +773,7 @@ def check_pooler_backward_tiles(torch, m) -> None:
         f"{int(no_p4.sum())} without P4's")
     if min(hist) == 0:
         raise RuntimeError("K2b tiling boxes miss a level")
-    for impl, dtype, c in itertools.product(m.roi_align.IMPLS, (torch.float32, torch.bfloat16), (256, 16)):
+    for impl, dtype, c in itertools.product(m.roi_align.READS, (torch.float32, torch.bfloat16), (256, 16)):
         shapes = [(n_img, TILED_SIZE // s, TILED_SIZE // s, c) for s in POOLER_STRIDES]
         grad_all = torch.randn(r, 7, 7, c, generator=gen).cuda()
         for case, (bx, bi) in cases.items():
@@ -1326,11 +1346,13 @@ def crop_row(torch, m, dev, call, name):
                 tol=1e-3, peak=FP32_FLOPS, numbers=crop_numbers(torch, crop_args))
 
 
-def pooler_row(torch, m, call, name):
-    """K2's row on one captured call."""
+def pooler_row(torch, m, call, name, count="K2"):
+    """K2's row on one captured call; ``count``: the launch counter its
+    ``launches`` reads (``"K2 gather"`` for the gather read's calls)."""
     pool_args, pool_kwargs = call
     *pool_totals, tap_bytes = pooler_numbers(torch, m.roi_align, pool_args, pool_kwargs)
-    return dict(id="K2", name=name, source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel.cu",
+    return dict(id="K2", name=name, count=count,
+                source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel.cu",
                 replaces="spacecraft_pose_estimation_tpu/ops/pallas_pooler.py:135",
                 run_k=lambda: m.roi_align.roi_align_multilevel(*pool_args, **pool_kwargs),
                 run_p=lambda: m.roi_align.roi_align_multilevel_plain(*pool_args, **pool_kwargs),
@@ -2501,7 +2523,7 @@ def pooler_grad_controls(torch, m, a, got, want, limit) -> dict[str, float]:
                 f"level P{busiest + 2} lost": [torch.zeros_like(g) if i == busiest else g for i, g in enumerate(got)],
                 "ROIs sent to another image's boxes": rolled}
     errs = {k: max((g.float() - w.float()).abs().max().item() for g, w in zip(c, want)) for k, c in controls.items()}
-    log(f"K2b bar's controls on the train step's call: max_abs_err {json.dumps(errs)} (each must exceed the limit "
+    log(f"K2b bar's controls on the row's call: max_abs_err {json.dumps(errs)} (each must exceed the limit "
         f"{limit:.3g})")
     for k, err in errs.items():
         if not err > limit:
@@ -2509,12 +2531,12 @@ def pooler_grad_controls(torch, m, a, got, want, limit) -> dict[str, float]:
     return errs
 
 
-def pooler_backward_row(torch, m, call, name):
+def pooler_backward_row(torch, m, call, name, count="K2b"):
     """K2's backward row on one captured call: held to the plain autograd
     gradient within ``pooler_grad_limit`` of its own scale, a bar shown to
     reject wrong gradients (``pooler_grad_controls``); its library
     yardstick is the backward of ``F.grid_sample`` + ``F.avg_pool2d`` under
-    autograd."""
+    autograd. ``count`` as ``pooler_row``'s."""
     import torch.nn.functional as F
 
     bargs, bkw = call
@@ -2529,7 +2551,7 @@ def pooler_backward_row(torch, m, call, name):
     again = m.roi_align.roi_align_multilevel_backward(*bargs, **bkw)
     sync()
     same = all(torch.equal(g, h) for g, h in zip(got, again))
-    log(f"K2b on the train step's call: two calls equal bit for bit {same}")
+    log(f"K2b on the row's call ({name}): two calls equal bit for bit {same}")
     if not same:
         raise RuntimeError("K2b: two calls on the same inputs differ")
     controls = pooler_grad_controls(torch, m, a, got, want, limit)
@@ -2546,7 +2568,7 @@ def pooler_backward_row(torch, m, call, name):
                          a["sampling_ratio"]) for x, g in maps]
     gouts = [torch.randn_like(o) for o in outs]
     run_lib = lambda: torch.autograd.grad(outs, [x for x, _ in maps], gouts, retain_graph=True)
-    return dict(id="K2b", name=name,
+    return dict(id="K2b", name=name, count=count,
                 source="spacecraft_pose_estimation_tpu_torch/csrc/roi_align_multilevel_backward.cu",
                 replaces="none: the gradient of spacecraft_pose_estimation_tpu/ops/roi_align.py:194 (windowed XLA "
                          "pooler, jax.grad); no TPU kernel has a backward",
@@ -2566,12 +2588,23 @@ def det_step_split(torch, m, state, batch, card) -> None:
     forward; the backward (from the losses to SGD: zero_grad, backward, the
     frozen parameters' zero gradients, RetinaNet's EMA rescale, the gradient
     norm); SGD. Then torch.profiler over one more step. A RetinaNet state
-    takes its step: no sampling draws, the EMA loss normalizer."""
+    takes its step: no sampling draws, the EMA loss normalizer; an FCOS
+    state no sampling draws; a Mask / Keypoint R-CNN's batch carries its
+    heads' GT."""
     model, opt = state.model, state.optimizer
     retina = isinstance(model, m.retinanet.RetinaNet)
+    rcnn = isinstance(model, m.rcnn.GeneralizedRCNN)
     b = batch["image"].shape[0]
-    what = f"R101 RetinaNet 800^2, batch {b}" if retina else f"X101-32x8d FPN 800^2, batch {b}"
-    label = f"{'RetinaNet' if retina else 'detector'} train step ({'config_20' if retina else 'config_1'}, batch {b})"
+    if retina:
+        name, what, preset = "RetinaNet", f"R101 RetinaNet 800^2, batch {b}", "config_20"
+    elif not rcnn:
+        name, what, preset = "FCOS", f"R50 FCOS 800^2, batch {b}", "FCOSConfig()"
+    elif model.config.with_mask or model.config.with_keypoints:
+        name, what, preset = ("Mask and Keypoint R-CNN", f"X101-32x8d FPN with both heads 800^2, batch {b}",
+                              "FASTER_RCNN_X101_SPACECRAFT with heads")
+    else:
+        name, what, preset = "detector", f"X101-32x8d FPN 800^2, batch {b}", "config_1"
+    label = f"{name} train step ({preset}, batch {b})"
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
 
     def between(fn, first: int, last: int):
@@ -2583,7 +2616,7 @@ def det_step_split(torch, m, state, batch, card) -> None:
 
         return call
 
-    step = m.detection_state.make_detection_train_step(needs_sampling_rng=not retina, ema_loss_normalizer=retina)
+    step = m.detection_state.make_detection_train_step(needs_sampling_rng=rcnn, ema_loss_normalizer=retina)
     run = lambda: step(state, batch, generator=m.landmark_loop.step_generator(42, 0))
     spans = []
     model.losses, opt.step = between(model.losses, 0, 1), between(opt.step, 2, 3)
@@ -2595,7 +2628,7 @@ def det_step_split(torch, m, state, batch, card) -> None:
     finally:
         del model.losses, opt.step  # the instance's wrappers: the class's methods again
     fwd, bwd, sgd = spans[-1]
-    log(f"{'RetinaNet' if retina else 'detector'} train step split by CUDA events ({what}) on {card} (all "
+    log(f"{name} train step split by CUDA events ({what}) on {card} (all "
         f"{[[round(v, 4) for v in r] for r in spans]}): losses forward {fwd:.4f} ms, backward {bwd:.4f} ms, "
         f"SGD {sgd:.4f} ms")
     profile_call(torch, run, label)
@@ -3205,6 +3238,486 @@ def weights_phase(torch, m, dev, card):
     torch.cuda.empty_cache()
     log(f"weights phase: {time.perf_counter() - t_phase:.1f} s")
     return [row], {"K1": ran["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the heads: Mask / Keypoint R-CNN on the X101 detector, Cascade R-CNN's ROI
+# heads and FCOS, with K2 and K2b in the gather read and K4 on FCOS's NMS
+# ---------------------------------------------------------------------------
+
+HEADS_HW, HEADS_BATCH, HEADS_STEPS, HEADS_EVAL_FRAMES, FCOS_STEPS = 800, 4, 3, 8, 4
+HEADS_KEYPOINTS, HEADS_GT = 11, 2  # the spacecraft's landmarks; GT slots an image (the second in every other image)
+HEADS_LR = 1e-4  # config_1's solver: SGD, momentum 0.9, weight decay 1e-4
+TINY_HEADS = dict(with_mask=True, with_keypoints=True, num_keypoints=4, mask_resolution=7)
+BOX_KEYS = ("image", "gt_boxes", "gt_classes", "gt_valid")
+
+
+def heads_scene(torch, m, dev, n: int, seed: int) -> dict:
+    """n seeded HEADS_HW x HEADS_HW raw 0-255 float32 images on ``dev``: dim
+    noise and one bright star-shaped polygon (5-9 vertices), two in every
+    other image; the batch of a Mask / Keypoint R-CNN step: ``gt_boxes``
+    (the polygons' bounds, padded to HEADS_GT), ``gt_classes`` 0,
+    ``gt_valid``, ``gt_masks`` (``polygon_to_bitmask``) and HEADS_KEYPOINTS
+    visible keypoints in each box."""
+    import numpy as np
+
+    hw, num_kps, slots = HEADS_HW, HEADS_KEYPOINTS, HEADS_GT
+    rng = np.random.default_rng(seed)
+    images = torch.randint(0, 48, (n, hw, hw, 3), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed)).float()
+    boxes, valid = np.zeros((n, slots, 4), np.float32), np.zeros((n, slots), bool)
+    kps = np.zeros((n, slots, num_kps, 3), np.float32)
+    masks = torch.zeros((n, slots, hw, hw), dtype=torch.bool, device=dev)
+    for i in range(n):
+        for j in range(min(slots, 1 + i % 2)):
+            v = int(rng.integers(5, 10))
+            ang = np.sort(rng.uniform(0, 2 * np.pi, v))
+            rad = rng.uniform(0.04 * hw, 0.2 * hw, v)
+            cx, cy = rng.uniform(0.25 * hw, 0.75 * hw, 2)
+            poly = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], -1).astype(np.float32)
+            masks[i, j] = m.masks.polygon_to_bitmask(torch.from_numpy(poly).to(dev), hw, hw)
+            colour = torch.tensor(rng.integers(180, 256, 3).tolist(), dtype=torch.float32, device=dev)
+            images[i][masks[i, j]] = colour
+            (x0, y0), (x1, y1) = poly.min(0), poly.max(0)
+            boxes[i, j], valid[i, j] = (x0, y0, x1, y1), True
+            kps[i, j, :, 0] = rng.uniform(x0, x1, num_kps)
+            kps[i, j, :, 1] = rng.uniform(y0, y1, num_kps)
+            kps[i, j, :, 2] = 2.0
+    to = lambda a: torch.from_numpy(a).to(dev)
+    return {"image": images, "gt_boxes": to(boxes), "gt_valid": to(valid), "gt_masks": masks,
+            "gt_classes": torch.zeros((n, slots), dtype=torch.int32, device=dev), "gt_keypoints": to(kps)}
+
+
+def tiny_updates(torch, m, model, batch, steps: int = 3, sampling: bool = True, starts=None):
+    """``steps`` SGD updates (lr DET_TINY_LR, momentum 0.9, weight decay
+    1e-4) of ``model`` on ``batch`` through ``make_detection_train_step``,
+    the draws of step i from a CPU generator seeded 100 + i (the same on
+    every device): the metrics, the final state dict on the CPU and the
+    training state (model, momentum, step) before each update, copied to
+    the CPU. Given another run's ``starts``, update i starts from its
+    entry i instead of from this run's update i - 1, so that each update
+    is held to that run's from the same state."""
+    opt = m.optim.build_optimizer("sgd", model.parameters(), m.optim.multistep_schedule(DET_TINY_LR, [2]),
+                                  weight_decay=1e-4, momentum=0.9)
+    state = m.detection_state.DetTrainState(model, opt)
+    step = m.detection_state.make_detection_train_step(needs_sampling_rng=sampling)
+    mets, before = [], []
+    for i in range(steps):
+        if starts is not None:
+            state.load_state_dict(starts[i])
+        before.append(tree_to_cpu(state.state_dict()))
+        mets.append({k: v.item() for k, v in step(state, batch, generator=torch.Generator().manual_seed(100 + i)).items()})
+    return mets, {k: v.detach().cpu() for k, v in model.state_dict().items()}, before
+
+
+def tree_to_cpu(tree):
+    """A copy of a state dict, its tensors (nested in dicts and lists) on the CPU."""
+    if isinstance(tree, dict):
+        return {k: tree_to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_cpu(v) for v in tree]
+    return tree.detach().to("cpu", copy=True) if hasattr(tree, "detach") else tree
+
+
+def updates_agree(torch, runs, what: str) -> str:
+    """The tiny detector check's bars on a card run against a CPU run of
+    ``tiny_updates``: losses and grad norms within 1e-4 relative, the
+    parameters within 1 lr, at most 1% of them beyond 1e-3 lr; raises
+    otherwise and returns the log's text."""
+    (mc, sc, _), (mg, sg, _) = runs["cpu"], runs["cuda"]
+    rel = lambda k: max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-6) for a, b in zip(mc, mg))
+    per_loss = {k: float(f"{rel(k):.3g}") for k in mc[0] if k.startswith("loss")}
+    loss_err, gn_err = max(per_loss.values()), rel("grad_norm")
+    dp = torch.cat([((sg[k] - v).abs() / DET_TINY_LR).flatten() for k, v in sc.items()])
+    share = (dp > 1e-3).float().mean().item()
+    text = (f"{what}: loss_total {[round(a['loss_total'], 6) for a in mg]}, losses relative err {loss_err:.3g} "
+            f"(limit 1e-4; by loss {json.dumps(per_loss)}), grad norms {gn_err:.3g} (limit 1e-4), parameters max "
+            f"{dp.max().item():.3g} lr (limit 1), share beyond 1e-3 lr {share:.3g} (limit 0.01) of {dp.numel()}")
+    if not (loss_err <= 1e-4 and gn_err <= 1e-4 and dp.max().item() <= 1.0 and share <= 0.01):
+        raise RuntimeError(f"{what} differ between the card and the CPU: {text}")
+    return text
+
+
+def outputs_agree(got: dict, want: dict, what: str, scaled=(), exact=("valid", "classes")) -> str:
+    """Card outputs against the CPU's: ``exact`` keys equal, boxes within
+    1e-3 px, scores within 1e-5, each ``scaled`` key within 1e-4 of its
+    scale; raises otherwise and returns the log's text."""
+    errs, ok = {}, True
+    for k in exact:
+        errs[k] = int((got[k].cpu() != want[k]).sum())
+        ok &= errs[k] == 0
+    for k, limit in [("boxes", 1e-3), ("scores", 1e-5)] + [(k, None) for k in scaled]:
+        if k not in want:
+            continue
+        w = want[k].float()
+        errs[k] = (got[k].cpu().float() - w).abs().max().item()
+        ok &= errs[k] <= (limit if limit is not None else 1e-4 * max(w.abs().max().item(), 1e-6))
+    text = f"{what}: max errors {json.dumps({k: float(v) for k, v in errs.items()})}"
+    if not ok:
+        raise RuntimeError(f"{what} differ between the card and the CPU: {text}")
+    return text
+
+
+def check_heads_tiny_against_cpu(torch, m) -> None:
+    """The heads' tiny paths in float32 (TF32 off) on the card (K2 and K2b
+    in the gather read, K4) against the CPU (their plain versions), from the
+    same seeded weights on the same batch and draws: ``RCNN_TINY`` with both
+    heads (4 keypoints, ``mask_resolution`` 7) and ``FCOS_TINY``, inference
+    (valid and classes equal, boxes within 1e-3 px, scores 1e-5, the heads'
+    logits 1e-4 of their scale) and 3 SGD updates at the tiny detector
+    check's bars (``updates_agree``), both at that check's ``freeze_at=2``:
+    at 0 the updates move the trunk so far that a perturbation of 1e-6 of
+    the weights alone, on the CPU, moves the third update's loss_cls by 2.9%
+    (the R-CNN with heads) and the grad norm by 9e-5 (FCOS). Each card
+    update starts from the CPU's state before that update (weights,
+    momentum, step), so the updates' rounding does not compound: on the
+    CPU a perturbation of 1e-7 of the weights alone moves the R-CNN with
+    heads' third grad norm by 3e-5 (ReLU kinks among the keypoint head's
+    8 x 512 convs flip), and on the card the chained updates read 3.7e-5 to
+    1.2e-4 against the 1e-4 bar over five runs;
+    ``CascadeROIHeads`` (fc 16, C 16) on seeded levels and boxes: its scores
+    1e-5, boxes 1e-3 px, and the gradients of its parameters and of the
+    levels 1e-4 of their scale."""
+    import dataclasses
+
+    import numpy as np
+
+    det_batch = tiny_det_batch(torch)
+    rng = np.random.default_rng(9)
+    g = det_batch["gt_boxes"].shape[1]
+    masks = torch.zeros(2, g, 64, 64, dtype=torch.bool)
+    kps = torch.zeros(2, g, 4, 3)
+    for b in range(2):
+        for j in range(2):
+            x0, y0, x1, y1 = (int(v) for v in det_batch["gt_boxes"][b, j])
+            masks[b, j, y0 + 2:y1, x0:x1 - 3] = True
+            kps[b, j, :, 0] = torch.from_numpy(rng.uniform(x0 - 2, x1, 4))
+            kps[b, j, :, 1] = torch.from_numpy(rng.uniform(y0, y1, 4))
+            kps[b, j, :, 2] = torch.tensor([2.0, 2.0, 1.0, 0.0])
+    heads_batch = {**det_batch, "gt_masks": masks, "gt_keypoints": kps}
+    frozen = lambda c: dataclasses.replace(c, backbone=dataclasses.replace(c.backbone, freeze_at=2))
+    cfg, fcfg = frozen(dataclasses.replace(m.rcnn.RCNN_TINY, **TINY_HEADS)), frozen(m.fcos.FCOS_TINY)
+    inf, runs, finf, fruns = {}, {}, {}, {}
+    for device in ("cpu", "cuda"):
+        det = m.rcnn.GeneralizedRCNN(cfg, device=device, generator=torch.Generator().manual_seed(0))
+        fcos = m.fcos.FCOS(fcfg, device=device, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():  # tests/test_torch_detection_train.py's conditioning: a small stem, tame heads
+            det.backbone.stem.conv.weight.mul_(1e-2)
+            fcos.backbone.stem.conv.weight.mul_(1e-2)
+            gen = torch.Generator().manual_seed(7)
+            heads = det.roi_heads.predictor
+            for lin in (det.rpn_head.deltas, heads.bbox_pred, heads.cls_score):
+                lin.weight.copy_(0.05 * torch.randn(lin.weight.shape, generator=gen))
+            inf[device] = det(det_batch["image"].to(device))
+            finf[device] = fcos(det_batch["image"].to(device))
+        # the card's update i from the CPU's state before it (the CPU runs first)
+        runs[device] = tiny_updates(torch, m, det, {k: v.to(device) for k, v in heads_batch.items()},
+                                    starts=runs["cpu"][2] if "cpu" in runs else None)
+        fruns[device] = tiny_updates(torch, m, fcos, {k: det_batch[k].to(device) for k in BOX_KEYS}, sampling=False,
+                                     starts=fruns["cpu"][2] if "cpu" in fruns else None)
+    log("tiny heads, card vs CPU (f32): " + outputs_agree(
+        inf["cuda"], inf["cpu"], "RCNN_TINY with both heads, inference", scaled=("mask_logits", "keypoint_logits")))
+    log("tiny heads, card vs CPU (f32): " + updates_agree(torch, runs, "RCNN_TINY with both heads (freeze_at 2), 3 "
+                                                                       "SGD updates"))
+    if not all(a["loss_mask"] > 0 and a["loss_keypoint"] > 0 for a in runs["cuda"][0]):
+        raise RuntimeError(f"the tiny heads trained on no ROI: {runs['cuda'][0]}")
+    log("tiny heads, card vs CPU (f32): " + outputs_agree(finf["cuda"], finf["cpu"], "FCOS_TINY, inference"))
+    log("tiny heads, card vs CPU (f32): " + updates_agree(torch, fruns, "FCOS_TINY (freeze_at 2), 3 SGD updates"))
+    # the cascade on seeded levels and boxes, forward and backward
+    base = m.roi_heads.ROIHeadsConfig(num_classes=1, cls_agnostic_bbox_reg=True, fc_dim=16)
+    levels = {f"p{i + 2}": torch.randn(2, 32 >> i, 48 >> i, 16, generator=torch.Generator().manual_seed(11 + i))
+              for i in range(4)}
+    boxes = coverage_boxes(torch, 40, 192, torch.Generator().manual_seed(12)).reshape(2, 20, 4)
+    strides = {f"p{i + 2}": 4 << i for i in range(4)}
+    got = {}
+    for device in ("cpu", "cuda"):
+        cascade = m.cascade.CascadeROIHeads(m.cascade.CascadeConfig(base=base), 16, device=device,
+                                            generator=torch.Generator().manual_seed(13))
+        feats = {k: v.to(device).detach().requires_grad_() for k, v in levels.items()}
+        scores, out = cascade(feats, boxes.to(device), strides, (128, 192))
+        weigh = torch.Generator().manual_seed(14)  # the scores' rows sum to 1: a plain sum has no gradient there
+        ws, wb = (torch.randn(x.shape, generator=weigh).to(device) for x in (scores, out))
+        ((scores * ws).sum() + 1e-2 * (out * wb).sum()).backward()
+        got[device] = {"scores": scores.detach().cpu(), "boxes": out.detach().cpu(),
+                       **{f"grad {k}": p.grad.cpu() for k, p in cascade.named_parameters() if p.grad is not None},
+                       # a level no box pools from gets no gradient from CPU autograd, zeros from K2b
+                       **{f"grad {k}": (torch.zeros_like(v) if v.grad is None else v.grad).cpu()
+                          for k, v in feats.items()}}
+    log("tiny heads, card vs CPU (f32): " + outputs_agree(
+        got["cuda"], got["cpu"], "CascadeROIHeads (fc 16, C 16), 40 boxes, forward and backward", exact=(),
+        scaled=[k for k in got["cpu"] if k.startswith("grad")]))
+
+
+def heads_rows_train(torch, m, dev, card):
+    """Mask and Keypoint R-CNN at full width: ``FASTER_RCNN_X101_SPACECRAFT``
+    with both heads (11 keypoints, ``mask_resolution`` 14) in bf16 at 800^2,
+    batch 4: HEADS_STEPS SGD steps (config_1's solver) through
+    ``make_detection_train_step``, then inference on HEADS_EVAL_FRAMES
+    frames in batches of 4, the masks pasted, the keypoints decoded, segm AP
+    and keypoint AP, every counter reset just before and read just after;
+    then the step's split and a profiled step. Returns the rows of K2 and
+    K2b in the gather read on the path's calls, the launches, the model and
+    the training batch (for the cascade)."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dataclasses.replace(m.rcnn.FASTER_RCNN_X101_SPACECRAFT, with_mask=True, with_keypoints=True,
+                              num_keypoints=HEADS_KEYPOINTS, mask_resolution=14)
+    model = m.rcnn.GeneralizedRCNN(cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(17))
+    train = heads_scene(torch, m, dev, HEADS_BATCH, 51)
+    val = heads_scene(torch, m, dev, HEADS_EVAL_FRAMES, 52)
+    n_train, p = HEADS_BATCH * cfg.roi.batch_size_per_image, cfg.mask_resolution
+    log(f"heads: Mask and Keypoint R-CNN (FASTER_RCNN_X101_SPACECRAFT with both heads: X101-32x8d FPN, "
+        f"{HEADS_KEYPOINTS} keypoints, mask_resolution {p}, box head pooler {cfg.roi.pooler_impl}, ROI batch "
+        f"{cfg.roi.batch_size_per_image}) in bf16 over float32 at {HEADS_HW}^2, batch {HEADS_BATCH}, SGD {HEADS_LR} "
+        f"momentum 0.9 weight decay 1e-4, seeded weights; {HEADS_STEPS} steps, inference on {HEADS_EVAL_FRAMES} "
+        f"frames; {int(train['gt_valid'].sum())} objects in the {HEADS_BATCH} training images")
+    opt = m.optim.build_optimizer("sgd", model.parameters(), HEADS_LR, weight_decay=1e-4, momentum=0.9)
+    state = m.detection_state.DetTrainState(model, opt)
+    step = m.detection_state.make_detection_train_step()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    k2 = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[3] == p and a[1].shape[0] == n_train)
+    k2b = Capture(m.roi_align, "roi_align_multilevel_backward", keep=lambda a: a[5] == p)
+    mets, ms, inf_ms, dets = [], [], [], []
+    with k2, k2b:
+        reset_counts(m)
+        for i in range(HEADS_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            met = step(state, train, generator=m.landmark_loop.step_generator(42, i))
+            mets.append({k: v.item() for k, v in met.items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        # built here, so that it wraps k2's wrapper: the inference's detections
+        k2i = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[3] == p and a[1].shape[0] < n_train)
+        with k2i, torch.no_grad():
+            for s in range(0, HEADS_EVAL_FRAMES, HEADS_BATCH):
+                sync()
+                t0 = time.perf_counter()
+                dets.append(model(val["image"][s:s + HEADS_BATCH]))
+                sync()
+                inf_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts(m)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"heads: Mask and Keypoint R-CNN train steps on {card}: {[round(v, 4) for v in ms]} ms (the first with "
+        f"cuDNN's warm-up); peak memory {peak_gb:.4f} GB ({held_gb:.4f} GB held before); losses "
+        f"{json.dumps([{k: round(v, 5) for k, v in met.items()} for met in mets])}; inference "
+        f"{[round(v, 4) for v in inf_ms]} ms a batch of {HEADS_BATCH}; launches {json.dumps(launches)}")
+    if not all(math.isfinite(v) for met in mets for v in met.values()):
+        raise RuntimeError(f"heads: a Mask / Keypoint R-CNN loss is not finite: {mets}")
+    if not all(met["loss_mask"] > 0 and met["loss_keypoint"] > 0 for met in mets):
+        raise RuntimeError(f"heads: a head trained on no ROI: {mets}")
+    for key in ("K2", "K2 gather", "K2b", "K2b gather", "K4"):
+        if launches[key] == 0:
+            raise RuntimeError(f"kernel {key} was not launched by the Mask / Keypoint R-CNN path")
+    if launches["K2"] == launches["K2 gather"] or launches["K2b"] == launches["K2b gather"]:
+        raise RuntimeError(f"the box head's windowed read did not launch beside the heads' gather: {launches}")
+    # segm AP and keypoint AP of the detections
+    out = {k: torch.cat([d[k] for d in dets]) for k in dets[0]}
+    seg_d, seg_g, kp_d, kp_g = [], [], [], []
+    for b in range(HEADS_EVAL_FRAMES):
+        valid, gv = out["valid"][b], val["gt_valid"][b]
+        pasted = m.masks.paste_masks_in_image(torch.sigmoid(out["mask_logits"][b, :, :, :, 0]), out["boxes"][b],
+                                              HEADS_HW, HEADS_HW)
+        kps = m.cascade.keypoints_from_logits(out["keypoint_logits"][b], out["boxes"][b])
+        scores, gb = out["scores"][b][valid].cpu().numpy(), val["gt_boxes"][b][gv].cpu().numpy()
+        seg_d.append({"masks": pasted[valid].cpu().numpy(), "scores": scores})
+        seg_g.append({"masks": val["gt_masks"][b][gv].cpu().numpy()})
+        kp_d.append({"keypoints": kps[valid].cpu().numpy(), "scores": scores})
+        kp_g.append({"keypoints": val["gt_keypoints"][b][gv].cpu().numpy(),
+                     "boxes": np.concatenate([gb[:, :2], gb[:, 2:] - gb[:, :2]], 1)})
+    seg = m.coco_eval.evaluate_instance_segmentation(seg_d, seg_g)
+    kp = m.coco_eval.evaluate_keypoints(kp_d, kp_g)
+    shapes = {k: tuple(out[k].shape) for k in ("mask_logits", "keypoint_logits")}
+    log(f"heads: Mask and Keypoint R-CNN inference on {HEADS_EVAL_FRAMES} frames: {int(out['valid'].sum())} valid "
+        f"detections, logits {json.dumps(shapes)}; segm AP {json.dumps(seg)}; keypoint AP {json.dumps(kp)}")
+    if shapes != {"mask_logits": (HEADS_EVAL_FRAMES, 2, 2 * p, 2 * p, 1),
+                  "keypoint_logits": (HEADS_EVAL_FRAMES, 2, 4 * p, 4 * p, HEADS_KEYPOINTS)}:
+        raise RuntimeError(f"heads: inference logits of shapes {shapes}")
+    if not all(bool(torch.isfinite(out[k]).all()) for k in shapes):
+        raise RuntimeError("heads: inference logits are not finite")
+    for res in (seg, kp):
+        if not (0.0 <= res["AP"] <= 100.0 or math.isnan(res["AP"])):
+            raise RuntimeError(f"heads: an AP out of range: {res}")
+    det_step_split(torch, m, state, train, card)
+    r_inf = k2i.calls[-1][0][1].shape[0]
+    rows = [pooler_row(torch, m, k2.calls[-1], f"roi_align_multilevel (heads: Mask and Keypoint R-CNN train step, "
+                                               f"{n_train} sampled ROIs, gather read, P {p})", count="K2 gather"),
+            pooler_row(torch, m, k2i.calls[-1], f"roi_align_multilevel (heads: Mask and Keypoint R-CNN inference, "
+                                                f"{r_inf} detections, gather read, P {p})", count="K2 gather"),
+            pooler_backward_row(torch, m, k2b.calls[-1], f"roi_align_multilevel_backward (heads: Mask and Keypoint "
+                                                         f"R-CNN train step, {n_train} ROIs, gather read, P {p}, bf16 "
+                                                         "gradient)", count="K2b gather")]
+    return rows, launches, model, train
+
+
+def heads_rows_cascade(torch, m, dev, card, model, batch):
+    """``CascadeROIHeads(CascadeConfig())`` on the X101 pyramid of ``model``
+    over ``batch``'s images and its 1,000 test proposals an image: three
+    stages of K2 in the gather read at P = 7 on 4,000 ROIs, then the
+    backward of a seeded weighted sum of its outputs (K2b in the gather
+    read; the scores' rows sum to 1, so their plain sum would send no
+    gradient), 3 times (counters reset just before, read just after; each
+    timed by CUDA events)."""
+    cfg = model.config
+    with torch.no_grad():
+        pyr = model.pyramid(batch["image"])
+        shapes = {lvl: (v.shape[2], v.shape[3]) for lvl, v in pyr.items()}
+        proposals, _, _ = m.rpn.find_top_proposals(model.rpn_head(pyr), model.anchors(shapes, dev),
+                                                   (HEADS_HW, HEADS_HW), cfg.rpn)
+    feats = {lvl: pyr[lvl].permute(0, 2, 3, 1).detach().requires_grad_() for lvl in ("p2", "p3", "p4", "p5")}
+    cascade = m.cascade.CascadeROIHeads(m.cascade.CascadeConfig(), cfg.fpn_channels, device=dev,
+                                        generator=torch.Generator().manual_seed(23))
+    r = proposals.shape[0] * proposals.shape[1]
+    k2 = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[3] == 7)
+    k2b = Capture(m.roi_align, "roi_align_multilevel_backward", keep=lambda a: a[5] == 7)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    weigh = torch.Generator(device=dev).manual_seed(24)
+    ws = torch.randn((*proposals.shape[:2], 2), generator=weigh, device=dev)
+    wb = torch.randn(proposals.shape, generator=weigh, device=dev) * 1e-2
+    spans = []
+    with k2, k2b:
+        reset_counts(m)
+        for _ in range(3):
+            for f in feats.values():
+                f.grad = None
+            cascade.zero_grad()
+            ev[0].record()
+            scores, boxes = cascade(feats, proposals, m.fpn.FPN_STRIDES, (HEADS_HW, HEADS_HW))
+            ev[1].record()
+            ((scores * ws).sum() + (boxes * wb).sum()).backward()
+            ev[2].record()
+            sync()
+            spans.append([ev[i].elapsed_time(ev[i + 1]) for i in range(2)])
+        launches = read_counts(m)
+    finite = bool(torch.isfinite(scores).all() and torch.isfinite(boxes).all()) and all(
+        bool(torch.isfinite(f.grad).all()) for f in feats.values())
+    log(f"heads: CascadeROIHeads on {card} (3 stages, fc {cascade.config.base.fc_dim}, bf16 levels of the X101 "
+        f"pyramid, {r} proposals): forward / backward ms {[[round(v, 4) for v in sp] for sp in spans]}; scores "
+        f"{tuple(scores.shape)}, boxes {tuple(boxes.shape)}, outputs and gradients finite {finite}; launches "
+        f"{json.dumps(launches)}")
+    if not finite or tuple(boxes.shape) != tuple(proposals.shape):
+        raise RuntimeError("heads: the cascade's outputs or gradients are not finite")
+    for key in ("K2 gather", "K2b gather"):
+        if launches[key] != 9:
+            raise RuntimeError(f"heads: {launches[key]} launches of {key} in 3 cascade passes, not 9")
+    rows = [pooler_row(torch, m, k2.calls[-1], f"roi_align_multilevel (heads: CascadeROIHeads stage, {r} proposals, "
+                                               "gather read, P 7)", count="K2 gather"),
+            pooler_backward_row(torch, m, k2b.calls[-1], f"roi_align_multilevel_backward (heads: CascadeROIHeads "
+                                                         f"stage, {r} proposals, gather read, P 7, bf16 gradient)",
+                                count="K2b gather")]
+    return rows, launches
+
+
+def heads_rows_fcos(torch, m, dev, card):
+    """FCOS at full width: ``FCOSConfig()`` (R50, FPN 256, 4-conv towers, one
+    class) in bf16 at 800^2, batch 4, the seeded trunk's FrozenBN calibrated
+    on the training batch (``calibrate_frozen_bn``); FCOS_STEPS SGD steps
+    (config_1's solver), then one evaluation on HEADS_EVAL_FRAMES frames: K4
+    on 8 problems of 2,843 candidates (counters reset just before, read just
+    after) and box AP; then the step's split and a profiled step. Returns
+    K4's rows and the launches: the evaluation's call as scored (the seeded
+    regression gives boxes that may suppress nothing) and, on its shape and
+    valid mask, boxes jittered around the GT boxes, which must suppress."""
+    cfg = m.fcos.FCOSConfig()
+    model = m.fcos.FCOS(cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(29))
+    train = {k: v for k, v in heads_scene(torch, m, dev, HEADS_BATCH, 61).items() if k in BOX_KEYS}
+    val = heads_scene(torch, m, dev, HEADS_EVAL_FRAMES, 62)
+    calibrate_frozen_bn(torch, m, model, train["image"])
+    levels = {lvl: math.ceil(HEADS_HW / s) for lvl, s in m.retinanet.RETINA_STRIDES.items()}
+    want_n = sum(min(cfg.topk_candidates, s * s * cfg.num_classes) for s in levels.values())
+    log(f"heads: FCOS (FCOSConfig(): R50, FPN {cfg.fpn_channels}, {cfg.num_convs}-conv towers, {cfg.num_classes} "
+        f"class, top {cfg.topk_candidates} a level, NMS {cfg.nms_thresh}) in bf16 over float32 at {HEADS_HW}^2, batch "
+        f"{HEADS_BATCH}, SGD {HEADS_LR} momentum 0.9 weight decay 1e-4, seeded weights with FrozenBN calibrated on "
+        f"the training batch; {FCOS_STEPS} steps, one evaluation on {HEADS_EVAL_FRAMES} frames (levels {levels}: "
+        f"{want_n} candidates an image)")
+    opt = m.optim.build_optimizer("sgd", model.parameters(), HEADS_LR, weight_decay=1e-4, momentum=0.9)
+    state = m.detection_state.DetTrainState(model, opt)
+    step = m.detection_state.make_detection_train_step(needs_sampling_rng=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    k4 = Capture(m.nms, "nms_mask_sorted", keep=lambda a: a[0].shape[0] == HEADS_EVAL_FRAMES)
+    mets, ms = [], []
+    with k4:
+        reset_counts(m)
+        for _ in range(FCOS_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            mets.append({k: v.item() for k, v in step(state, train).items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            sync()
+            t0 = time.perf_counter()
+            dets = model(val["image"])
+            sync()
+            eval_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(m)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (boxes, valid, thresh), _ = k4.calls[-1]
+    kept = int(m.nms.nms_mask_sorted_plain(boxes, valid, thresh).sum())
+    gts = [{"boxes": val["gt_boxes"][b][val["gt_valid"][b]].cpu().numpy()} for b in range(HEADS_EVAL_FRAMES)]
+    ap = m.coco_eval.evaluate_detections(m.coco_eval.padded_detections_to_list(dets), gts)
+    log(f"heads: FCOS train steps on {card}: {[round(v, 4) for v in ms]} ms; peak memory {peak_gb:.4f} GB "
+        f"({held_gb:.4f} GB held before); losses {json.dumps([{k: round(v, 5) for k, v in met.items()} for met in mets])}"
+        f"; evaluation of {HEADS_EVAL_FRAMES} frames {eval_ms:.4f} ms: K4 on {tuple(boxes.shape[:2])}, "
+        f"{int(valid.sum())} valid, {kept} kept; {int(dets['valid'].sum())} detections; box AP {json.dumps(ap)}; "
+        f"launches {json.dumps(launches)}")
+    if not all(math.isfinite(v) for met in mets for v in met.values()):
+        raise RuntimeError(f"heads: an FCOS loss is not finite: {mets}")
+    if launches["K4"] == 0:
+        raise RuntimeError("kernel K4 was not launched by FCOS's evaluation")
+    if tuple(boxes.shape[:2]) != (HEADS_EVAL_FRAMES, want_n):
+        raise RuntimeError(f"FCOS's NMS ran on {tuple(boxes.shape[:2])}, not {HEADS_EVAL_FRAMES}x{want_n}")
+    det_step_split(torch, m, state, train, card)
+    label = f"heads: FCOS evaluation {HEADS_EVAL_FRAMES}x{want_n}"
+    jittered = jittered_gt_boxes(torch, val, boxes.shape[1], 63)
+    rows = [nms_row(torch, m, dev, (boxes, valid, thresh), f"nms_mask_sorted ({label}, as scored)"),
+            nms_row(torch, m, dev, (jittered, valid, thresh),
+                    f"nms_mask_sorted ({label}, coverage, not a path call: its valid mask, boxes jittered around "
+                    f"each frame's GT boxes)")]
+    cover = rows[1]["extra"]
+    log(f"heads: K4 on FCOS's {HEADS_EVAL_FRAMES}x{want_n} with boxes jittered around the GT boxes: "
+        f"{cover['valid']} valid, {cover['kept']} kept")
+    if not cover["kept"] < cover["valid"]:
+        raise RuntimeError(f"K4's FCOS coverage problem suppressed nothing: {cover}")
+    return rows, launches
+
+
+def jittered_gt_boxes(torch, scene, n: int, seed: int):
+    """(B, n, 4) float32 boxes for a K4 problem of FCOS's shape that has to
+    suppress: candidate i of frame b is that frame's valid GT box i mod G,
+    each corner moved by a normal draw of 10% of the box's side, clipped to
+    the image."""
+    gen = torch.Generator(device=scene["gt_boxes"].device).manual_seed(seed)
+    out = []
+    for b in range(scene["gt_boxes"].shape[0]):
+        gt = scene["gt_boxes"][b][scene["gt_valid"][b]]
+        base = gt[torch.arange(n, device=gt.device) % gt.shape[0]]
+        side = (base[:, 2:] - base[:, :2]).repeat(1, 2)
+        noise = torch.randn(base.shape, generator=gen, device=gt.device)
+        out.append((base + 0.1 * side * noise).clamp(0.0, float(HEADS_HW)))
+    return torch.stack(out)
+
+
+def heads_phase(torch, m, dev, card):
+    """The heads' paths at full width on the card, each driven with the
+    launch counters reset just before it and read just after: Mask and
+    Keypoint R-CNN training and inference, Cascade R-CNN's ROI heads on its
+    pyramid, FCOS training and evaluation; first their tiny paths against
+    the CPU. Yields each path's (rows, launches)."""
+    t0 = time.perf_counter()
+    check_heads_tiny_against_cpu(torch, m)
+    rows, launches, model, batch = heads_rows_train(torch, m, dev, card)
+    yield rows, launches
+    del rows  # its captured calls and yardsticks, before the next path runs
+    yield heads_rows_cascade(torch, m, dev, card, model, batch)
+    del model, batch
+    torch.cuda.empty_cache()
+    yield heads_rows_fcos(torch, m, dev, card)
+    log(f"heads phase: {time.perf_counter() - t0:.1f} s")
 
 
 RETINA_TRAIN_FRAMES, RETINA_VAL_FRAMES, RETINA_STEPS, RETINA_REPEATS = 20, 10, 6, 8
@@ -4117,7 +4630,7 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.data import camera
     from spacecraft_pose_estimation_tpu_torch.data import coco_io, detection_dataset, landmark_dataset
     from spacecraft_pose_estimation_tpu_torch.models import (
-        backbone_int8, hrnet, hrnet_int8, layers, rcnn, resnet_backbone, retinanet,
+        backbone_int8, cascade, fcos, fpn, hrnet, hrnet_int8, layers, rcnn, resnet_backbone, retinanet, roi_heads, rpn,
     )
     from spacecraft_pose_estimation_tpu_torch.models import discriminator
     from spacecraft_pose_estimation_tpu_torch.tools import (
@@ -4126,8 +4639,9 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.train import adversarial, detection_state, landmark_loop, optim
     from spacecraft_pose_estimation_tpu_torch.train import state as train_state
     from spacecraft_pose_estimation_tpu_torch.ops import (
-        geometry, heatmap, int8_blocks, int8_conv, nms, pnp, roi_align, warp,
+        geometry, heatmap, int8_blocks, int8_conv, masks, nms, pnp, roi_align, warp,
     )
+    from spacecraft_pose_estimation_tpu_torch.data import coco_eval
     from spacecraft_pose_estimation_tpu_torch import convert
     from spacecraft_pose_estimation_tpu_torch.events import emulator, slomo
     from spacecraft_pose_estimation_tpu_torch.events import io as ev_io
@@ -4149,7 +4663,8 @@ def load_port():
                         v2e=v2e, convert_aedats=convert_aedats, evaluate_event_pipeline=evaluate_event_pipeline,
                         augment=augment, make_synthetic_scene=make_synthetic_scene,
                         train_pipeline_dvs=train_pipeline_dvs, retinanet=retinanet, import_weights=import_weights,
-                        export_weights=export_weights, export_model=export_model)
+                        export_weights=export_weights, export_model=export_model, cascade=cascade, fcos=fcos,
+                        fpn=fpn, rpn=rpn, roi_heads=roi_heads, masks=masks, coco_eval=coco_eval)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -4160,7 +4675,9 @@ def load_port():
         "K6": (int8_blocks, "bottleneck_chain", int8_blocks.BOTTLENECK),
         "K7": (int8_blocks, "up_exchange", int8_blocks.EXCHANGE),
     }
-    m.counters = {key: k for key, (_, _, k) in m.kernels.items()} | {"K5a grouped": int8_conv.GROUPED}
+    # beside each kernel's own counter: K5a's grouped launches, K2's and K2b's in the gather read
+    m.counters = {key: k for key, (_, _, k) in m.kernels.items()} | {
+        "K5a grouped": int8_conv.GROUPED, "K2 gather": roi_align.GATHER, "K2b gather": roi_align.GATHER_BACKWARD}
     m._cuda = _cuda
     return m
 
@@ -4266,6 +4783,13 @@ def main() -> int:
     # weights in and out: reference .pth / zoo .pkl files imported, the trainers resumed from them, the
     # evaluation of the import, the export to .pth and the pose pipeline as a torch.export program (K1)
     report += kernel_report(*weights_phase(torch, m, dev, card))
+    torch.cuda.empty_cache()
+
+    # the heads: Mask and Keypoint R-CNN on the X101 detector, Cascade R-CNN's ROI heads and FCOS at full
+    # width, with K2 and K2b in the gather read and K4 on FCOS's 2,843-candidate NMS
+    for rows, launches in heads_phase(torch, m, dev, card):
+        report += kernel_report(rows, launches)
+        del rows  # the rows' captured calls and yardsticks: freed before the next path runs
     torch.cuda.empty_cache()
 
     # tools/train_detector.py's config_20: the R101 RetinaNet at full width, K4 at 10x4441 in its evaluation

@@ -1,12 +1,14 @@
 """Weight bridges to and from the JAX package: variable trees and quantized trees.
 
 The port's module names mirror the Flax trees of ``HRNet``,
-``GeneralizedRCNN`` and ``RetinaNet`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
+``GeneralizedRCNN`` (with its mask and keypoint heads), ``RetinaNet``,
+``FCOS`` and ``CascadeROIHeads`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
 ``backbone.res2_b0.shortcut``, ``roi_heads.box_head.fc1``, ``head.cls_conv0``,
-``p6`` ...), so the map
+``p6``, ``mask_head.mask_fcn1``, ``box_head0.fc1`` ...), so the map
 is by name: conv kernels go from HWIO to OIHW, transposed-conv kernels
-(the modules named ``deconv``, ``deconv0`` ...: the CMS heads' and
-PoseResNet's) are flipped in space and laid out (in, out, kh, kw), dense
+(the modules named ``deconv``, ``deconv0`` ...: the CMS heads', PoseResNet's
+and the mask head's; and the keypoint head's ``score_lowres``) are flipped
+in space and laid out (in, out, kh, kw), dense
 kernels are transposed, and everything else (biases, BN scale/bias, and the
 ``batch_stats`` or frozen ``mean``/``var``) is copied as it is.
 
@@ -38,7 +40,7 @@ def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()) -> Iterator[tuple[tuple
             yield prefix + (str(key),), np.asarray(value)
 
 
-_DECONV = re.compile(r"deconv\d*")
+_DECONV = re.compile(r"deconv\d*|score_lowres")
 
 
 def _is_deconv(modules: list[str]) -> bool:
@@ -51,7 +53,8 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
 
     Works for ``models.hrnet.HRNet``, ``models.pose_resnet.PoseResNet``,
     ``models.discriminator.MultiScaleDiscriminator``,
-    ``models.rcnn.GeneralizedRCNN`` and ``models.retinanet.RetinaNet``;
+    ``models.rcnn.GeneralizedRCNN``, ``models.retinanet.RetinaNet``,
+    ``models.fcos.FCOS`` and ``models.cascade.CascadeROIHeads``;
     load the result with ``load_state_dict(..., strict=True)`` so that a
     name the two sides disagree on raises.
     """

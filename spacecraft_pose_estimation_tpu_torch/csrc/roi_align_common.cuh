@@ -51,28 +51,33 @@ struct Taps {
   float wy[2][kMaxSamples], wx[2][kMaxSamples];
 };
 
+// The reads of the JAX package's three poolers (ops/roi_align.py READS).
+enum Read { kWindowed = 0, kPallas = 1, kGather = 2 };
+
 // One box on its level: the level index, the level's size, the box in the
 // level's cells (aligned: -0.5), the origin of its read window and the
-// window's width.
+// window's height and width.
 struct BoxWindow {
-  int lvl, h, w, oy, ox, win_w;
+  int lvl, h, w, oy, ox, win_h, win_w;
   float x0, y0, x1, y1;
 };
 
 // K2 assigns each box its level (pallas_pooler.py:165-171) and maps it at
 // 1 / stride; K3 (single_map) reads level 0 at spatial_scale. The window's
-// origin is clamped to the level padded up to the window. pallas_window:
-// the Pallas pooler's (window, window + 8) window, its x origin rounded down
-// to a multiple of 8 (pallas_pooler.py:213-218); otherwise the windowed XLA
+// origin is clamped to the level padded up to the window. kPallas: the
+// Pallas pooler's (window, window + 8) window, its x origin rounded down to
+// a multiple of 8 (pallas_pooler.py:213-218); kWindowed: the windowed XLA
 // pooler's (window, window) window (ops/roi_align.py:101-143). The two pick
 // the same taps wherever the box fits the window and the x origin needs no
-// rounding.
+// rounding. kGather: the XLA gather pooler's read (ops/roi_align.py:22-98),
+// the whole level as the window, at origin 0: no tap is dropped.
 __device__ __forceinline__ BoxWindow box_window(const Pyramid& pyr, const float* box, bool single_map,
                                                 int num_levels, int lvl_min, float spatial_scale,
-                                                int window, bool pallas_window, float canonical_size,
+                                                int window, int read, float canonical_size,
                                                 int canonical_level) {
   BoxWindow b;
-  const int win_h = window, win_w = pallas_window ? window + 8 : window;
+  const int win_h = window, win_w = read == kPallas ? window + 8 : window;
+  b.win_h = win_h;
   b.win_w = win_w;
   b.lvl = 0;
   float scale = spatial_scale;
@@ -93,19 +98,22 @@ __device__ __forceinline__ BoxWindow box_window(const Pyramid& pyr, const float*
   b.y0 = box[1] * scale - 0.5f;
   b.x1 = box[2] * scale - 0.5f;
   b.y1 = box[3] * scale - 0.5f;
+  if (read == kGather) {
+    b.win_h = b.h, b.win_w = b.w, b.oy = 0, b.ox = 0;
+    return b;
+  }
   const int hp = max(b.h, win_h), wp = max(b.w, win_w);
   b.oy = min(max(static_cast<int>(floorf(b.y0)) - 1, 0), hp - win_h);
   const int ox = min(max(static_cast<int>(floorf(b.x0)) - 1, 0), wp - win_w);
-  b.ox = pallas_window ? (ox / 8) * 8 : ox;
+  b.ox = read == kPallas ? (ox / 8) * 8 : ox;
   return b;
 }
 
 // The two taps of sample row i (k, w) and of sample column i of a box
-// on its level: the row's within the window's `window` rows, the
-// column's within its win_w columns.
-__device__ __forceinline__ void row_taps(const BoxWindow& b, int i, int P, int S, int window, int* k,
-                                         float* wt) {
-  axis_taps(sample_coord(i, b.y0, b.y1, P, S), b.h, b.oy, window, k, wt);
+// on its level: the row's within the window's win_h rows, the column's
+// within its win_w columns.
+__device__ __forceinline__ void row_taps(const BoxWindow& b, int i, int P, int S, int* k, float* wt) {
+  axis_taps(sample_coord(i, b.y0, b.y1, P, S), b.h, b.oy, b.win_h, k, wt);
 }
 __device__ __forceinline__ void col_taps(const BoxWindow& b, int i, int P, int S, int* k, float* wt) {
   axis_taps(sample_coord(i, b.x0, b.x1, P, S), b.w, b.ox, b.win_w, k, wt);
@@ -114,8 +122,7 @@ __device__ __forceinline__ void col_taps(const BoxWindow& b, int i, int P, int S
 // The block's taps: every sample column of the box, and the S sample rows
 // of output row py. All threads of the block take part; the caller
 // synchronizes before reading them.
-__device__ __forceinline__ void fill_taps(Taps& taps, const BoxWindow& b, int py, int P, int S,
-                                          int window) {
+__device__ __forceinline__ void fill_taps(Taps& taps, const BoxWindow& b, int py, int P, int S) {
   for (int i = threadIdx.x; i < P * S; i += blockDim.x) {
     int k[2];
     float wt[2];
@@ -123,7 +130,7 @@ __device__ __forceinline__ void fill_taps(Taps& taps, const BoxWindow& b, int py
     taps.kx[0][i] = k[0]; taps.kx[1][i] = k[1]; taps.wx[0][i] = wt[0]; taps.wx[1][i] = wt[1];
     if (i < S) {
       const int iy = py * S + i;
-      row_taps(b, iy, P, S, window, k, wt);
+      row_taps(b, iy, P, S, k, wt);
       taps.ky[0][iy] = k[0]; taps.ky[1][iy] = k[1]; taps.wy[0][iy] = wt[0]; taps.wy[1][iy] = wt[1];
     }
   }

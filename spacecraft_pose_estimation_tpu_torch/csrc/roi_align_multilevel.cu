@@ -11,7 +11,13 @@
 // read window count (the window origin is clamped to the level padded up
 // to the window, the x origin rounded down to a multiple of 8); each bin is
 // the mean of its S*S samples. Where the window covers the box, which the
-// caller checks, this is exact ROIAlign.
+// caller checks, this is exact ROIAlign. The same kernel also takes the
+// read of the windowed XLA pooler (ops/roi_align.py:101, (window, window))
+// and that of the XLA gather pooler (ops/roi_align.py:194, impl="gather",
+// the default the mask and keypoint heads and the cascade call): no read
+// window, every tap of the box on its level, which bounds the reads. A bin
+// takes its 2 x 2 taps per sample in every read, so the gather costs the
+// same loads as a window that holds the box.
 //
 // K2's bound: memory, and mostly its f32 output. The serving call pools
 // R = 4 keyframes x 64 proposals = 256 ROIs of 7 x 7 x 256 channels: the
@@ -77,15 +83,15 @@ template <typename T, bool kSingleMap>
 __global__ void __launch_bounds__(32 * kMaxBinWarps)
 roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, float spatial_scale,
                     const float* __restrict__ boxes, const int* __restrict__ batch_idx,
-                    float* __restrict__ out, int C, int P, int S, int window, int pallas_window,
+                    float* __restrict__ out, int C, int P, int S, int window, int read,
                     float canonical_size, int canonical_level) {
   __shared__ Taps taps;
 
   const int r = blockIdx.x / P, py = blockIdx.x % P;
   const BoxWindow bw = box_window(pyr, boxes + 4 * r, kSingleMap, num_levels, lvl_min, spatial_scale,
-                                  window, pallas_window != 0, canonical_size, canonical_level);
+                                  window, read, canonical_size, canonical_level);
   const int lvl = bw.lvl, w = bw.w;
-  fill_taps(taps, bw, py, P, S, window);
+  fill_taps(taps, bw, py, P, S);
   __syncthreads();
 
   const T* feat = static_cast<const T*>(pyr.feat[lvl]);
@@ -134,9 +140,10 @@ roi_align_ml_kernel(Pyramid pyr, int num_levels, int lvl_min, float spatial_scal
 template <bool kSingleMap>
 int launch(const Pyramid& pyr, int num_levels, int lvl_min, float spatial_scale, int is_bf16,
            const void* boxes, const void* batch_idx, void* out, int R, int C, int P, int S,
-           int window, int pallas_window, float canonical_size, int canonical_level, void* stream) {
+           int window, int read, float canonical_size, int canonical_level, void* stream) {
   if (R == 0) return 0;
-  if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4 || C % 8 != 0)
+  if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4 || C % 8 != 0 || read < kWindowed ||
+      read > kGather)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 32 * min(P, kMaxBinWarps);
   const int blocks = R * P;
@@ -146,11 +153,11 @@ int launch(const Pyramid& pyr, int num_levels, int lvl_min, float spatial_scale,
   auto* o = static_cast<float*>(out);
   if (is_bf16) {
     roi_align_ml_kernel<__nv_bfloat16, kSingleMap><<<blocks, threads, 0, s>>>(
-        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, pallas_window,
+        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, read,
         canonical_size, canonical_level);
   } else {
     roi_align_ml_kernel<float, kSingleMap><<<blocks, threads, 0, s>>>(
-        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, pallas_window,
+        pyr, num_levels, lvl_min, spatial_scale, bx, bi, o, C, P, S, window, read,
         canonical_size, canonical_level);
   }
   SPE_RETURN_LAUNCH_STATUS();
@@ -162,18 +169,19 @@ int launch(const Pyramid& pyr, int num_levels, int lvl_min, float spatial_scale,
 // (all the same type), fine to coarse, each 16-byte aligned with C a
 // multiple of 8; levels past num_levels are unused. boxes: (R, 4) f32 XYXY
 // in image pixels; batch_idx: (R,) int32; out: (R, P, P, C) f32, 16-byte
-// aligned. lvl_min = log2 of the finest level's stride. pallas_window: 1
-// for the Pallas pooler's read window, 0 for the windowed XLA pooler's.
+// aligned. lvl_min = log2 of the finest level's stride. read: the Read
+// code, 1 for the Pallas pooler's read window, 0 for the windowed XLA
+// pooler's, 2 for the XLA gather pooler's whole level (window unused).
 extern "C" int roi_align_multilevel(const void* f0, const void* f1, const void* f2,
                                     const void* f3, int h0, int w0, int h1, int w1, int h2,
                                     int w2, int h3, int w3, int num_levels, int lvl_min,
                                     int is_bf16, const void* boxes, const void* batch_idx,
                                     void* out, int R, int C, int P, int S, int window,
-                                    int pallas_window, float canonical_size, int canonical_level,
+                                    int read, float canonical_size, int canonical_level,
                                     void* stream) {
   const Pyramid pyr{{f0, f1, f2, f3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
   return launch<false>(pyr, num_levels, lvl_min, 0.f, is_bf16, boxes, batch_idx, out, R, C, P, S,
-                       window, pallas_window, canonical_size, canonical_level, stream);
+                       window, read, canonical_size, canonical_level, stream);
 }
 
 // feat: (h, w, C) NHWC, float32 or bfloat16, 16-byte aligned with C a
@@ -185,5 +193,5 @@ extern "C" int roi_align_single(const void* feat, int h, int w, int C, int is_bf
   if (h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Pyramid pyr{{feat}, {h}, {w}};
   return launch<true>(pyr, 1, 0, spatial_scale, is_bf16, boxes, nullptr, out, R, C, P, S, window,
-                      1, 0.f, 0, stream);
+                      kPallas, 0.f, 0, stream);
 }

@@ -12,6 +12,10 @@
 // each bin's S samples, their two bilinear taps and 1 / S^2. So one box's
 // gradient is Ay^T . G . Ax, G its (P, P, C) grad_out, and it lies in the
 // small rectangle of cells its nonzero taps span (at most the read window).
+// The mask and keypoint heads and the cascade train through the XLA gather
+// pooler (ops/roi_align.py:194, impl="gather"), which has no window: there a
+// box's rectangle is its whole tap span, clamped to its level, and each
+// ROI's table is sized for the largest level side instead of the window.
 //
 // The same geometry, bit for bit: the level, the read window and the taps
 // come from roi_align_common.cuh, the functions K2's forward calls, so a
@@ -81,7 +85,7 @@ struct Outs {
 
 struct Params {
   Pyramid pyr;
-  int num_levels, lvl_min, B, R, C, P, S, window, pallas_window, canonical_level;
+  int num_levels, lvl_min, B, R, C, P, S, window, read, canonical_level;
   float canonical_size;
 };
 
@@ -90,12 +94,13 @@ struct Params {
 // floats, index y - oy) and Ax / S^2 (P rows of sx floats, index x - ox),
 // where oy and ox are the footprint's first row and column rounded down to
 // a multiple of 8: a warp's kRows rows of a bin are aligned float4s. sy and
-// sx hold a window (window rows, at most window + 8 columns) at any such
-// offset and, for sy, up to 8 rows read past it.
+// sx hold a footprint of at most span rows and span + 8 columns (span: the
+// read window; for the gather, which has none, the largest level side) at
+// any such offset and, for sy, up to 8 rows read past it.
 struct Table {
   int P, sp, sy, sx;
-  __host__ __device__ Table(int P_, int window)
-      : P(P_), sp((2 * P_ + 3) / 4 * 4), sy((window + 15 + 7) / 8 * 8), sx((window + 15 + 3) / 4 * 4) {}
+  __host__ __device__ Table(int P_, int span)
+      : P(P_), sp((2 * P_ + 3) / 4 * 4), sy((span + 15 + 7) / 8 * 8), sx((span + 15 + 3) / 4 * 4) {}
   __host__ __device__ int words() const { return sp + P * (sy + sx); }
   __device__ __forceinline__ int ay(int b) const { return sp + b * sy; }
   __device__ __forceinline__ int ax(int b) const { return sp + P * sy + b * sx; }
@@ -116,7 +121,7 @@ roi_table_kernel(Params p, const float* __restrict__ boxes, const int* __restric
   if (r >= p.R) return;
   const int P = p.P, S = p.S;
   const BoxWindow bw = box_window(p.pyr, boxes + 4 * r, false, p.num_levels, p.lvl_min, 0.f, p.window,
-                                  p.pallas_window != 0, p.canonical_size, p.canonical_level);
+                                  p.read, p.canonical_size, p.canonical_level);
   int* tab = tables + static_cast<int64_t>(r) * tb.words();
   int y0 = kMaxSide, y1 = -1, x0 = kMaxSide, x1 = -1;
   for (int b = lane; b < P; b += 32) {
@@ -124,7 +129,7 @@ roi_table_kernel(Params p, const float* __restrict__ boxes, const int* __restric
     for (int i = b * S; i < b * S + S; ++i) {
       int k[2];
       float wt[2];
-      row_taps(bw, i, P, S, p.window, k, wt);
+      row_taps(bw, i, P, S, k, wt);
       for (int t = 0; t < 2; ++t)
         if (wt[t] != 0.f) ylo = min(ylo, k[t]), yhi = max(yhi, k[t]);
       col_taps(bw, i, P, S, k, wt);
@@ -153,7 +158,7 @@ roi_table_kernel(Params p, const float* __restrict__ boxes, const int* __restric
     for (int i = b * S; i < b * S + S; ++i) {
       int k[2];
       float wt[2];
-      row_taps(bw, i, P, S, p.window, k, wt);
+      row_taps(bw, i, P, S, k, wt);
       for (int t = 0; t < 2; ++t)
         if (wt[t] != 0.f) ft[tb.ay(b) + k[t] - oy] += wt[t];
       col_taps(bw, i, P, S, k, wt);
@@ -294,20 +299,27 @@ int blocks_per_sm() {
 // grad_out: (R, P, P, C) f32, 16-byte aligned. o0..o3: the per-level
 // gradients (B, h_l, w_l, C), bf16 when is_bf16 else f32, 16-byte aligned,
 // every element of which the call writes. scratch: 16-byte aligned int32
-// words, 4 R of footprints then R tables of Table(P, window).words().
+// words, 4 R of footprints then R tables of Table(P, span).words(), span
+// the window or, for the gather read, the largest level side.
 // Levels past num_levels are unused. boxes (R, 4) f32 XYXY image pixels,
 // batch_idx (R,) int32; lvl_min = log2 of the finest level's stride;
-// pallas_window as the forward's. C a multiple of 8.
+// read as the forward's. C a multiple of 8.
 extern "C" int roi_align_multilevel_backward(
     const void* grad_out, void* o0, void* o1, void* o2, void* o3, void* scratch, int h0, int w0,
     int h1, int w1, int h2, int w2, int h3, int w3, int B, int num_levels, int lvl_min, int is_bf16,
-    const void* boxes, const void* batch_idx, int R, int C, int P, int S, int window, int pallas_window,
+    const void* boxes, const void* batch_idx, int R, int C, int P, int S, int window, int read,
     float canonical_size, int canonical_level, void* stream) {
-  if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4 || C % 8 != 0)
+  if (P * S > kMaxSamples || num_levels < 1 || num_levels > 4 || C % 8 != 0 || read < kWindowed ||
+      read > kGather)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{{{nullptr, nullptr, nullptr, nullptr}, {h0, h1, h2, h3}, {w0, w1, w2, w3}},
-                 num_levels, lvl_min, B, R, C, P, S, window, pallas_window, canonical_level, canonical_size};
-  const Table tb(P, window);
+                 num_levels, lvl_min, B, R, C, P, S, window, read, canonical_level, canonical_size};
+  int span = window;
+  if (read == kGather) {
+    span = 0;
+    for (int l = 0; l < num_levels; ++l) span = max(span, max(p.pyr.h[l], p.pyr.w[l]));
+  }
+  const Table tb(P, span);
   int64_t tiles = 0;
   for (int l = 0; l < num_levels; ++l) {
     if (p.pyr.h[l] > kMaxSide || p.pyr.w[l] > kMaxSide) return static_cast<int>(cudaErrorInvalidValue);

@@ -1,14 +1,15 @@
-"""Box AP and keypoint-OKS AP (COCOEvaluator's "bbox" and "keypoints" tasks): host-side NumPy.
+"""Box, mask and keypoint-OKS AP (COCOEvaluator's "bbox", "segm" and "keypoints" tasks): host-side NumPy.
 
-A copy of the box and keypoint parts of the JAX package's
+A copy of the box, instance-mask and keypoint parts of the JAX package's
 ``data/coco_eval.py`` (``evaluate_detections``, ``box_iou_xyxy``,
-``padded_detections_to_list``, ``compute_oks``, ``evaluate_keypoints``
+``padded_detections_to_list``, ``mask_iou``,
+``evaluate_instance_segmentation``, ``compute_oks``, ``evaluate_keypoints``
 and the matching and AP helpers they call), with pycocotools' COCOeval
 semantics: greedy per-image matching of score-sorted detections to ground
 truth at each IoU or OKS threshold (0.50:0.05:0.95), 101-point
 interpolated precision, the area ranges and a cap of detections an image.
-The JAX module's native (ctypes) accelerator and its mask, rotated-box and
-segmentation tasks are not copied: the box AP is its numpy backend.
+The JAX module's native (ctypes) accelerator and its rotated-box and
+semantic-segmentation tasks are not copied: the box AP is its numpy backend.
 """
 
 from __future__ import annotations
@@ -167,6 +168,65 @@ def padded_detections_to_list(dets: dict) -> list[dict]:
     to_np = lambda x: x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
     boxes, scores, valid = (to_np(dets[k]) for k in ("boxes", "scores", "valid"))
     return [{"boxes": boxes[i][valid[i]], "scores": scores[i][valid[i]]} for i in range(boxes.shape[0])]
+
+
+def mask_iou(det_masks: np.ndarray, gt_masks: np.ndarray) -> np.ndarray:
+    """(D, H, W) x (G, H, W) binary-mask IoU."""
+    if len(det_masks) == 0 or len(gt_masks) == 0:
+        return np.zeros((len(det_masks), len(gt_masks)))
+    d = np.asarray(det_masks, bool).reshape(len(det_masks), -1)
+    g = np.asarray(gt_masks, bool).reshape(len(gt_masks), -1)
+    inter = (d[:, None, :] & g[None, :, :]).sum(-1).astype(np.float64)
+    union = (d[:, None, :] | g[None, :, :]).sum(-1).astype(np.float64)
+    return np.where(union > 0, inter / np.maximum(union, 1), 0.0)
+
+
+def evaluate_instance_segmentation(detections: list[dict], ground_truths: list[dict],
+                                   max_dets: int = 100) -> dict[str, float]:
+    """Instance-mask AP (COCOEvaluator's "segm" task): box AP's matching
+    with binary-mask IoU, and mask pixel counts as the areas.
+
+    detections: per image {"masks" (D, H, W) bool, "scores" (D,)};
+    ground_truths: per image {"masks" (G, H, W) bool}. Returns AP, AP50,
+    AP75, APs, APm, APl and AR, in percent.
+    """
+    assert len(detections) == len(ground_truths)
+    # per image the areas (the matching reads a row's first column only)
+    # and the mask-IoU matrix of the score-ordered detections, computed once
+    prepped = []
+    for det, gt in zip(detections, ground_truths):
+        dm, gm = np.asarray(det["masks"], bool), np.asarray(gt["masks"], bool)
+        dm = dm.reshape((-1,) + dm.shape[-2:]) if dm.size else dm.reshape(0, 1, 1)
+        gm = gm.reshape((-1,) + gm.shape[-2:]) if gm.size else gm.reshape(0, 1, 1)
+        det_s = np.asarray(det["scores"], np.float64)
+        dareas = dm.sum((1, 2)).astype(np.float64)[:, None]
+        gareas = gm.sum((1, 2)).astype(np.float64)[:, None]
+        order = np.argsort(-det_s, kind="stable")[:max_dets]
+        prepped.append((dareas, det_s, gareas, mask_iou(dm[order], gm)))
+    results, ap_per_iou = {}, {}
+    for area_name, area_range in AREA_RANGES.items():
+        aps, ars = [], []
+        for t in IOU_THRS:
+            all_matched, all_ignored, all_scores = [], [], []
+            total_gt = 0
+            for dareas, det_s, gareas, iou in prepped:
+                m, ig, sc, ng = _match_image(dareas, det_s, gareas, t, area_range, max_dets, iou)
+                all_matched.append(m)
+                all_ignored.append(ig)
+                all_scores.append(sc)
+                total_gt += ng
+            ap, ar = _ap_from_matches(all_matched, all_ignored, all_scores, total_gt)
+            aps.append(ap)
+            ars.append(ar)
+            if area_name == "all":
+                ap_per_iou[round(float(t), 2)] = ap
+        key = {"all": "AP", "small": "APs", "medium": "APm", "large": "APl"}[area_name]
+        results[key] = float(np.nanmean(aps)) * 100 if not np.all(np.isnan(aps)) else float("nan")
+        if area_name == "all":
+            results["AR"] = float(np.nanmean(ars)) * 100 if not np.all(np.isnan(ars)) else float("nan")
+    results["AP50"] = ap_per_iou.get(0.5, np.nan) * 100
+    results["AP75"] = ap_per_iou.get(0.75, np.nan) * 100
+    return results
 
 
 def compute_oks(det_kps: np.ndarray, gt_kps: np.ndarray, gt_areas: np.ndarray, gt_boxes: np.ndarray,

@@ -2,10 +2,12 @@
 
 Port of ``models/rcnn.py`` with its X101 and R101 presets and
 ``select_best_box``: inference (``forward``) and the training losses
-(:meth:`GeneralizedRCNN.losses`, the JAX ``train=True`` branch's box
-losses; the mask and keypoint heads are not ported). Images arrive
-pre-sized (a letterbox), and detections leave as padded (B, D) arrays with
-a ``valid`` mask.
+(:meth:`GeneralizedRCNN.losses`, the JAX ``train=True`` branch), with the
+Mask and Keypoint R-CNN heads of ``models/cascade.py`` where the config
+asks for them (``with_mask``, ``with_keypoints``): they pool with kernel
+K2's gather read at ``mask_resolution``. Images arrive pre-sized (a
+letterbox), and detections leave as padded (B, D) arrays with a ``valid``
+mask.
 
 Inside the model, tensors are NCHW views of NHWC memory (the
 ``channels_last`` format), so the pyramid hands its levels to kernel K2 as
@@ -20,7 +22,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops import boxes as box_ops
+from ..ops import roi_align
 from .anchors import fpn_anchors
+from .cascade import KeypointHead, MaskHead, keypoint_loss, mask_loss, pool_gather
 from .fpn import FPN, FPN_STRIDES
 from .layers import init_params
 from .resnet_backbone import RESNET101_FPN, RESNET_TINY, RESNEXT101_32x8d, ResNetBackbone, ResNetConfig
@@ -47,6 +52,11 @@ class RCNNConfig:
     roi: ROIHeadsConfig = ROIHeadsConfig()
     pixel_mean: tuple[float, float, float] = PIXEL_MEAN
     pixel_std: tuple[float, float, float] = PIXEL_STD
+    # Mask / Keypoint R-CNN: the heads of models/cascade.py on the sampled ROIs, then on the detections
+    with_mask: bool = False
+    with_keypoints: bool = False
+    num_keypoints: int = 17
+    mask_resolution: int = 14  # the heads' pooler side; the mask head's output is 2x, the keypoint head's 4x
 
 
 # The reference's detector (config_4: X101-FPN) with the spacecraft ROI
@@ -102,7 +112,10 @@ class GeneralizedRCNN(nn.Module):
 
     ``dtype`` is the compute dtype (bfloat16 for serving); parameters
     stay float32. Returns {boxes (B, D, 4) XYXY, scores (B, D), classes
-    (B, D), valid (B, D)}.
+    (B, D), valid (B, D)} and, with the config's heads, ``mask_logits``
+    (B, D, 2P, 2P, num_classes) and ``keypoint_logits`` (B, D, 4P, 4P,
+    num_keypoints), P = ``mask_resolution``, float32, for every one of the
+    D detections (the invalid ones too, as in the JAX package).
     """
 
     def __init__(self, config: RCNNConfig = FASTER_RCNN_R101_SPACECRAFT, dtype=torch.float32,
@@ -114,6 +127,10 @@ class GeneralizedRCNN(nn.Module):
         num_anchors = len(config.anchor_aspect_ratios) * len(config.anchor_sizes[0])
         self.rpn_head = RPNHead(config.fpn_channels, num_anchors)
         self.roi_heads = StandardROIHeads(config.roi, config.fpn_channels)
+        if config.with_mask:
+            self.mask_head = MaskHead(config.fpn_channels, config.roi.num_classes)
+        if config.with_keypoints:
+            self.keypoint_head = KeypointHead(config.fpn_channels, config.num_keypoints)
         generator = generator if generator is not None else torch.Generator().manual_seed(0)
         init_params(self, generator)
         with torch.no_grad():  # FastRCNNOutputLayers' init
@@ -161,11 +178,11 @@ class GeneralizedRCNN(nn.Module):
         gt_classes (B, G) 0-based, gt_valid (B, G). Proposals take the train
         budgets and carry no gradient; the sampling's priorities come from
         ``draws`` (see :func:`sample_draws`) or are drawn from
-        ``generator``. The mask and keypoint heads are not ported:
-        ``gt_masks`` or ``gt_keypoints`` raise.
+        ``generator``. With the config's heads, ``gt_masks`` (B, G, H, W)
+        bool adds ``loss_mask`` and ``gt_keypoints`` (B, G, K, 3) x, y,
+        visibility adds ``loss_keypoint``, both on the sampled ROIs pooled by
+        K2's gather read at ``mask_resolution``.
         """
-        if gt_masks is not None or gt_keypoints is not None:
-            raise NotImplementedError("the mask and keypoint training heads are not ported")
         cfg = self.config
         b, h, w = images.shape[0], images.shape[1], images.shape[2]
         pyramid = self.pyramid(images)
@@ -187,8 +204,44 @@ class GeneralizedRCNN(nn.Module):
             **fast_rcnn_losses(scores, deltas, sampled, cfg.roi),
         }
         losses = {k: v.mean() for k, v in per_image.items()}
+        train_mask, train_kps = cfg.with_mask and gt_masks is not None, cfg.with_keypoints and gt_keypoints is not None
+        if train_mask or train_kps:
+            losses.update(self._head_losses(nhwc, sampled, gt_boxes, gt_masks if train_mask else None,
+                                            gt_keypoints if train_kps else None))
         losses["loss_total"] = sum(losses.values())
         return losses
+
+    def _head_losses(self, nhwc: dict[str, Tensor], sampled: dict[str, Tensor], gt_boxes: Tensor,
+                     gt_masks: Tensor | None, gt_keypoints: Tensor | None) -> dict[str, Tensor]:
+        """``loss_mask`` and ``loss_keypoint`` on the sampled ROIs (JAX
+        rcnn.py:205-280): each ROI's GT is recovered as the GT box nearest
+        (L1, the first on ties) to the box it was matched to."""
+        cfg = self.config
+        rois = sampled["boxes"]
+        bb, rr = rois.shape[:2]
+        pooled = pool_gather(nhwc, rois, cfg.roi, FPN_STRIDES, cfg.mask_resolution)
+        dist = torch.abs(gt_boxes[:, None, :, :] - sampled["gt_boxes"][:, :, None, :]).sum(-1)  # (B, S, G)
+        gt_idx = box_ops.first_argmin(dist)  # (B, S)
+        fg = sampled["is_fg"].to(torch.float32)
+        out = {}
+        if gt_masks is not None:
+            m = 2 * cfg.mask_resolution
+            logits = self.mask_head(pooled, self.dtype).reshape(bb, rr, m, m, cfg.roi.num_classes)
+            g = gt_masks.shape[1]
+            # the GT mask crops (mask_head crop_and_resize), taps gathered from each ROI's own GT bitmask
+            map_idx = torch.arange(bb, device=rois.device)[:, None] * g + gt_idx
+            crops = roi_align.roi_align_maps(gt_masks.reshape(bb * g, *gt_masks.shape[2:], 1), map_idx.reshape(-1),
+                                             rois.reshape(-1, 4), m, 1.0, 2).reshape(bb, rr, m, m)
+            out["loss_mask"] = mask_loss(logits, crops > 0.5, sampled["gt_classes"], fg).mean()
+        if gt_keypoints is not None:
+            logits = self.keypoint_head(pooled, self.dtype)
+            side = logits.shape[1]
+            logits = logits.reshape(bb, rr, side, side, cfg.num_keypoints)
+            kps = torch.gather(gt_keypoints.to(torch.float32), 1,
+                               gt_idx[..., None, None].expand(-1, -1, *gt_keypoints.shape[2:]))  # (B, S, K, 3)
+            idx, valid = keypoint_targets(kps, rois, side)
+            out["loss_keypoint"] = keypoint_loss(logits, idx, valid, fg).mean()
+        return out
 
     def forward(self, images: Tensor, precomputed_feats: dict[str, Tensor] | None = None) -> dict[str, Tensor]:
         cfg = self.config
@@ -200,7 +253,37 @@ class GeneralizedRCNN(nn.Module):
         )
         nhwc = {lvl: p.permute(0, 2, 3, 1) for lvl, p in pyramid.items()}
         scores, deltas = self.roi_heads(nhwc, proposals, FPN_STRIDES)
-        return fast_rcnn_inference(scores, deltas, proposals, prop_valid, (h, w), cfg.roi)
+        dets = fast_rcnn_inference(scores, deltas, proposals, prop_valid, (h, w), cfg.roi)
+        if cfg.with_mask or cfg.with_keypoints:  # the heads on every detection (mask_head / keypoint_head inference)
+            bb, dd = dets["boxes"].shape[:2]
+            pooled = pool_gather(nhwc, dets["boxes"], cfg.roi, FPN_STRIDES, cfg.mask_resolution)
+            if cfg.with_mask:
+                out = self.mask_head(pooled, self.dtype)
+                dets["mask_logits"] = out.reshape(bb, dd, *out.shape[1:])
+            if cfg.with_keypoints:
+                out = self.keypoint_head(pooled, self.dtype)
+                dets["keypoint_logits"] = out.reshape(bb, dd, *out.shape[1:])
+        return dets
+
+
+def keypoint_targets(kps: Tensor, rois: Tensor, side: int) -> tuple[Tensor, Tensor]:
+    """Each ROI's keypoints (..., K, 3) in its (..., 4) box -> the flat
+    heatmap cell gy * side + gx (int64) and whether it counts (float32): a
+    visible keypoint inside the box. The cell is the box-relative position
+    times side / box size, truncated toward zero and clipped to the
+    heatmap (JAX rcnn.py:261-271)."""
+    x0, y0, x1, y1 = (rois[..., i, None] for i in range(4))
+    side_t = torch.tensor(float(side), device=rois.device)  # side / w, not w's reciprocal times side
+    sw = side_t / torch.clamp(x1 - x0, min=1e-6)
+    sh = side_t / torch.clamp(y1 - y0, min=1e-6)
+    kx, ky, vis = kps.unbind(-1)
+
+    def cell(v):  # astype(int32), then clip: a clamp to [-1, side] first keeps the cast in range
+        return torch.clamp(torch.clamp(v, -1.0, float(side)).to(torch.int64), 0, side - 1)
+
+    gx, gy = cell((kx - x0) * sw), cell((ky - y0) * sh)
+    inside = (kx >= x0) & (kx < x1) & (ky >= y0) & (ky < y1) & (vis > 0)
+    return gy * side + gx, inside.to(torch.float32)
 
 
 def select_best_box(dets: dict[str, Tensor], image_hw: tuple[int, int]) -> Tensor:

@@ -36,8 +36,9 @@ class ROIHeadsConfig:
     differentiates) and ``"pallas"`` (its Pallas kernel). They pool the same
     wherever a box fits the window. K2 has a backward kernel for either, so
     ``"pallas"`` (``config_4``) trains in the port, where ``jax.grad``
-    through the Pallas pooler raises. The ``"gather"`` pooler (unwindowed)
-    is not ported.
+    through the Pallas pooler raises. The box head takes these two; the
+    ``"gather"`` read (unwindowed, K2 too) is the mask and keypoint heads'
+    and the cascade's, which call it themselves.
     """
 
     num_classes: int = 1
@@ -59,8 +60,9 @@ class ROIHeadsConfig:
     pooler_window: int = 48
 
     def __post_init__(self):
-        if self.pooler_impl not in roi_align.IMPLS:
-            raise ValueError(f"pooler_impl {self.pooler_impl!r}: the port has {roi_align.IMPLS} (both kernel K2)")
+        if self.pooler_impl not in roi_align.READS or self.pooler_impl == "gather":
+            raise ValueError(f"pooler_impl {self.pooler_impl!r}: the port's box head has the windowed reads "
+                             "'windowed' and 'pallas' (both kernel K2)")
 
 
 class BoxHead(nn.Module):

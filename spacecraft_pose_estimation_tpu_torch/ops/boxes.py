@@ -1,8 +1,8 @@
 """Box arithmetic: areas, IoU, clipping, delta encoding and decoding, matching.
 
-Port of ``spacecraft_pose_estimation_tpu/ops/boxes.py`` without the
-giou/diou/ciou losses, which no ported model uses. Boxes are (..., 4)
-XYXY float32.
+Port of ``spacecraft_pose_estimation_tpu/ops/boxes.py``, with its
+GIoU / DIoU / CIoU losses (FCOS regresses with the first). Boxes are
+(..., 4) XYXY float32.
 """
 
 from __future__ import annotations
@@ -17,10 +17,15 @@ Tensor = torch.Tensor
 SCALE_CLAMP = math.log(1000.0 / 16)
 
 
+def _at_least(x: Tensor, floor: float) -> Tensor:
+    """``jnp.maximum(x, floor)``, its gradient too: split in half where x
+    equals the floor (a touching or zero-area pair of boxes), where
+    ``torch.clamp`` passes all of it."""
+    return torch.maximum(x, torch.tensor(floor, dtype=x.dtype, device=x.device))
+
+
 def box_area(boxes: Tensor) -> Tensor:
-    return torch.clamp(boxes[..., 2] - boxes[..., 0], min=0) * torch.clamp(
-        boxes[..., 3] - boxes[..., 1], min=0
-    )
+    return _at_least(boxes[..., 2] - boxes[..., 0], 0.0) * _at_least(boxes[..., 3] - boxes[..., 1], 0.0)
 
 
 def pairwise_iou(a: Tensor, b: Tensor) -> Tensor:
@@ -89,10 +94,66 @@ def elementwise_iou(a: Tensor, b: Tensor) -> Tensor:
     """(..., 4) x (..., 4) -> (...) IoU of paired boxes."""
     lt = torch.maximum(a[..., :2], b[..., :2])
     rb = torch.minimum(a[..., 2:], b[..., 2:])
-    wh = torch.clamp(rb - lt, min=0.0)
+    wh = _at_least(rb - lt, 0.0)
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(a) + box_area(b) - inter
-    return torch.where(union > 0, inter / torch.clamp(union, min=1e-12), torch.zeros_like(inter))
+    return torch.where(union > 0, inter / _at_least(union, 1e-12), torch.zeros_like(inter))
+
+
+def giou_loss(pred: Tensor, target: Tensor) -> Tensor:
+    """Generalized IoU loss, elementwise (layers/losses.py family)."""
+    iou = elementwise_iou(pred, target)
+    lt = torch.minimum(pred[..., :2], target[..., :2])
+    rb = torch.maximum(pred[..., 2:], target[..., 2:])
+    wh = _at_least(rb - lt, 0.0)
+    enclose = _at_least(wh[..., 0] * wh[..., 1], 1e-12)
+    inter_wh = _at_least(torch.minimum(pred[..., 2:], target[..., 2:]) - torch.maximum(pred[..., :2], target[..., :2]),
+                         0.0)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    union = box_area(pred) + box_area(target) - inter
+    return 1.0 - iou + (enclose - union) / enclose
+
+
+def _centers_wh(b: Tensor) -> tuple[Tensor, Tensor]:
+    return (b[..., :2] + b[..., 2:]) * 0.5, _at_least(b[..., 2:] - b[..., :2], 0.0)
+
+
+def diou_loss(pred: Tensor, target: Tensor) -> Tensor:
+    """Distance-IoU loss: 1 - IoU + the centres' squared distance over the
+    enclosing box's squared diagonal."""
+    iou = elementwise_iou(pred, target)
+    cp, _ = _centers_wh(pred)
+    ct, _ = _centers_wh(target)
+    center_dist = torch.sum((cp - ct) ** 2, dim=-1)
+    lt = torch.minimum(pred[..., :2], target[..., :2])
+    rb = torch.maximum(pred[..., 2:], target[..., 2:])
+    diag = _at_least(torch.sum((rb - lt) ** 2, dim=-1), 1e-12)
+    return 1.0 - iou + center_dist / diag
+
+
+def ciou_loss(pred: Tensor, target: Tensor) -> Tensor:
+    """Complete-IoU loss: DIoU plus the aspect-ratio term, its weight alpha
+    carrying no gradient."""
+    iou = elementwise_iou(pred, target)
+    d = diou_loss(pred, target)
+    _, wp = _centers_wh(pred)
+    _, wt = _centers_wh(target)
+    v = (4 / math.pi**2) * (torch.atan(wt[..., 0] / _at_least(wt[..., 1], 1e-12))
+                            - torch.atan(wp[..., 0] / _at_least(wp[..., 1], 1e-12))) ** 2
+    alpha = v / _at_least(1.0 - iou + v, 1e-12)
+    return d + alpha.detach() * v
+
+
+def first_argmin(x: Tensor, dim: int = -1, largest: bool = False) -> Tensor:
+    """Index of the first minimum (the first maximum if ``largest``) along
+    ``dim``, as ``jnp.argmin`` / ``jnp.argmax`` (``torch.argmin`` and
+    ``torch.argmax`` do not promise which of tied entries they return)."""
+    n = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = n
+    idx = torch.arange(n, device=x.device).reshape(shape)
+    extreme = x.amax(dim=dim, keepdim=True) if largest else x.amin(dim=dim, keepdim=True)
+    return torch.where(x == extreme, idx, n).amin(dim=dim).clamp(max=n - 1)
 
 
 def match_to_gt(iou: Tensor, thresholds: tuple[float, ...], labels: tuple[int, ...],

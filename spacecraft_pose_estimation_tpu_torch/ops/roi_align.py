@@ -1,4 +1,4 @@
-"""Windowed ROIAlign: the FPN pooler (K2) and the single-level op (K3).
+"""ROIAlign: the FPN pooler (K2) and the single-level op (K3), windowed or not.
 
 Port of ``spacecraft_pose_estimation_tpu/ops/pallas_pooler.py`` with its
 semantics (``level_mats`` / ``window_matrices``): aligned ROIAlign whose
@@ -10,6 +10,14 @@ trainer differentiates: ``impl="windowed"``. The two pick the same taps
 wherever a box fits the window and the x origin needs no rounding; near
 the right edge of a map whose width less (window + 8) is not a multiple of
 8 (P3 at 800^2: 100 columns), the Pallas window drops the last columns.
+``impl="gather"`` is the JAX package's default pooler, the bilinear
+gather over the whole level (``ops/roi_align.py:194``,
+``multilevel_roi_align(impl="gather")``), which the mask and keypoint heads
+and the cascade's stages call: every tap of the box on its level counts,
+the level's own extent bounds the reads. :func:`roi_align` is that
+gather's single-map ROIAlign (``ops/roi_align.py:49``) in plain PyTorch:
+the mask head's GT crops run it on one-channel bitmasks, which no kernel
+takes (K3 reads 8 channels at a time).
 
 * :func:`roi_align_multilevel` (``multilevel_roi_align_pallas``): per-box
   level assignment, one pass over all images, kernel K2; differentiable in
@@ -34,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import math
 import warnings
+from types import SimpleNamespace
 
 import torch
 
@@ -57,9 +66,15 @@ SINGLE = _cuda.Kernel(
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
+# K2's and K2b's launches in the gather read (the heads' and the cascade's),
+# counted where they launch, beside KERNEL's and BACKWARD's, which count them all
+GATHER = SimpleNamespace(launches=0)
+GATHER_BACKWARD = SimpleNamespace(launches=0)
 MAX_LEVELS = 4
 MAX_SAMPLES = 64  # output_size * sampling_ratio, per axis
-IMPLS = ("pallas", "windowed")  # the read windows of the JAX package's two windowed poolers
+# the reads of the JAX package's three poolers, by K2's read code: the two
+# windowed ones (the box heads take these) and the unwindowed gather
+READS = {"windowed": 0, "pallas": 1, "gather": 2}
 
 
 def assign_levels(boxes: Tensor, num_levels: int, lvl_min: int,
@@ -131,7 +146,11 @@ def level_taps(boxes: Tensor, h: int, w: int, stride: int, output_size: int,
     (window, window + 8) read window of the level padded up to it
     (pallas_pooler.py:213-218); ``"windowed"``, the (window, window) one of
     ``roi_align_windowed`` (its ``min(window, w)`` slice from an origin
-    clamped to 0 where the map is smaller picks the same taps)."""
+    clamped to 0 where the map is smaller picks the same taps);
+    ``"gather"``, every tap on the level (``_bilinear``, ops/roi_align.py:22:
+    a window of the whole level, at origin 0)."""
+    if impl == "gather":
+        return window_taps(boxes, h, w, 1.0 / stride, output_size, sampling_ratio, h, w, round_x8=False)
     pallas = impl == "pallas"
     return window_taps(boxes, h, w, 1.0 / stride, output_size, sampling_ratio, window,
                        window + 8 if pallas else window, round_x8=pallas)
@@ -166,7 +185,7 @@ def roi_align_multilevel_plain(
     canonical_size: float = 224.0, canonical_level: int = 4, impl: str = "pallas",
 ) -> Tensor:
     """Plain PyTorch K2. feats: per level (B, H_l, W_l, C); boxes (R, 4);
-    batch_idx (R,) -> (R, P, P, C) float32; ``impl`` the read window."""
+    batch_idx (R,) -> (R, P, P, C) float32; ``impl`` the read (``READS``)."""
     p, s = output_size, sampling_ratio
     r, c = boxes.shape[0], feats[0].shape[-1]
     lvl_min = int(math.log2(strides[0]))
@@ -184,8 +203,8 @@ def roi_align_multilevel_plain(
 
 def _check_pyramid(shapes, dtype, strides, output_size, sampling_ratio, impl) -> int:
     """Raise on what K2 and its backward do not take; returns lvl_min."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl not in READS:
+        raise ValueError(f"impl must be one of {tuple(READS)}, got {impl!r}")
     num_levels = len(shapes)
     lvl_min = int(math.log2(strides[0]))
     if not 1 <= num_levels <= MAX_LEVELS:
@@ -229,8 +248,10 @@ def _forward_kernel(feats, boxes, batch_idx, output_size, strides, sampling_rati
     KERNEL.launch(
         *[_cuda.ptr(f) for f in padded], *hw, num_levels, lvl_min,
         int(dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(batch_idx), _cuda.ptr(out),
-        r, c, output_size, sampling_ratio, window, int(impl == "pallas"), float(canonical_size), canonical_level,
+        r, c, output_size, sampling_ratio, window, READS[impl], float(canonical_size), canonical_level,
     )
+    if impl == "gather":
+        GATHER.launches += 1
     return out
 
 
@@ -261,18 +282,22 @@ def roi_align_multilevel_backward(
         raise ValueError(f"grad_out {tuple(grad_out.shape)} is not ({r}, {output_size}, {output_size}, {c})")
     dev = boxes.device
     outs = [torch.empty(tuple(sh), dtype=dtype, device=dev) for sh in shapes]
-    # each ROI's footprint (4 words) and table (csrc's Table(P, window)): its
-    # bins' spans, then Ay and Ax over its read window at an 8-aligned origin
+    # each ROI's footprint (4 words) and table (csrc's Table(P, span)): its
+    # bins' spans, then Ay and Ax over its read window at an 8-aligned origin;
+    # the gather reads a whole level, so its span is the largest level side
+    span = max(max(sh[1], sh[2]) for sh in shapes) if impl == "gather" else window
     up = lambda v, m: (v + m - 1) // m * m
-    table = up(2 * output_size, 4) + output_size * (up(window + 15, 8) + up(window + 15, 4))
+    table = up(2 * output_size, 4) + output_size * (up(span + 15, 8) + up(span + 15, 4))
     scratch = torch.empty(r * (4 + table), dtype=torch.int32, device=dev)
     pad = lambda ts: list(ts) + [ts[-1]] * (MAX_LEVELS - num_levels)
     hw = [d for sh in pad(shapes) for d in (sh[1], sh[2])]
     BACKWARD.launch(
         _cuda.ptr(grad_out), *[_cuda.ptr(t) for t in pad(outs)], _cuda.ptr(scratch), *hw,
         shapes[0][0], num_levels, lvl_min, int(dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(batch_idx),
-        r, c, output_size, sampling_ratio, window, int(impl == "pallas"), float(canonical_size), canonical_level,
+        r, c, output_size, sampling_ratio, window, READS[impl], float(canonical_size), canonical_level,
     )
+    if impl == "gather":
+        GATHER_BACKWARD.launches += 1
     return outs
 
 
@@ -328,9 +353,11 @@ def roi_align_multilevel(
     16-byte vector: C must be a multiple of 8 and every level 16-byte
     aligned. On CUDA tensors the features' gradient, where autograd asks for
     it, is K2's backward kernel (:func:`roi_align_multilevel_backward`).
-    ``impl``: the read window, the Pallas pooler's or the windowed one's.
+    ``impl``: the read, the Pallas pooler's or the windowed one's read
+    window, or ``"gather"``, the whole level (``window`` unused).
     """
-    check_window_covers([tuple(f.shape[1:3]) for f in feats], canonical_size, canonical_level, window)
+    if impl != "gather":
+        check_window_covers([tuple(f.shape[1:3]) for f in feats], canonical_size, canonical_level, window)
     if boxes.device.type == "cpu":
         return roi_align_multilevel_plain(
             feats, boxes, batch_idx, output_size, strides, sampling_ratio, window,
@@ -383,3 +410,44 @@ def roi_align_single(feat: Tensor, boxes: Tensor, output_size: int, spatial_scal
     SINGLE.launch(_cuda.ptr(feat), h, w, c, int(feat.dtype == torch.bfloat16), _cuda.ptr(boxes), _cuda.ptr(out),
                   r, output_size, float(spatial_scale), sampling_ratio, window)
     return out
+
+
+# ------------------------------------------------------------ whole-map ROIAlign
+
+
+def roi_align_maps(maps: Tensor, map_idx: Tensor, boxes: Tensor, output_size: int, spatial_scale: float,
+                   sampling_ratio: int = 2) -> Tensor:
+    """Aligned ROIAlign of box r on map ``map_idx[r]`` of ``maps`` (N, H, W, C), any
+    dtype (a bool bitmask reads as 0 / 1): (R, P, P, C) float32, every tap on
+    the map (the JAX ``roi_align``, ops/roi_align.py:49-98, one map per box,
+    in its arithmetic: each sample's four corners weighted as ``_bilinear``
+    weighs them, a sample outside (-1, size) 0, then the S x S mean). Plain
+    PyTorch on any device: the taps are gathered from the maps where they
+    lie, so no per-box copy of a map is made."""
+    _, h, w, c = maps.shape
+    p, s = output_size, sampling_ratio
+    dev = boxes.device
+    p_t, s_t = (torch.tensor(float(v), device=dev) for v in (p, s))
+    grid = (torch.arange(p, device=dev)[:, None] + (torch.arange(s, device=dev)[None, :] + 0.5) / s_t).reshape(-1)
+    x0, y0, x1, y1 = (boxes.to(torch.float32) * spatial_scale - 0.5).unbind(-1)
+    bw, bh = x1 - x0, y1 - y0
+    sy = (y0[:, None] + grid[None, :] * (bh / p_t)[:, None])[:, :, None]  # (R, PS, 1)
+    sx = (x0[:, None] + grid[None, :] * (bw / p_t)[:, None])[:, None, :]  # (R, 1, PS)
+    inb = (sy > -1.0) & (sy < h) & (sx > -1.0) & (sx < w)
+    sy, sx = torch.clamp(sy, 0.0, h - 1), torch.clamp(sx, 0.0, w - 1)
+    ky0, kx0 = torch.floor(sy).to(torch.int64), torch.floor(sx).to(torch.int64)
+    ky1, kx1 = torch.clamp(ky0 + 1, max=h - 1), torch.clamp(kx0 + 1, max=w - 1)
+    fy, fx = (sy - ky0)[..., None], (sx - kx0)[..., None]
+    flat = maps.reshape(-1, c)
+    base = (map_idx.to(torch.int64) * (h * w))[:, None, None]
+    at = lambda ky, kx: flat[base + ky * w + kx].to(torch.float32)  # (R, PS, PS, C)
+    v = (at(ky0, kx0) * (1 - fy) * (1 - fx) + at(ky0, kx1) * (1 - fy) * fx
+         + at(ky1, kx0) * fy * (1 - fx) + at(ky1, kx1) * fy * fx) * inb[..., None]
+    v = v.reshape(-1, p, s, p, s, c)
+    acc = v[:, :, 0, :, 0]
+    for i in range(s):
+        for j in range(s):
+            if i or j:
+                acc = acc + v[:, :, i, :, j]
+    return acc / (s * s)
+

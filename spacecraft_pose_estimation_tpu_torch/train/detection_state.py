@@ -58,7 +58,9 @@ def make_detection_train_step(needs_sampling_rng: bool = True,
     updating ``state`` in place.
 
     ``batch``: ``image`` (B, H, W, 3) raw 0-255, ``gt_boxes`` (B, G, 4),
-    ``gt_classes`` (B, G), ``gt_valid`` (B, G). With ``needs_sampling_rng``
+    ``gt_classes`` (B, G), ``gt_valid`` (B, G), and, for a Mask / Keypoint
+    R-CNN, ``gt_masks`` (B, G, H, W) and ``gt_keypoints`` (B, G, K, 3),
+    which ``GeneralizedRCNN.losses`` trains its heads on. With ``needs_sampling_rng``
     (the Faster R-CNN) the sampling's priorities come from ``draws`` or
     ``generator`` (``GeneralizedRCNN.losses``); RetinaNet samples nothing
     and ignores both. The metrics stay on the device: every loss,
@@ -77,8 +79,9 @@ def make_detection_train_step(needs_sampling_rng: bool = True,
              draws: dict | None = None) -> dict[str, Tensor]:
         model = state.model
         sampling = {"generator": generator, "draws": draws} if needs_sampling_rng else {}
+        heads = {k: batch[k] for k in ("gt_masks", "gt_keypoints") if k in batch}
         losses = model.losses(batch["image"], batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
-                              **sampling)
+                              **sampling, **heads)
         state.optimizer.zero_grad()
         losses["loss_total"].backward()
         params = list(model.parameters())

@@ -147,7 +147,7 @@ def test_pooler_backward_raises_off_the_card_and_never_falls_back():
             roi_align.roi_align_multilevel_backward(torch.zeros(2, 7, 7, 8, device=dev), [(1, 8, 8, 8)],
                                                     torch.float32, boxes, bidx, 7, (4,), window=16)
     with pytest.raises(ValueError, match="impl"):
-        roi_align._check_pyramid([(1, 8, 8, 8)], torch.float32, (4,), 7, 2, "gather")
+        roi_align._check_pyramid([(1, 8, 8, 8)], torch.float32, (4,), 7, 2, "nearest")
     with pytest.raises(ValueError, match="multiple of 8"):
         roi_align._check_pyramid([(1, 8, 8, 12)], torch.float32, (4,), 7, 2, "pallas")
 
@@ -271,3 +271,56 @@ def test_registered_k1_launches_or_raises_and_never_takes_the_plain_version():
         warp._crop_bilinear_cuda(frames, params, 4, 4)
     out = torch.ops.spe_port.crop_bilinear(frames, params, 4, 4)
     assert torch.equal(out, warp.crop_bilinear_plain(frames, params, (4, 4)))
+
+
+def test_no_jax_check_covers_the_heads_modules():
+    """The mask, keypoint and cascade heads, FCOS and the mask ops are under
+    the import check above."""
+    sources = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert {"models/cascade.py", "models/fcos.py", "ops/masks.py", "ops/roi_align.py", "data/coco_eval.py"} <= sources
+
+
+def test_gather_read_launches_k2_or_raises_and_never_takes_the_plain_version():
+    """K2's gather read (the heads' and the cascade's pooler): on a tensor off
+    the CPU the wrapper goes to K2 and its backward kernel, whose functions
+    name no plain version, and a tensor neither on the CPU nor on CUDA is
+    refused; the box head's config keeps the two windowed reads."""
+    import inspect
+    import textwrap
+
+    from spacecraft_pose_estimation_tpu_torch.models import roi_heads
+    from spacecraft_pose_estimation_tpu_torch.ops import roi_align
+
+    assert tuple(roi_align.READS) == ("windowed", "pallas", "gather")
+    for fn in (roi_align._forward_kernel, roi_align.roi_align_multilevel_backward,
+               roi_align._RoIAlignMultilevel.forward, roi_align._RoIAlignMultilevel.backward):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)} | {
+            n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        assert not {"roi_align_multilevel_plain", "roi_align_multilevel_backward_plain"} & names, fn.__name__
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align.roi_align_multilevel([torch.zeros(1, 8, 8, 8, device=meta)], torch.zeros(1, 4, device=meta),
+                                       torch.zeros(1, dtype=torch.int32, device=meta), 14, (4,), impl="gather")
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="CUDA"):
+            roi_align.roi_align_multilevel_backward(
+                torch.zeros(1, 14, 14, 8, device=dev), [(1, 8, 8, 8)], torch.float32, torch.zeros(1, 4, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), 14, (4,), impl="gather")
+    with pytest.raises(ValueError, match="pooler_impl"):
+        roi_heads.ROIHeadsConfig(pooler_impl="gather")
+
+
+def test_heads_and_fcos_need_cuda_or_an_explicit_device():
+    if torch.cuda.is_available():
+        return
+    import dataclasses
+
+    from spacecraft_pose_estimation_tpu_torch.models.cascade import CascadeROIHeads
+    from spacecraft_pose_estimation_tpu_torch.models.fcos import FCOS, FCOS_TINY
+    from spacecraft_pose_estimation_tpu_torch.models.rcnn import RCNN_TINY, GeneralizedRCNN
+
+    for build in (lambda: FCOS(FCOS_TINY), lambda: CascadeROIHeads(),
+                  lambda: GeneralizedRCNN(dataclasses.replace(RCNN_TINY, with_mask=True, with_keypoints=True))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
