@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera and DVS-training paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training and detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN) paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -218,7 +218,27 @@ toolkit. It
    draws stage by stage (the event stages exact, the others within 1e-3
    grey, threshold flips counted against 1e-3 of the pixels), times both
    stacks, and runs 2 detector steps with ``--photometric-augs event``;
-19. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+19. runs the rest of the detection library ("library"): TTA around
+   ``config_1``'s X101-32x8d Faster R-CNN (bf16, 100 detections an image)
+   on 8 seeded uint8 800^2 frames, scales 1.0 and 0.8 with the flip (four
+   detector calls, the 640^2 views in float32, then one class-aware NMS,
+   K4, on 8 x 400 candidates; K2 and K4 counters reset just before, read
+   just after; K2 held to its plain version on the 640^2 view's box head
+   and K4 exactly on the merge; the output as ``Instances``, counts equal
+   to ``valid``); ``IouTracker`` over 16 jittered frames of its boxes (ids
+   equal to the CPU's); RegNetX / RegNetY-400MF at 800^2, batch 4, bf16
+   (timed, peak memory) and in float32 at 224^2 against the CPU (1e-4 of
+   scale); ``deform_conv2d`` v2 on (4, 100, 100, 256) float32 with offsets
+   of up to 3 px against the CPU (1e-4 of scale); rotated IoU and NMS (0.7)
+   on 2,000 clustered boxes against the CPU (IoU 1e-5; keep-masks equal but
+   where an IoU lies within 1e-6 of the threshold) and the rotated AP of 8
+   images (1e-9); ASPP at DeepLabV3's widths against the CPU (1e-4 of
+   scale); a ``Trainer`` of 6 ``config_1`` steps with ``TraceProfiler``
+   (K2's and K4's kernels in the trace), ``MemoryStats`` (equal to
+   ``memory_allocated``) and a ``BestCheckpointer`` (the best step in
+   ``best/``), K2, K2b and K4 counted; and PreciseBN on the ``events``
+   HRNet-W32 at 512^2 against the CPU (1e-3 of scale) and against itself;
+20. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -4559,6 +4579,433 @@ def dvs_phase(torch, m, dev, card):
     return rows, launches
 
 
+LIB_TTA_BATCH, LIB_TTA_HW, LIB_TTA_SCALES, LIB_TTA_MAX_DETS = 8, 800, (1.0, 0.8), 100
+LIB_REGNET_BATCH, LIB_REGNET_HW = 4, 800
+LIB_DEFORM_SHAPE = (4, 100, 100, 256)  # (B, H, W, C): C 256 -> 256, 3x3, stride 1
+LIB_ROT_N, LIB_ROT_THRESH, LIB_ROT_EVAL_IMAGES = 2000, 0.7, 8
+LIB_ASPP_SHAPE = (2, 64, 128, 2048)  # (B, H, W, C): DeepLabV3's 2048 -> 256 at dilations 6, 12, 18
+LIB_TRACK_FRAMES = 16
+LIB_HOOK_STEPS, LIB_HOOK_SCORES = 6, (0.2, 0.5, 0.3, 0.5, 0.4)  # the EvalHook's metric by iteration: best at 1
+LIB_PBN_BATCHES, LIB_PBN_BATCH = 4, 4
+LIB_TRACE_KERNELS = ("roi_align_ml_kernel", "nms_mask_sorted_kernel")  # K2's and K4's __global__ functions
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max abs error, the same over max(1, |want|.max()))."""
+    err = (got.float().cpu() - want.float().cpu()).abs().max().item()
+    return err, err / max(1.0, want.float().abs().max().item())
+
+
+def library_tta(torch, m, dev, card):
+    """TTA around ``config_1``'s X101-32x8d Faster R-CNN (bf16, seeded
+    weights, 100 detections an image) on 8 seeded uint8 800^2 frames, scales
+    1.0 and 0.8 with the flip: four detector calls (800^2, its flip, 640^2
+    float32, its flip), then one class-aware NMS over 8 x 400 candidates
+    (K4). Counters reset just before the timed call and read just after;
+    returns the rows of K2 on the 640^2 view's box head and K4 on the
+    merge, the launches and the merged detections."""
+    cfg = m.zoo.DETECTOR_PRESETS["config_1"].config
+    det = m.rcnn.GeneralizedRCNN(cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(71))
+    gen = torch.Generator(device=dev).manual_seed(71)
+    frames = torch.randint(0, 256, (LIB_TTA_BATCH, LIB_TTA_HW, LIB_TTA_HW, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    view_ms = []
+
+    def infer(images):
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = det(images)
+        sync()
+        view_ms.append(((time.perf_counter() - t0) * 1e3, tuple(images.shape[1:3]), str(images.dtype)))
+        return out
+
+    run = m.tta.make_tta_inference(infer, scales=LIB_TTA_SCALES, flip=True, max_dets=LIB_TTA_MAX_DETS)
+    with torch.no_grad():
+        run(frames)  # cuDNN's first calls at both sizes
+    view_ms.clear()
+    side = int(round(LIB_TTA_HW * LIB_TTA_SCALES[1]))
+    n_merge = 2 * len(LIB_TTA_SCALES) * cfg.roi.detections_per_image
+    k2 = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[0][0].shape[1] == side // 4)
+    k4 = Capture(m.nms, "nms_mask_sorted", keep=lambda a: tuple(a[0].shape[:2]) == (LIB_TTA_BATCH, n_merge))
+    with k2, k4, torch.no_grad():
+        reset_counts(m)
+        sync()
+        t0 = time.perf_counter()
+        out = run(frames)
+        sync()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(m)
+    views = sum(v[0] for v in view_ms)
+    valid = out["valid"]
+    insts = m.structures.instances_from_detections(out)
+    counts = [int(i.num_instances()) for i in insts]
+    log(f"library: TTA on {card}: config_1's X101-32x8d FPN (bf16 over float32, seeded) on {LIB_TTA_BATCH} uint8 "
+        f"{LIB_TTA_HW}^2 frames, scales {LIB_TTA_SCALES} with the flip: {total_ms:.4f} ms the call; the detector "
+        f"calls {[(round(ms, 4), hw, dt) for ms, hw, dt in view_ms]} ms ({views:.4f} in all = "
+        f"{total_ms / view_ms[0][0]:.3f} x the first view's batch); resizes, flips and the merge of "
+        f"{LIB_TTA_BATCH}x{n_merge} candidates {total_ms - views:.4f} ms; kept a frame {valid.sum(1).tolist()}; "
+        f"Instances counts {counts}; launches {json.dumps(launches)}")
+    boxes = out["boxes"][valid]
+    if len(view_ms) != 4 or [v[1] for v in view_ms] != [(LIB_TTA_HW,) * 2] * 2 + [(side, side)] * 2:
+        raise RuntimeError(f"TTA ran other views: {view_ms}")
+    if not (bool(torch.isfinite(out["boxes"]).all()) and valid.any() and boxes.min() >= 0
+            and boxes.max() <= LIB_TTA_HW):
+        raise RuntimeError("TTA's merged boxes are not finite boxes in the frame")
+    if counts != valid.sum(1).tolist() or any(len(i.to_numpy()["boxes"]) != c for i, c in zip(insts, counts)):
+        raise RuntimeError(f"Instances disagree with valid: {counts}")
+    scores = torch.where(valid, out["scores"], torch.full_like(out["scores"], -1.0))
+    if bool((scores[:, 1:] > scores[:, :-1]).any()):
+        raise RuntimeError("TTA's merged scores are not in descending order")
+    for key in ("K2", "K4"):
+        if launches[key] == 0:
+            raise RuntimeError(f"kernel {key} was not launched by TTA")
+    (k4_args, _), = k4.calls
+    rows = [pooler_row(torch, m, k2.calls[-1], f"roi_align_multilevel (library: TTA's {side}^2 flipped view's box "
+                                               f"head, {k2.calls[-1][0][1].shape[0]} ROIs, windowed read window)"),
+            nms_row(torch, m, dev, k4_args, f"nms_mask_sorted (library: TTA merge {LIB_TTA_BATCH}x{n_merge})")]
+    return rows, launches, out
+
+
+def library_regnet(torch, m, dev, card):
+    """RegNetX-400MF and RegNetY-400MF: at 800^2, batch 4, bf16, the
+    forward timed and its peak memory read; in float32 at 224^2, batch 2,
+    the card against the CPU within 1e-4 of each feature's scale."""
+    for name, cfg in (("RegNetX-400MF", m.regnet.REGNETX_400MF), ("RegNetY-400MF", m.regnet.REGNETY_400MF)):
+        model = m.regnet.RegNet(cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(72))
+        x = torch.randn(LIB_REGNET_BATCH, LIB_REGNET_HW, LIB_REGNET_HW, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(72)) * 50
+        with torch.no_grad():
+            model(x)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            feats = model(x)
+            sync()
+            peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+            ms = time_ms(lambda: model(x), 10)
+        flops = conv_flops(torch, m, [model], lambda: model(x))
+        finite = all(bool(torch.isfinite(f).all()) for f in feats.values())
+        cpu = m.regnet.RegNet(cfg, device="cpu", generator=torch.Generator().manual_seed(72))
+        card32 = m.regnet.RegNet(cfg, device=dev, generator=torch.Generator().manual_seed(72))
+        x32 = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(73)) * 50
+        with torch.no_grad():
+            want, got = cpu(x32), card32(x32.to(dev))
+        errs = {k: rel_err(got[k], want[k]) for k in want}
+        log(f"library: {name} (depths {cfg.depths}, widths {cfg.widths}, group width {cfg.group_width}, SE "
+            f"{cfg.se_ratio}) on {card}: bf16 at {LIB_REGNET_HW}^2, batch {LIB_REGNET_BATCH}: {ms:.4f} ms a forward "
+            f"({flops / 1e12:.4f} TFLOP = {flops / ms / 1e9:.2f} TFLOP/s), peak {peak_gb:.4f} GB above the "
+            f"{held / 1e9:.4f} held; features {({k: tuple(v.shape) for k, v in feats.items()})} finite {finite}; "
+            f"float32 224^2 batch 2 card vs CPU (max abs, over scale; bar 1e-4 of scale): "
+            f"{json.dumps({k: [round(e, 9) for e in v] for k, v in errs.items()})}")
+        if not finite or any(r > 1e-4 for _, r in errs.values()):
+            raise RuntimeError(f"{name}: features not finite or card vs CPU off: {errs}")
+        with torch.no_grad():
+            profile_call(torch, lambda: model(x), f"{name} forward (bf16 {LIB_REGNET_HW}^2, batch {LIB_REGNET_BATCH})")
+        del model, feats, cpu, card32
+
+
+def library_deform(torch, m, dev, card):
+    """``deform_conv2d`` v2, C 256 -> 256, 3x3, stride 1, on (4, 100, 100,
+    256) float32 with seeded offsets of up to +-3 px (taps across the
+    edges) and masks in (0, 2): the card against the CPU within 1e-4 of
+    the output's scale, timed, the sampled tensor's bytes and the peak."""
+    b, h, w, c = LIB_DEFORM_SHAPE
+    gen = torch.Generator().manual_seed(74)
+    x = torch.randn(b, h, w, c, generator=gen)
+    off = torch.rand(b, h, w, 18, generator=gen) * 6 - 3
+    mask = torch.rand(b, h, w, 9, generator=gen) * 2
+    kernel = torch.randn(3, 3, c, c, generator=gen) / math.sqrt(9 * c)
+    want = m.deform_conv.deform_conv2d(x, off, kernel, mask)
+    args = [a.to(dev) for a in (x, off, kernel, mask)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    got = m.deform_conv.deform_conv2d(*args)
+    sync()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    err, rel = rel_err(got, want)
+    ms = time_ms(lambda: m.deform_conv.deform_conv2d(*args), 10)
+    sampled = b * h * w * 9 * c * 4
+    flops = 2.0 * b * h * w * 9 * c * c
+    tap_y = torch.arange(h, dtype=torch.float32)[:, None, None] + torch.tensor([-1.0, 0.0, 1.0]).repeat_interleave(3)
+    edge = float((off.reshape(b, h, w, 9, 2)[..., 0] + tap_y < 0).float().mean())
+    log(f"library: deform_conv2d v2 on {card}: {tuple(x.shape)} float32, C {c} -> {c}, 3x3, stride 1, offsets "
+        f"U(-3, 3) px ({edge:.4f} of the taps above row 0), masks U(0, 2): {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+        f"TFLOP/s of the product), the sampled (B, H, W, 9, C) tensor {sampled} bytes ({sampled / 1e6:.1f} MB), "
+        f"peak {peak_gb:.4f} GB above the inputs; card vs CPU max abs {err:.3g} = {rel:.3g} of scale (bar 1e-4)")
+    if rel > 1e-4 or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"deform_conv2d: card vs CPU {rel} of scale")
+
+
+def clustered_rboxes_t(torch, n: int, seed: int, hw: float = 800.0):
+    """``n`` rotated boxes (cx, cy, w, h, angle_deg) in 8-box clusters:
+    the cluster's box moved by N(0, 3) px, scaled by U(0.8, 1.2) a side,
+    turned by N(0, 10) degrees; and U(0, 1) scores."""
+    g = torch.Generator().manual_seed(seed)
+    k = n // 8
+    centres = torch.stack([torch.rand(k, generator=g) * hw, torch.rand(k, generator=g) * hw,
+                           10 + torch.rand(k, generator=g) * 70, 10 + torch.rand(k, generator=g) * 70,
+                           torch.rand(k, generator=g) * 180 - 90], 1)
+    boxes = centres.repeat_interleave(8, 0)
+    boxes[:, :2] += torch.randn(n, 2, generator=g) * 3
+    boxes[:, 2:4] *= 0.8 + torch.rand(n, 2, generator=g) * 0.4
+    boxes[:, 4] += torch.randn(n, generator=g) * 10
+    return boxes, torch.rand(n, generator=g)
+
+
+def library_rotated(torch, m, dev, card):
+    """``pairwise_iou_rotated`` and ``nms_rotated_mask`` (0.7) on 2,000
+    clustered rotated boxes, the card against the CPU (IoU within 1e-5;
+    keep-masks equal but for boxes whose IoU lies within 1e-6 of the
+    threshold), timed; then ``evaluate_rotated_detections`` on 8 images,
+    the card against the CPU (every entry within 1e-9)."""
+    rb = m.rotated_boxes
+    boxes, scores = clustered_rboxes_t(torch, LIB_ROT_N, 75)
+    bc, sc = boxes.to(dev), scores.to(dev)
+    t0 = time.perf_counter()
+    iou_cpu = rb.pairwise_iou_rotated(boxes, boxes)
+    cpu_s = time.perf_counter() - t0
+    iou_card = rb.pairwise_iou_rotated(bc, bc)
+    err = (iou_card.cpu() - iou_cpu).abs().max().item()
+    iou_ms = time_ms(lambda: rb.pairwise_iou_rotated(bc, bc), 3)
+    keep_cpu = rb.nms_rotated_mask(boxes, scores, LIB_ROT_THRESH)
+    keep_card = rb.nms_rotated_mask(bc, sc, LIB_ROT_THRESH)
+    nms_ms = []
+    for _ in range(3):
+        sync()
+        t1 = time.perf_counter()
+        rb.nms_rotated_mask(bc, sc, LIB_ROT_THRESH)
+        sync()
+        nms_ms.append((time.perf_counter() - t1) * 1e3)
+    near = int(((iou_cpu - LIB_ROT_THRESH).abs() <= 1e-6).sum())
+    differ = int((keep_card.cpu() != keep_cpu).sum())
+    kept = int(keep_card.sum())
+    log(f"library: rotated boxes on {card}: {LIB_ROT_N} clustered float32 boxes; pairwise_iou_rotated "
+        f"{LIB_ROT_N}^2 {iou_ms:.4f} ms on the card ({cpu_s:.3f} s on the CPU), card vs CPU max abs {err:.3g} (bar "
+        f"1e-5); nms_rotated_mask at {LIB_ROT_THRESH}: {[round(v, 4) for v in nms_ms]} ms (the IoU on the card, "
+        f"one copy of the {LIB_ROT_N}^2 overlap matrix, the greedy walk on the host: "
+        f"{min(nms_ms) - iou_ms:.4f} ms past the IoU), {kept} of {LIB_ROT_N} kept; keep-masks card vs CPU differ on "
+        f"{differ} boxes; IoUs within 1e-6 of the threshold: {near}")
+    if err > 1e-5 or (differ and not near) or not 0 < kept < LIB_ROT_N:
+        raise RuntimeError(f"rotated boxes: IoU off by {err}, keep-masks differ on {differ} ({near} near), "
+                           f"{kept} kept")
+    g = torch.Generator().manual_seed(76)
+    dets, gts = [], []
+    per = LIB_ROT_N // LIB_ROT_EVAL_IMAGES
+    for i in range(LIB_ROT_EVAL_IMAGES):
+        gt = boxes[i * per:(i + 1) * per:8]  # one box a cluster: 32 GT boxes an image
+        src = gt.repeat(3, 1)
+        d = src + torch.randn(src.shape, generator=g) * torch.tensor([4.0, 4.0, 3.0, 3.0, 8.0])
+        dets.append({"boxes": d.numpy(), "scores": torch.rand(len(d), generator=g).numpy()})
+        gts.append({"boxes": gt.numpy()})
+    want = m.coco_eval.evaluate_rotated_detections(dets, gts, device="cpu")
+    sync()
+    t1 = time.perf_counter()
+    got = m.coco_eval.evaluate_rotated_detections(dets, gts, device=dev)
+    sync()
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    diff = max(abs(got[k] - want[k]) for k in want if not (math.isnan(got[k]) and math.isnan(want[k])))
+    log(f"library: evaluate_rotated_detections on {card}: {LIB_ROT_EVAL_IMAGES} images of 32 GT and 96 jittered "
+        f"detections, {eval_ms:.4f} ms (IoU on the card, matching on the host): "
+        f"{json.dumps({k: round(v, 6) for k, v in got.items()})}; card vs CPU max difference {diff:.3g} (bar 1e-9)")
+    if diff > 1e-9 or not 0 < got["AP50"] <= 100:
+        raise RuntimeError(f"evaluate_rotated_detections: card vs CPU {diff}, {got}")
+
+
+def library_aspp(torch, m, dev, card):
+    """ASPP at DeepLabV3's widths (2048 -> 256, dilations 6, 12, 18) on
+    (2, 64, 128, 2048) float32: the card against the CPU within 1e-4 of the
+    output's scale, timed."""
+    b, h, w, c = LIB_ASPP_SHAPE
+    x = torch.randn(b, h, w, c, generator=torch.Generator().manual_seed(77))
+    cpu = m.extra_layers.ASPP(c, 256, (6, 12, 18), device="cpu", generator=torch.Generator().manual_seed(77))
+    card_m = m.extra_layers.ASPP(c, 256, (6, 12, 18), device=dev, generator=torch.Generator().manual_seed(77))
+    xc = x.to(dev)
+    with torch.no_grad():
+        want, got = cpu(x), card_m(xc)
+        ms = time_ms(lambda: card_m(xc), 10)
+    flops = conv_flops(torch, m, [card_m], lambda: card_m(xc))
+    err, rel = rel_err(got, want)
+    log(f"library: ASPP on {card}: {tuple(x.shape)} float32 -> {tuple(got.shape)}, dilations 6, 12, 18: {ms:.4f} "
+        f"ms ({flops / 1e12:.4f} TFLOP = {flops / ms / 1e9:.2f} TFLOP/s, no TF32); card vs CPU max abs {err:.3g} = "
+        f"{rel:.3g} of scale (bar 1e-4)")
+    if rel > 1e-4:
+        raise RuntimeError(f"ASPP: card vs CPU {rel} of scale")
+
+
+def library_tracker(torch, m, dev, card, dets):
+    """``IouTracker`` over 16 frames of the TTA output's first frame's boxes,
+    jittered by N(0, 3) px and drifting 2 px a frame, a tenth dropped a
+    frame: the ids on the card equal those of the same run on the CPU."""
+    import numpy as np
+
+    base = dets["boxes"][0][dets["valid"][0]].float().cpu().numpy()
+    rng = np.random.default_rng(78)
+    card_t = m.extra_layers.IouTracker(0.5, 3, device=dev)
+    cpu_t = m.extra_layers.IouTracker(0.5, 3, device="cpu")
+    ids, ms = [], []
+    for f in range(LIB_TRACK_FRAMES):
+        boxes = (base + rng.normal(0, 3, base.shape) + 2.0 * f)[rng.uniform(size=len(base)) > 0.1]
+        sync()
+        t0 = time.perf_counter()
+        got = card_t.update(boxes)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want = cpu_t.update(boxes)
+        if got != want:
+            raise RuntimeError(f"IouTracker: frame {f}'s ids on the card differ from the CPU's")
+        ids.append(got)
+    log(f"library: IouTracker on {card}: {LIB_TRACK_FRAMES} frames of {len(base)} TTA boxes jittered: ids equal to "
+        f"the CPU's; {card_t._next_id} track ids issued, {len(card_t.tracks)} live at the end; "
+        f"{median(ms):.4f} ms a frame (median)")
+
+
+def library_hooks(torch, m, dev, card):
+    """A ``Trainer`` of 6 ``config_1`` steps (X101-32x8d FPN bf16 at 800^2,
+    batch 4, SGD) with ``TraceProfiler`` over steps 2-3, ``MemoryStats``
+    every step, an ``EvalHook`` putting a metric each step and a
+    ``BestCheckpointer`` on it; counters reset just before, read just
+    after. Checks the trace (K2's and K4's kernels in it),
+    ``device_mem_gb`` against ``memory_allocated`` at each step and the
+    best step in ``best/``."""
+    import os
+    import tempfile
+
+    tr = m.trainer
+    with tempfile.TemporaryDirectory() as out_dir:
+        path, examples = detection_scene(torch, m, dev, 4 * LIB_HOOK_STEPS, 79, out_dir, "lib_train")
+        args = m.train_detector.parse_args(["--preset", "config_1", "--train-json", path, "--image-dir", out_dir,
+                                            "--output", os.path.join(out_dir, "run"),
+                                            "--max-iter", str(LIB_HOOK_STEPS)])
+        model = m.train_detector.build_model(args, dev)
+        opt = m.optim.build_optimizer("sgd", model.parameters(), m.train_detector.build_schedule(args),
+                                      weight_decay=1e-4, momentum=0.9)
+        state = m.detection_state.DetTrainState(model, opt)
+        size = args.input_size
+        data = m.detection_dataset.detection_batches(examples, args.batch_size, (size, size), train=True,
+                                                     flip=args.flip, device=dev)
+        raw = m.detection_state.make_detection_train_step()
+
+        def step_fn(s, batch):
+            return raw(s, batch, generator=m.landmark_loop.step_generator(m.train_detector.SAMPLING_SEED, s.step))
+
+        probes = []
+
+        class MemoryProbe(tr.Hook):
+            def after_step(self, trainer):
+                probes.append((trainer.iteration, torch.cuda.memory_allocated(),
+                               trainer.storage.latest().get("device_mem_gb")))
+
+        mgr = m.checkpoint.CheckpointManager(os.path.join(out_dir, "ck"), max_to_keep=1)
+        prof = tr.TraceProfiler(os.path.join(out_dir, "trace"), 2, 3)
+        hooks = [tr.IterationTimer(), prof, tr.MemoryStats(period=1), MemoryProbe(),
+                 tr.EvalHook(1, lambda t: {"score": LIB_HOOK_SCORES[t.iteration]} if t.iteration < len(
+                     LIB_HOOK_SCORES) else {}),
+                 tr.BestCheckpointer(mgr, "score")]
+        trainer = tr.Trainer(step_fn, state, data, hooks, m.metrics.MetricStorage())
+        reset_counts(m)
+        sync()
+        t0 = time.perf_counter()
+        trainer.train(0, LIB_HOOK_STEPS)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_counts(m)
+        with open(prof.path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        trace_mb = os.path.getsize(prof.path) / 1e6
+        kernels = {k: any(k in nm for nm in names) for k in LIB_TRACE_KERNELS}
+        mem_ok = all(gb is not None and gb[0] * 2**30 == alloc and gb[1] == it for it, alloc, gb in probes)
+        with open(os.path.join(out_dir, "ck", "best.json")) as f:
+            best = json.load(f)
+        best_steps = m.checkpoint.CheckpointManager(os.path.join(out_dir, "ck", "best")).steps()
+        # the hook sees the scores of iterations 0-4 (the last iteration's evaluation belongs to after_train);
+        # a tie is not better, and it saves at the updates done, the iteration + 1
+        want_step = 1 + max(range(len(LIB_HOOK_SCORES)), key=lambda i: (LIB_HOOK_SCORES[i], -i))
+        log(f"library: Trainer hooks on {card}: {LIB_HOOK_STEPS} config_1 steps (X101-32x8d FPN bf16 {size}^2, batch "
+            f"{args.batch_size}) in {wall:.3f} s with TraceProfiler over steps 2-3 ({trace_mb:.1f} MB Chrome trace, "
+            f"{len(names)} event names, K2 / K4 kernels in it: {kernels}), MemoryStats every step (device_mem_gb "
+            f"{[round(gb[0], 4) for _, _, gb in probes]} GB, equal to memory_allocated / 2^30 at each step: "
+            f"{mem_ok}), BestCheckpointer on the EvalHook's score {LIB_HOOK_SCORES}: best.json {best}, best/ "
+            f"{best_steps} (want step {want_step}); step ms {trainer.storage.latest()['time'][0] * 1e3:.2f} (the "
+            f"last); launches {json.dumps(launches)}")
+        if not all(kernels.values()) or not mem_ok or best["step"] != want_step or best_steps != [want_step]:
+            raise RuntimeError(f"the trainer's hooks: kernels {kernels}, memory {mem_ok}, best {best} {best_steps}")
+        for key in ("K2", "K2b", "K4"):
+            if launches[key] == 0:
+                raise RuntimeError(f"kernel {key} was not launched by the hooks' trainer")
+        del trainer, state, model, opt
+
+
+def bn_stats(m, model) -> dict:
+    """Every ``BatchNorm``'s running mean and var, copied to the host."""
+    return {f"{name}.{leaf}": getattr(mod, leaf).detach().cpu().clone() for name, mod in model.named_modules()
+            if isinstance(mod, m.layers.BatchNorm) for leaf in ("mean", "var")}
+
+
+def library_precise_bn(torch, m, dev, card):
+    """``recompute_batch_stats`` on the ``events`` HRNet-W32 (float32) at its
+    512^2 input over 4 seeded batches of 4: the card against the CPU within
+    1e-3 of each statistic's scale, and a second recompute on the card from
+    the new state within JAX's own bar (rtol 1e-4, atol 1e-5) of the first."""
+    cfg = m.config.get_preset("events")
+    hw = tuple(cfg.model.image_size)
+    gen = torch.Generator().manual_seed(80)
+    batches = [torch.randn(LIB_PBN_BATCH, *hw, 3, generator=gen) for _ in range(LIB_PBN_BATCHES)]
+    states = {}
+    for where in ("cpu", dev):
+        model = m.models.build_landmark_model(cfg.model.name, cfg.model.num_joints, device=where,
+                                              generator=torch.Generator().manual_seed(80))
+        states[str(where)] = m.train_state.TrainState(model, m.optim.build_optimizer("adam", model.parameters(), 1e-3))
+    t0 = time.perf_counter()
+    m.trainer.recompute_batch_stats(states["cpu"], [{"image": b} for b in batches])
+    cpu_s = time.perf_counter() - t0
+    card_batches = [{"image": b.to(dev)} for b in batches]
+    state = states[str(dev)]
+    sync()
+    t0 = time.perf_counter()
+    m.trainer.recompute_batch_stats(state, card_batches)
+    sync()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    want, got = bn_stats(m, states["cpu"].model), bn_stats(m, state.model)
+    worst = max((rel_err(got[k], want[k])[1], k) for k in want)
+    m.trainer.recompute_batch_stats(state, card_batches)
+    again = bn_stats(m, state.model)
+    repro = all(torch.allclose(again[k], got[k], rtol=1e-4, atol=1e-5) for k in got)
+    repro_err = max((again[k] - got[k]).abs().max().item() for k in got)
+    log(f"library: PreciseBN on {card}: the events preset's {cfg.model.name} (float32) at {hw}, "
+        f"{LIB_PBN_BATCHES} batches of {LIB_PBN_BATCH}: {len(got) // 2} BN layers recomputed in {card_ms:.2f} ms "
+        f"({cpu_s:.2f} s on the CPU); card vs CPU worst {worst[0]:.3g} of scale at {worst[1]} (bar 1e-3); a second "
+        f"recompute from the new state max abs {repro_err:.3g} off the first, within rtol 1e-4 atol 1e-5: {repro}")
+    if worst[0] > 1e-3 or not repro:
+        raise RuntimeError(f"PreciseBN: card vs CPU {worst}, reproduced {repro}")
+    del states, state
+
+
+def library_phase(torch, m, dev, card):
+    """The rest of the detection library and the trainer's hooks on the
+    card: TTA around config_1's detector (K2, K4; its rows), RegNet,
+    deformable conv, rotated boxes, ASPP, the tracker, the hooks in a
+    config_1 Trainer (K2, K2b, K4 counted) and PreciseBN. Yields TTA's
+    (rows, launches)."""
+    t0 = time.perf_counter()
+    rows, launches, dets = library_tta(torch, m, dev, card)
+    yield rows, launches
+    del rows
+    torch.cuda.empty_cache()
+    library_tracker(torch, m, dev, card, dets)
+    library_regnet(torch, m, dev, card)
+    torch.cuda.empty_cache()
+    library_deform(torch, m, dev, card)
+    torch.cuda.empty_cache()
+    library_rotated(torch, m, dev, card)
+    library_aspp(torch, m, dev, card)
+    torch.cuda.empty_cache()
+    library_hooks(torch, m, dev, card)
+    torch.cuda.empty_cache()
+    library_precise_bn(torch, m, dev, card)
+    log(f"library phase: {time.perf_counter() - t0:.1f} s")
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -4649,6 +5096,10 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.data import augment
     from spacecraft_pose_estimation_tpu_torch.tools import make_synthetic_scene, train_pipeline_dvs
     from spacecraft_pose_estimation_tpu_torch.tools import export_model, export_weights, import_weights
+    from spacecraft_pose_estimation_tpu_torch import structures
+    from spacecraft_pose_estimation_tpu_torch.models import extra_layers, regnet, tta, zoo
+    from spacecraft_pose_estimation_tpu_torch.ops import deform_conv, rotated_boxes
+    from spacecraft_pose_estimation_tpu_torch.train import checkpoint, metrics, trainer
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
@@ -4664,7 +5115,10 @@ def load_port():
                         augment=augment, make_synthetic_scene=make_synthetic_scene,
                         train_pipeline_dvs=train_pipeline_dvs, retinanet=retinanet, import_weights=import_weights,
                         export_weights=export_weights, export_model=export_model, cascade=cascade, fcos=fcos,
-                        fpn=fpn, rpn=rpn, roi_heads=roi_heads, masks=masks, coco_eval=coco_eval)
+                        fpn=fpn, rpn=rpn, roi_heads=roi_heads, masks=masks, coco_eval=coco_eval,
+                        structures=structures, extra_layers=extra_layers, regnet=regnet, tta=tta, zoo=zoo,
+                        deform_conv=deform_conv, rotated_boxes=rotated_boxes, checkpoint=checkpoint, metrics=metrics,
+                        trainer=trainer)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -4804,6 +5258,13 @@ def main() -> int:
     # training on event frames: tools/train_pipeline_dvs.py on a rendered scene (K1,
     # K2, K2b and K4 on its inputs) and the photometric stacks
     report += kernel_report(*dvs_phase(torch, m, dev, card))
+    torch.cuda.empty_cache()
+
+    # the rest of the detection library and the trainer's hooks: TTA around config_1's detector (K2 on the
+    # scaled view, K4 on the merge), RegNet, deformable conv, rotated boxes, ASPP, the tracker, PreciseBN
+    for rows, launches in library_phase(torch, m, dev, card):
+        report += kernel_report(rows, launches)
+        del rows
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

@@ -2,13 +2,15 @@
 
 The port's module names mirror the Flax trees of ``HRNet``,
 ``GeneralizedRCNN`` (with its mask and keypoint heads), ``RetinaNet``,
-``FCOS`` and ``CascadeROIHeads`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
+``FCOS``, ``CascadeROIHeads``, ``RegNet``, ``DeformConv``, ``ASPP`` and
+``ConvSeq`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
 ``backbone.res2_b0.shortcut``, ``roi_heads.box_head.fc1``, ``head.cls_conv0``,
-``p6``, ``mask_head.mask_fcn1``, ``box_head0.fc1`` ...), so the map
-is by name: conv kernels go from HWIO to OIHW, transposed-conv kernels
-(the modules named ``deconv``, ``deconv0`` ...: the CMS heads', PoseResNet's
-and the mask head's; and the keypoint head's ``score_lowres``) are flipped
-in space and laid out (in, out, kh, kw), dense
+``p6``, ``mask_head.mask_fcn1``, ``box_head0.fc1``, ``s3_b1.se.fc1``,
+``atrous2``, ``seq0.bn`` ...), so the map is by name: conv kernels go from
+HWIO to OIHW, transposed-conv kernels (the modules named ``deconv``,
+``deconv0`` ...: the CMS heads', PoseResNet's and the mask head's; and the
+keypoint head's ``score_lowres``) are flipped in space and laid out (in, out, kh, kw), a raw 4-d ``kernel`` parameter
+(``DeformConv``'s) goes from HWIO to OIHW as ``weight`` like a conv's, dense
 kernels are transposed, and everything else (biases, BN scale/bias, and the
 ``batch_stats`` or frozen ``mean``/``var``) is copied as it is.
 
@@ -54,7 +56,9 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     Works for ``models.hrnet.HRNet``, ``models.pose_resnet.PoseResNet``,
     ``models.discriminator.MultiScaleDiscriminator``,
     ``models.rcnn.GeneralizedRCNN``, ``models.retinanet.RetinaNet``,
-    ``models.fcos.FCOS`` and ``models.cascade.CascadeROIHeads``;
+    ``models.fcos.FCOS``, ``models.cascade.CascadeROIHeads``,
+    ``models.regnet.RegNet``, ``ops.deform_conv.DeformConv``,
+    ``models.extra_layers.ASPP`` and ``models.layers.ConvSeq``;
     load the result with ``load_state_dict(..., strict=True)`` so that a
     name the two sides disagree on raises.
     """

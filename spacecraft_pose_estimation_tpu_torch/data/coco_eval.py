@@ -1,15 +1,15 @@
-"""Box, mask and keypoint-OKS AP (COCOEvaluator's "bbox", "segm" and "keypoints" tasks): host-side NumPy.
+"""Box, rotated-box, mask and keypoint-OKS AP and semantic segmentation (COCOEvaluator's "bbox", "segm" and "keypoints" tasks, the rotated and sem-seg evaluators): host-side NumPy.
 
-A copy of the box, instance-mask and keypoint parts of the JAX package's
-``data/coco_eval.py`` (``evaluate_detections``, ``box_iou_xyxy``,
-``padded_detections_to_list``, ``mask_iou``,
-``evaluate_instance_segmentation``, ``compute_oks``, ``evaluate_keypoints``
-and the matching and AP helpers they call), with pycocotools' COCOeval
+A copy of the JAX package's ``data/coco_eval.py`` (``evaluate_detections``,
+``box_iou_xyxy``, ``padded_detections_to_list``,
+``evaluate_rotated_detections``, ``evaluate_semantic_segmentation``,
+``mask_iou``, ``evaluate_instance_segmentation``, ``compute_oks``,
+``evaluate_keypoints`` and the matching and AP helpers they call), with pycocotools' COCOeval
 semantics: greedy per-image matching of score-sorted detections to ground
 truth at each IoU or OKS threshold (0.50:0.05:0.95), 101-point
 interpolated precision, the area ranges and a cap of detections an image.
-The JAX module's native (ctypes) accelerator and its rotated-box and
-semantic-segmentation tasks are not copied: the box AP is its numpy backend.
+The JAX module's native (ctypes) accelerator is not copied: the box AP is
+its numpy backend. The rotated boxes' IoU runs on a torch device.
 """
 
 from __future__ import annotations
@@ -131,13 +131,21 @@ def evaluate_detections(detections: list[dict], ground_truths: list[dict], max_d
     """
     if len(detections) != len(ground_truths):
         raise ValueError(f"{len(detections)} detection lists for {len(ground_truths)} images")
-    results, ap_per_iou, prepped = {}, {}, []
+    prepped = []
     for det, gt in zip(detections, ground_truths):  # per-image prep and IoU, out of the 4 x 10 loops
         det_b = np.asarray(det["boxes"], np.float64).reshape(-1, 4)
         det_s = np.asarray(det["scores"], np.float64)
         gt_b = np.asarray(gt["boxes"], np.float64).reshape(-1, 4)
         order = np.argsort(-det_s, kind="stable")[:max_dets]
         prepped.append((_box_area(det_b)[:, None], det_s, _box_area(gt_b)[:, None], box_iou_xyxy(det_b[order], gt_b)))
+    return _summarize(prepped, max_dets)
+
+
+def _summarize(prepped: list, max_dets: int) -> dict[str, float]:
+    """AP per area range over the 10 IoU thresholds, AR, AP50 and AP75 from
+    each image's (det_rows, det_scores, gt_rows, iou), rows packed
+    ``[area, ...]`` and ``iou`` of the score-ordered, capped detections."""
+    results, ap_per_iou = {}, {}
     for area_name, area_range in AREA_RANGES.items():
         aps, ars = [], []
         for t in IOU_THRS:
@@ -162,12 +170,78 @@ def evaluate_detections(detections: list[dict], ground_truths: list[dict], max_d
     return results
 
 
+def evaluate_rotated_detections(detections: list[dict], ground_truths: list[dict], max_dets: int = 100,
+                                device=None) -> dict[str, float]:
+    """Rotated-box AP (detectron2 ``evaluation/rotated_coco_evaluation.py``):
+    boxes (cx, cy, w, h, angle_deg), areas |w * h|, matching by the
+    polygon-clipping IoU (``ops/rotated_boxes.pairwise_iou_rotated``,
+    float32 on ``device``: CUDA unless the caller names another, e.g.
+    "cpu"; the matching reads it as float64). The axis-aligned protocol
+    otherwise: AP, AP50, AP75, APs, APm, APl and AR, in percent.
+    """
+    import torch
+
+    from ..device import resolve_device
+    from ..ops.rotated_boxes import pairwise_iou_rotated
+
+    device = resolve_device(device)
+
+    def iou_fn(a, b):
+        if len(a) == 0 or len(b) == 0:
+            return np.zeros((len(a), len(b)))
+        return pairwise_iou_rotated(torch.as_tensor(np.asarray(a, np.float32), device=device),
+                                    torch.as_tensor(np.asarray(b, np.float32), device=device)).cpu().numpy()
+
+    def area_rows(b):
+        return np.abs(b[:, 2] * b[:, 3])[:, None]
+
+    prepped = []
+    for det, gt in zip(detections, ground_truths):
+        det_b = np.asarray(det["boxes"], np.float64).reshape(-1, 5)
+        det_s = np.asarray(det["scores"], np.float64)
+        gt_b = np.asarray(gt["boxes"], np.float64).reshape(-1, 5)
+        order = np.argsort(-det_s, kind="stable")[:max_dets]
+        prepped.append((area_rows(det_b), det_s, area_rows(gt_b), iou_fn(det_b[order], gt_b).astype(np.float64)))
+    return _summarize(prepped, max_dets)
+
+
 def padded_detections_to_list(dets: dict) -> list[dict]:
     """The detector's padded outputs (B, K, ...) with ``valid`` -> per-image
     {"boxes", "scores"} numpy lists of the valid ones."""
     to_np = lambda x: x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
     boxes, scores, valid = (to_np(dets[k]) for k in ("boxes", "scores", "valid"))
     return [{"boxes": boxes[i][valid[i]], "scores": scores[i][valid[i]]} for i in range(boxes.shape[0])]
+
+
+def evaluate_semantic_segmentation(predictions: list, ground_truths: list, num_classes: int,
+                                   ignore_label: int = 255) -> dict[str, float]:
+    """Semantic segmentation (detectron2 ``evaluation/sem_seg_evaluation.py``):
+    a per-pixel confusion matrix over (H, W) integer label maps, pixels whose
+    ground truth is ``ignore_label`` left out -> mIoU, fwIoU, mACC, pACC in
+    percent, averaged over the classes present in the ground truth."""
+    conf = np.zeros((num_classes, num_classes), np.int64)
+    for pred, gt in zip(predictions, ground_truths):
+        pred = np.asarray(pred).reshape(-1)
+        gt = np.asarray(gt).reshape(-1)
+        keep = gt != ignore_label
+        pred, gt = pred[keep], gt[keep]
+        conf += np.bincount(gt.astype(np.int64) * num_classes + pred.astype(np.int64),
+                            minlength=num_classes * num_classes).reshape(num_classes, num_classes)
+    tp = np.diag(conf).astype(np.float64)
+    pos_gt = conf.sum(axis=1).astype(np.float64)
+    pos_pred = conf.sum(axis=0).astype(np.float64)
+    union = pos_gt + pos_pred - tp
+    valid = pos_gt > 0
+    iou = np.full(num_classes, np.nan)
+    iou[union > 0] = tp[union > 0] / union[union > 0]
+    acc = np.full(num_classes, np.nan)
+    acc[valid] = tp[valid] / pos_gt[valid]
+    freq = pos_gt / max(pos_gt.sum(), 1)
+    miou = float(np.nanmean(iou[valid])) if valid.any() else float("nan")
+    fwiou = float(np.nansum(iou[valid] * freq[valid])) if valid.any() else float("nan")
+    macc = float(np.nanmean(acc[valid])) if valid.any() else float("nan")
+    pacc = float(tp.sum() / max(pos_gt.sum(), 1))
+    return {"mIoU": miou * 100, "fwIoU": fwiou * 100, "mACC": macc * 100, "pACC": pacc * 100}
 
 
 def mask_iou(det_masks: np.ndarray, gt_masks: np.ndarray) -> np.ndarray:
@@ -203,30 +277,7 @@ def evaluate_instance_segmentation(detections: list[dict], ground_truths: list[d
         gareas = gm.sum((1, 2)).astype(np.float64)[:, None]
         order = np.argsort(-det_s, kind="stable")[:max_dets]
         prepped.append((dareas, det_s, gareas, mask_iou(dm[order], gm)))
-    results, ap_per_iou = {}, {}
-    for area_name, area_range in AREA_RANGES.items():
-        aps, ars = [], []
-        for t in IOU_THRS:
-            all_matched, all_ignored, all_scores = [], [], []
-            total_gt = 0
-            for dareas, det_s, gareas, iou in prepped:
-                m, ig, sc, ng = _match_image(dareas, det_s, gareas, t, area_range, max_dets, iou)
-                all_matched.append(m)
-                all_ignored.append(ig)
-                all_scores.append(sc)
-                total_gt += ng
-            ap, ar = _ap_from_matches(all_matched, all_ignored, all_scores, total_gt)
-            aps.append(ap)
-            ars.append(ar)
-            if area_name == "all":
-                ap_per_iou[round(float(t), 2)] = ap
-        key = {"all": "AP", "small": "APs", "medium": "APm", "large": "APl"}[area_name]
-        results[key] = float(np.nanmean(aps)) * 100 if not np.all(np.isnan(aps)) else float("nan")
-        if area_name == "all":
-            results["AR"] = float(np.nanmean(ars)) * 100 if not np.all(np.isnan(ars)) else float("nan")
-    results["AP50"] = ap_per_iou.get(0.5, np.nan) * 100
-    results["AP75"] = ap_per_iou.get(0.75, np.nan) * 100
-    return results
+    return _summarize(prepped, max_dets)
 
 
 def compute_oks(det_kps: np.ndarray, gt_kps: np.ndarray, gt_areas: np.ndarray, gt_boxes: np.ndarray,

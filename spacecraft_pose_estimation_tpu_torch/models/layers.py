@@ -25,15 +25,15 @@ class Conv(nn.Module):
     ``bias``, cast to the input's dtype; explicit symmetric padding."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, bias: bool = True, groups: int = 1):
+                 padding: int = 0, bias: bool = True, groups: int = 1, dilation: int = 1):
         super().__init__()
-        self.stride, self.padding, self.groups = stride, padding, groups
+        self.stride, self.padding, self.groups, self.dilation = stride, padding, groups, dilation
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding, 1, self.groups)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding, self.dilation, self.groups)
 
 
 class ConvTranspose(nn.Module):
@@ -157,6 +157,23 @@ class Bottleneck(nn.Module):
 
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
+
+
+class ConvSeq(nn.Module):
+    """A plain sequence of ``ConvBN`` layers ``seq0``, ``seq1`` ... from
+    (features, kernel, stride, act) specs."""
+
+    def __init__(self, cin: int, specs):
+        super().__init__()
+        self.n = len(specs)
+        for i, (f, k, s, a) in enumerate(specs):
+            self.add_module(f"seq{i}", ConvBN(cin, f, k, s, act=a))
+            cin = f
+
+    def forward(self, x):
+        for i in range(self.n):
+            x = getattr(self, f"seq{i}")(x)
+        return x
 
 
 def upsample_nearest(x, factor: int):

@@ -38,6 +38,11 @@ def quat_to_dcm(q: Tensor) -> Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def quat_to_rotmat(q: Tensor) -> Tensor:
+    """Scalar-first quaternion (..., 4) -> standard (body->world) rotation matrix (..., 3, 3)."""
+    return quat_to_dcm(q).transpose(-1, -2)
+
+
 def rotmat_to_quat(r: Tensor) -> Tensor:
     """Rotation matrix (..., 3, 3) -> scalar-first quaternion (..., 4).
 
@@ -93,6 +98,27 @@ def rodrigues(rvec: Tensor) -> Tensor:
     eye = _eye(3, rvec)
     R = eye + s * K + (1 - c) * mm(K, K)
     return torch.where(big[..., None, None], R, eye + skew(rvec))
+
+
+def rotmat_to_rodrigues(r: Tensor) -> Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3) (cv2.Rodrigues inverse).
+
+    The axis comes from the skew part, or, where sin(theta) <= 1e-6 (theta
+    near pi, where the skew part vanishes), from the diagonal with the skew
+    part's signs (a zero skew entry counts as positive): the JAX package's
+    rule, not cv2's.
+    """
+    cos_theta = torch.clamp((r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2] - 1) / 2, -1.0, 1.0)
+    theta = torch.arccos(cos_theta)
+    axis_raw = torch.stack([r[..., 2, 1] - r[..., 1, 2], r[..., 0, 2] - r[..., 2, 0], r[..., 1, 0] - r[..., 0, 1]], -1)
+    sin_theta = torch.sin(theta)
+    generic = (torch.abs(sin_theta) > 1e-6)[..., None]
+    axis_generic = axis_raw / torch.where(generic, 2 * sin_theta[..., None], torch.ones_like(axis_raw))
+    diag_axis = torch.sqrt(torch.clamp((torch.diagonal(r, dim1=-2, dim2=-1) + 1) / 2, min=0.0))
+    axis_pi = diag_axis * torch.sign(torch.where(axis_raw == 0, torch.ones_like(axis_raw), axis_raw))
+    axis_pi = axis_pi / torch.clamp(torch.linalg.vector_norm(axis_pi, dim=-1, keepdim=True), min=1e-12)
+    axis = torch.where(generic, axis_generic, axis_pi)
+    return torch.where((theta > 1e-12)[..., None], axis * theta[..., None], torch.zeros_like(axis))
 
 
 def distort_normalized(xy: Tensor, dist: Tensor) -> Tensor:

@@ -3,6 +3,7 @@
 Port of ``spacecraft_pose_estimation_tpu/ops/nms.py`` (``nms_mask``,
 ``batched_nms_mask``) with the sorted core done by kernel K4
 (``csrc/nms_mask_sorted.cu``, the counterpart of ``ops/pallas_nms.py``).
+:func:`top_k_by_score` is the JAX module's top-k of the valid scores.
 Leading dims are independent problems: the RPN hands over every
 (image, level) at once, the box head and RetinaNet every image (RetinaNet's
 five levels of candidates in one problem: 4,441 boxes at 800^2).
@@ -112,3 +113,13 @@ def batched_nms_mask(
     max_coord = torch.abs(boxes).reshape(*boxes.shape[:-2], n * 4).amax(-1) + 1.0
     offsets = class_ids.to(boxes.dtype) * (2.0 * max_coord[..., None])
     return nms_mask(boxes + offsets[..., None], scores, iou_threshold, valid)
+
+
+def top_k_by_score(scores: Tensor, k: int, valid: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """(values, indices) of the top-k valid scores along the last dim
+    (invalid -> -inf), highest first; ties go to the lower index, as
+    ``lax.top_k``'s do (a stable descending sort)."""
+    if valid is not None:
+        scores = torch.where(valid, scores, torch.full_like(scores, -torch.inf))
+    values, indices = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]

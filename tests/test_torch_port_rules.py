@@ -324,3 +324,61 @@ def test_heads_and_fcos_need_cuda_or_an_explicit_device():
                   lambda: GeneralizedRCNN(dataclasses.replace(RCNN_TINY, with_mask=True, with_keypoints=True))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+
+
+def test_no_jax_check_covers_the_library_modules():
+    """The detection library's rest (TTA, RegNet, deformable conv, ASPP and
+    the tracker, rotated boxes, the structures, the LVIS and panoptic
+    evaluators, the trainer's hooks) is under the import check above."""
+    sources = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert {"models/tta.py", "models/regnet.py", "models/extra_layers.py", "ops/deform_conv.py",
+            "ops/rotated_boxes.py", "structures.py", "data/lvis_panoptic.py", "data/coco_eval.py",
+            "train/trainer.py"} <= sources
+
+
+def test_tta_merge_launches_k4_or_raises_and_never_takes_the_plain_version(monkeypatch):
+    """TTA's merge goes through ``nms.batched_nms_mask`` to K4's wrapper: on
+    a tensor off the CPU (here the meta device, as no card is needed) that
+    wrapper launches the kernel or raises, and the plain version is never
+    called; the module names no plain version."""
+    import inspect
+
+    from spacecraft_pose_estimation_tpu_torch.models import tta
+    from spacecraft_pose_estimation_tpu_torch.ops import nms
+
+    tree = ast.parse(inspect.getsource(tta))
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)} | {
+        n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert "batched_nms_mask" in names and "nms_mask_sorted_plain" not in names
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version was called")
+
+    monkeypatch.setattr(nms, "nms_mask_sorted_plain", refuse)
+    meta = torch.device("meta")
+
+    def infer(images):
+        b = images.shape[0]
+        return {"boxes": torch.zeros(b, 3, 4, device=meta), "scores": torch.zeros(b, 3, device=meta),
+                "classes": torch.zeros(b, 3, dtype=torch.int32, device=meta),
+                "valid": torch.ones(b, 3, dtype=torch.bool, device=meta)}
+
+    run = tta.make_tta_inference(infer, scales=(1.0,), flip=True, max_dets=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        run(torch.zeros(2, 16, 16, 3, device=meta))
+
+
+def test_library_modules_need_cuda_or_an_explicit_device():
+    if torch.cuda.is_available():
+        return
+    from spacecraft_pose_estimation_tpu_torch.data.coco_eval import evaluate_rotated_detections
+    from spacecraft_pose_estimation_tpu_torch.models.extra_layers import ASPP, IouTracker
+    from spacecraft_pose_estimation_tpu_torch.models.regnet import REGNET_TINY, RegNet
+    from spacecraft_pose_estimation_tpu_torch.ops.deform_conv import DeformConv
+
+    for build in (lambda: RegNet(REGNET_TINY), lambda: DeformConv(4, 4), lambda: ASPP(4, 8), IouTracker,
+                  lambda: evaluate_rotated_detections([{"boxes": np.zeros((0, 5)), "scores": np.zeros(0)}],
+                                                      [{"boxes": np.zeros((0, 5))}])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert next(RegNet(REGNET_TINY, device="cpu").parameters()).device.type == "cpu"
