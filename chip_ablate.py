@@ -29,7 +29,10 @@ each ROI's gradient sent to a private buffer of its own (no two ROIs add into on
 times that tree's K4 beside this one's on every K4 shape it takes (up to 2,048 boxes before K4 took 8,192;
 the shapes add the evaluation's 40x1000, training's RPN 20x2000 and RetinaNet's 10x4441); ``K2-before``
 and ``K2b-before`` time that tree's K2 and K2b on K2's call (the Pallas read window) and K2b's (the
-windowed one) and hold them bit for bit to this tree's (a change that adds a read keeps these). Only the
+windowed one) and hold them bit for bit to this tree's (a change that adds a read keeps these), and
+``K5a-before``, ``K5-before``, ``K6-before`` and ``K7-before`` likewise time that tree's int8 kernels on
+the int8 shapes below, held bit for bit to this tree's (``K5a-before`` through the C entry that K5a had
+before it took explicit padding and a clip bound: no ``lo``, padding k // 2). Only the
 unedited source and the exact
 alternatives are held to the plain versions: the others compute wrong answers
 on purpose, and their times say what the removed piece costs. Prints the
@@ -144,10 +147,13 @@ VARIANTS = {
     "K4 before (exact)": (("K4-before",), []),
     # --before's K2 and K2b, on K2's and K2b's windowed calls: bit-equal to this tree's
     "K2 and K2b before (exact)": (("K2-before", "K2b-before"), []),
+    # --before's int8 kernels on the int8 shapes: bit-equal to this tree's
+    "int8 before (exact)": (("K5a-before", "K5-before", "K6-before", "K7-before"), []),
 }
 # variants that must still agree with the plain versions: the committed sources and the other exact designs
 EXACT = ("as committed",) + tuple(name for name in VARIANTS if name.endswith("(exact)"))
-BEFORE = ("K2b-atomic", "K4-before", "K2-before", "K2b-before")  # kernel ids built from --before's sources
+INT8_BEFORE = ("K5a-before", "K5-before", "K6-before", "K7-before")
+BEFORE = ("K2b-atomic", "K4-before", "K2-before", "K2b-before") + INT8_BEFORE  # kernel ids built from --before's
 SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_block_chain.cu", "basic_block_chain"),
            "K6": ("bottleneck_chain.cu", "bottleneck_chain"), "K7": ("up_exchange.cu", "up_exchange"),
            "K2": ("roi_align_multilevel.cu", "roi_align_multilevel"), "K3": ("roi_align_multilevel.cu", "roi_align_single"),
@@ -155,7 +161,13 @@ SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_b
            "K2b-atomic": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
            "K4": ("nms_mask_sorted.cu", "nms_mask_sorted"), "K4-before": ("nms_mask_sorted.cu", "nms_mask_sorted"),
            "K2-before": ("roi_align_multilevel.cu", "roi_align_multilevel"),
-           "K2b-before": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward")}
+           "K2b-before": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
+           "K5a-before": ("int8_conv_requant.cu", "int8_conv_requant"),
+           "K5-before": ("basic_block_chain.cu", "basic_block_chain"),
+           "K6-before": ("bottleneck_chain.cu", "bottleneck_chain"), "K7-before": ("up_exchange.cu", "up_exchange")}
+# K5a's C entry before it took a clip bound and explicit padding: (x, wk, m, b, out, B, H, W, Cin, Ho, Wo, Cout,
+# k, stride, groups, relu, out_f32, stream)
+K5A_BEFORE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 CHAINS = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128), (16, 16, 16, 256)]  # W32 branches, 4 blocks
 CONVS = [  # (B, H, W, Cin, Cout, k, stride): R101 at the 768 letterbox, HRNet-W32 at 512
     (4, 192, 192, 64, 256, 1, 1), (4, 192, 192, 256, 64, 1, 1), (4, 192, 192, 64, 64, 3, 1),
@@ -332,9 +344,9 @@ def k2b_workloads(torch, ra, keys, atomic):
 
 def agrees(torch, key, got, want) -> bool:
     """A variant's answer against the plain version's, with chip_smoke.py's bars: exact; K2/K3 within 1e-5
-    of the output's scale; K2b within 2^-7 of its bf16 gradient's scale. --before's K2 and K2b against this
-    tree's: bit for bit."""
-    if key in ("K2-before", "K2b-before"):
+    of the output's scale; K2b within 2^-7 of its bf16 gradient's scale. --before's K2, K2b and int8
+    kernels against this tree's: bit for bit."""
+    if key in ("K2-before", "K2b-before") + INT8_BEFORE:
         return all(map(torch.equal, got, want)) if isinstance(got, list) else torch.equal(got, want)
     if key.startswith("K2b"):
         scale = max(w.float().abs().max().item() for w in want)
@@ -344,8 +356,26 @@ def agrees(torch, key, got, want) -> bool:
     return key in ("K2", "K3") and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
-def workloads(torch, ic, ib):
-    """(label, kernel id, wrapper call, plain result) at the serving shapes, from seed 0."""
+def k5a_before_call(torch, kernel, x, wk, m, b, stride, relu):
+    """A call of --before's K5a through its own C entry (``K5A_BEFORE_ARGTYPES``): SAME padding, no clip."""
+    bsz, h, w, cin = x.shape
+    cout, k = wk.shape[:2]
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    out = torch.empty((bsz, ho, wo, cout), dtype=torch.int8, device=x.device)
+    ptr = lambda t_: ctypes.c_void_p(t_.data_ptr())
+
+    def call():
+        kernel.launch(ptr(x), ptr(wk), ptr(m), ptr(b), ptr(out), bsz, h, w, cin, ho, wo, cout, k, stride, 1,
+                      int(relu), 0)
+        return out
+
+    return call
+
+
+def workloads(torch, ic, ib, before=(), k5a_before=None):
+    """(label, kernel id, wrapper call, plain result) at the serving shapes, from seed 0; with ``before``
+    (ids of ``INT8_BEFORE``), each of those kernels' shapes again under its ``-before`` id, its answer this
+    tree's kernel's (``k5a_before``: the Kernel bound to --before's K5a entry)."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def i8(*shape):
@@ -392,6 +422,12 @@ def workloads(torch, ic, ib):
         out.append((f"K5a {bsz}x{h}x{w}x{cin} -> {cout}, k{k} s{s}", "K5a",
                     lambda x=x, wt=wt, m=m, b=b, s=s, wk=wk: ic.int8_conv(x, wt, m, b, stride=s, relu=True, wk=wk),
                     ic.int8_conv_plain(x, wt, m, b, s, 1, True, False)))
+        if "K5a-before" in before:
+            out.append((out[-1][0], "K5a-before", k5a_before_call(torch, k5a_before, x, wk, m, b, s, True),
+                        out[-1][2]()))
+    # this tree's kernels, built as committed, give the answers
+    out += [(label, f"{key}-before", call, call()) for label, key, call, _ in list(out)
+            if f"{key}-before" in before and key != "K5a"]
     return out
 
 
@@ -420,13 +456,16 @@ def main() -> int:
     t0 = time.perf_counter()
     fns = build(_cuda, keys, before)
     print(f"built {len(fns)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
+    k5a_before = _cuda.Kernel(*SOURCES["K5a-before"][::-1], K5A_BEFORE_ARGTYPES) if "K5a-before" in keys else None
     kernels = {"K5a": int8_conv.KERNEL, "K5": int8_blocks.CHAIN, "K6": int8_blocks.BOTTLENECK,
                "K7": int8_blocks.EXCHANGE, "K2": roi_align.KERNEL, "K3": roi_align.SINGLE, "K4": nms.KERNEL,
                "K2b": roi_align.BACKWARD, "K4-before": nms.KERNEL,  # one wrapper: each variant points it at its K4
-               "K2-before": roi_align.KERNEL, "K2b-before": roi_align.BACKWARD,
+               "K2-before": roi_align.KERNEL, "K2b-before": roi_align.BACKWARD, "K5a-before": k5a_before,
+               "K5-before": int8_blocks.CHAIN, "K6-before": int8_blocks.BOTTLENECK, "K7-before": int8_blocks.EXCHANGE,
                "K2b-atomic": _cuda.Kernel(*SOURCES["K2b-atomic"][::-1], ATOMIC_ARGTYPES)}
     times: dict = {}
-    work = (workloads(torch, int8_conv, int8_blocks) if set(keys) & set(INT8) else []) + \
+    work = (workloads(torch, int8_conv, int8_blocks, set(keys) & set(INT8_BEFORE), k5a_before)
+            if set(keys) & set(INT8 + INT8_BEFORE) else []) + \
         (pooler_nms_workloads(torch, roi_align, nms, "K4-before" in keys, "K2-before" in keys)
          if set(keys) & {"K2", "K3", "K4", "K4-before", "K2-before"} else []) + \
         (k2b_workloads(torch, roi_align, keys, kernels["K2b-atomic"] if "K2b-atomic" in keys else None)

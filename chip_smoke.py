@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training and detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN) paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training, detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN), int8-option (s2d, fused_even3, merge_fuse, fold) and LazyConfig-training paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -238,7 +238,24 @@ toolkit. It
    ``memory_allocated``) and a ``BestCheckpointer`` (the best step in
    ``best/``), K2, K2b and K4 counted; and PreciseBN on the ``events``
    HRNet-W32 at 512^2 against the CPU (1e-3 of scale) and against itself;
-20. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+20. serves the int8 R101 form of step 3 under each of the int8 HRNet's
+   options ("int8 options"), 2 clips each, counters reset just before and
+   read just after: O1 ``s2d`` (``build_int8_server`` calibrating its own
+   trees with the space-to-depth twins; K5a's padded 4x4 entry, 2x2 downs
+   and even3 3x3 convs), O2 ``s2d + fused_blocks + fused_even3`` (K5 on
+   branch 0's 64x64x128 packed map), O3 ``merge_fuse`` (K5a with its
+   per-channel clip), O4 ``fold=2`` (the backbone's and the HRNet's
+   ``fold_residual`` and ``fold_fuse_up``: K5a's f32 epilogue); the HRNet's
+   heatmaps on the served crops bit-equal to the card's per-op walk for
+   O1-O3 and within the JAX package's fold bars for O4 (0.1 of scale,
+   correlation 0.995); each form's HRNet timed beside the per-op walk (and
+   O1's beside the served fused form); K5a's new routes and K5 on even3
+   held to their plain versions on the served calls and timed; then
+   ``tools.lazyconfig_train`` on a config file it writes (HRNet-W32, 11
+   joints, 512^2 -> 128^2 synthetic batches of 8, Adam 1e-3, 10
+   iterations): finite losses, and the checkpoint's ``.npz`` through
+   ``evaluate.load_landmark_model`` giving the trained model's heatmaps;
+21. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -1070,13 +1087,17 @@ def nbytes(*tensors) -> int:
 
 
 def conv_numbers(m, a):
-    """K5a call: bytes (x, w, m, b read once, out written once) and int8 ops
-    (2 per multiply-add)."""
+    """K5a call: bytes (x, w, m, b and lo read once, out written once) and
+    int8 ops (2 per multiply-add, the packed weights' zeros included: the
+    space-to-depth convs do that work)."""
     x, w = a["x"], a["w"]
-    k, ho = w.shape[0], m.int8_conv.out_size(x.shape[1], w.shape[0], a["stride"])
-    wo = m.int8_conv.out_size(x.shape[2], k, a["stride"])
+    k = w.shape[0]
+    pad_y, pad_x = m.int8_conv.conv_padding(k, a.get("padding"))
+    ho = m.int8_conv.out_size(x.shape[1], k, a["stride"], pad_y)
+    wo = m.int8_conv.out_size(x.shape[2], k, a["stride"], pad_x)
     out = x.shape[0] * ho * wo * w.shape[3] * (4 if a["out_f32"] else 1)
-    return nbytes(x, w, a["m"], a["b"]) + out, 2.0 * x.shape[0] * ho * wo * w.shape[3] * k * k * w.shape[2]
+    lo = [a["lo"]] if a.get("lo") is not None else []
+    return nbytes(x, w, a["m"], a["b"], *lo) + out, 2.0 * x.shape[0] * ho * wo * w.shape[3] * k * k * w.shape[2]
 
 
 def chain_numbers(a):
@@ -1157,7 +1178,8 @@ def int_mm_call(torch, a):
     if a["groups"] != 1:
         w = block_diagonal(torch, w, a["groups"])
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k // 2, k // 2, k // 2, k // 2))
+    (top, bottom), (left, right) = a.get("padding") or ((k // 2, k // 2), (k // 2, k // 2))
+    xp = F.pad(x, (0, 0, left, right, top, bottom))
     cols = xp.unfold(1, k, s).unfold(2, k, s)  # (B, Ho, Wo, C, k, k)
     A = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * x.shape[3])
     Bm = w.reshape(k * k * w.shape[2], w.shape[3])
@@ -5006,6 +5028,222 @@ def library_phase(torch, m, dev, card):
     log(f"library phase: {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------- int8 options
+
+# bench.py's int8 R101 form under the JAX package's int8 HRNet options (build_int8_server's flags)
+OPTION_FORMS = (
+    ("O1 s2d", dict(s2d=True)),
+    ("O2 s2d + fused_even3", dict(s2d=True, fused_blocks=True, fused_even3=True)),
+    ("O3 merge_fuse", dict(s2d=False, merge_fuse=True)),
+    ("O4 fold=2", dict(s2d=False, fold=2)),
+)
+OPTION_CLIPS = 2
+OPTION_DET_SIZE = 768
+# the route counters that each option's run must raise above 0, beside K1, K2, K4 and K5a
+OPTION_COUNTS = {"O1 s2d": ("K5a padded 4x4", "K5a padded 2x2", "K5a padded 3x3"),
+                 "O2 s2d + fused_even3": ("K5a padded 4x4", "K5a padded 2x2", "K5"),
+                 "O3 merge_fuse": ("K5a clipped",), "O4 fold=2": ("K5a f32",)}
+FOLD_SCALE_ERR, FOLD_CORR = 0.1, 0.995  # the JAX package's fold bars (tests/test_hrnet_int8.py:249-253)
+LAZY_SIZE, LAZY_HEATMAP, LAZY_BATCH, LAZY_ITERS = 512, 128, 8, 10
+LAZY_CONFIG = """
+from spacecraft_pose_estimation_tpu_torch.config import LazyCall as L
+from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNet, POSE_HRNET_W32
+from spacecraft_pose_estimation_tpu_torch.train.optim import build_optimizer
+
+model = L(HRNet)(config=POSE_HRNET_W32.with_joints({joints}))
+optimizer = L(build_optimizer)(name="adam", learning_rate=1e-3)
+train = dict(max_iter={iters}, batch_size={batch}, image_size={size}, heatmap_size={heatmap},
+             num_joints={joints}, log_period=5, seed=0, out_dir={out_dir!r})
+"""
+
+
+def option_rows(torch, m, label, cap, hrnet):
+    """K5a's and K5's rows on the new routes of one option's served clip:
+    every call of the route captured in its warm-up, replayed (K5's even3
+    calls are those on the chain operands ``hrnet`` packed from ``convs_s2d``)."""
+    calls = [cap["K5a"].bound(i) for i in range(len(cap["K5a"].calls))]
+    routes = {
+        "O1 s2d": [(f"K5a padded {k}x{k}", f"s2d {kind}: every {k}x{k} call of an O1 clip",
+                    [a for a in calls if a["padding"] is not None and a["w"].shape[0] == k])
+                   for k, kind in ((4, "entry, 256 -> 4x32 channels at stride 2"),
+                                   (2, "fuse downs from the even-packed branch 0, padding (1, 0)"),
+                                   (3, "even3 3x3 on the packed 64x64x128 map, per op"))],
+        "O3 merge_fuse": [("K5a clipped", "merged fuse convs with the per-channel clip: every call of an O3 clip",
+                           [a for a in calls if a["lo"] is not None])],
+        "O4 fold=2": [("K5a f32", "the f32 epilogue: every fold site of the R101 backbone and the HRNet, and the "
+                       "head, in an O4 clip", [a for a in calls if a["out_f32"]])],
+    }.get(label, [])
+    rows = [dict(conv_sites_row(torch, m, sel, count, f"{name} ({label})"),
+                 replaces="spacecraft_pose_estimation_tpu/models/hrnet_int8.py:394") for count, name, sel in routes]
+    if label.startswith("O2"):  # K5 on branch 0's even3 chains (4C = 128 channels on the packed map)
+        chains = [cap["K5"].bound(i) for i in range(len(cap["K5"].calls))]
+        packed = [p[0] for key, p in hrnet._packed.items() if key[0] == "chain_even3" and p is not None]
+        even3 = [a for a in chains if any(a["w"] is w for w in packed)]
+        run_k = [lambda a=a: m.int8_blocks.basic_block_chain(**a) for a in even3]
+        run_p = [lambda a={k: v for k, v in a.items() if k != "wk"}: m.int8_blocks.basic_block_chain_plain(**a)
+                 for a in even3]
+        totals = [chain_numbers(a) for a in even3]
+        shape = tuple(even3[0]["x"].shape)
+        rows.append(dict(id="K5", name=f"basic_block_chain (branch 0's even3-packed chains, {shape}: {len(even3)} of "
+                         f"the {len(chains)} K5 calls of an O2 clip; launches: every K5 launch)",
+                         source="spacecraft_pose_estimation_tpu_torch/csrc/basic_block_chain.cu",
+                         replaces="spacecraft_pose_estimation_tpu/ops/pallas_blocks.py:126",
+                         run_k=lambda: [f() for f in run_k], run_p=lambda: [f() for f in run_p], run_lib=None,
+                         tol="int8", peak=INT8_OPS, numbers=(sum(b for b, _ in totals), sum(o for _, o in totals)),
+                         calls=len(even3)))
+    return rows
+
+
+def check_option_heatmaps(torch, m, label, server, per_op, landmarks, crops) -> None:
+    """O1-O3 bit-equal to the per-op int8 walk on the served crops; O4 within
+    the JAX package's fold bars of it (scale: the float model's heatmaps)."""
+    with torch.inference_mode():
+        got, walk = server.landmarks(crops), per_op(crops)
+        ref = landmarks(m.pipeline.normalize_crops(crops)).float()
+    sync()
+    err = (got - walk).abs().max().item()
+    if not label.startswith("O4"):
+        log(f"int8 options {label}: heatmaps on {crops.shape[0]} served crops vs the per-op walk: max_abs_err {err} "
+            f"(limit 0, torch.equal)")
+        if not torch.equal(got, walk):
+            raise RuntimeError(f"int8 options {label}: the heatmaps differ from the per-op walk by {err}")
+        return
+    scale = ref.abs().max().item() + 1e-9
+    corr = torch.corrcoef(torch.stack([got.flatten(), walk.flatten()]))[0, 1].item()
+    log(f"int8 options {label}: heatmaps vs the per-op walk: max |fold - walk| / scale {err / scale:.6g} (limit "
+        f"{FOLD_SCALE_ERR}), correlation {corr:.6f} (limit {FOLD_CORR}); vs the bf16 model: max |fold - f32| / scale "
+        f"{(got - ref).abs().max().item() / scale:.6g}, walk {(walk - ref).abs().max().item() / scale:.6g}")
+    if not (err / scale < FOLD_SCALE_ERR and corr > FOLD_CORR):
+        raise RuntimeError(f"int8 options {label}: fold outside the JAX bars: {err / scale}, correlation {corr}")
+
+
+def option_times(torch, label, models, crops) -> dict[str, float]:
+    """Device ms (CUDA events, 5 calls after a warm one) of each int8 HRNet in
+    ``models`` on the served crops, timed in turns (a, b, b, a ...): the
+    option's, the per-op walk's and, with O1, the served form's (FUSED)."""
+    times: dict[str, list] = {name: [] for name in models}
+    with torch.inference_mode():
+        for name in list(models) + list(models)[::-1]:
+            times[name].append(time_ms(lambda f=models[name]: f(crops), 5))
+    out = {name: min(v) for name, v in times.items()}
+    log(f"int8 options {label}: HRNet-W32 on {crops.shape[0]} served 512^2 crops, ms by CUDA events (the lesser "
+        f"of two turns of 5 calls): " + ", ".join(f"{name} {v:.4f}" for name, v in out.items()))
+    return out
+
+
+def lazy_train(torch, m, dev, card) -> None:
+    """``tools.lazyconfig_train`` at full width: a config file naming HRNet-W32
+    (11 joints), 512^2 -> 128^2 synthetic batches of 8, Adam 1e-3, 10
+    iterations; finite losses, and the checkpoint's .npz through
+    ``evaluate.load_landmark_model`` giving the trained model's heatmaps."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "lazy")
+        path = os.path.join(tmp, "lazy_config.py")
+        with open(path, "w") as f:
+            f.write(LAZY_CONFIG.format(joints=NUM_JOINTS, iters=LAZY_ITERS, batch=LAZY_BATCH, size=LAZY_SIZE,
+                                       heatmap=LAZY_HEATMAP, out_dir=out_dir))
+        lct = m.lazyconfig_train
+        ns = lct.load_lazy_config(path)
+        train_cfg = lct.apply_overrides(dict(ns["train"]), ["max_iter", str(LAZY_ITERS)])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, loader = lct.build(ns, train_cfg, dev)
+        losses = lct.run(state, loader, train_cfg)
+        sync()
+        wall = time.perf_counter() - t0
+        log(f"lazyconfig_train (HRNet-W32, {NUM_JOINTS} joints, {LAZY_SIZE}^2 -> {LAZY_HEATMAP}^2, batch {LAZY_BATCH}, "
+            f"float32, Adam 1e-3, {LAZY_ITERS} iterations) on {card}: {wall:.4f} s with the build and the checkpoint; "
+            f"losses {[round(v, 6) for v in losses]}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.4f} GB")
+        if len(losses) != LAZY_ITERS or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"lazyconfig_train: losses {losses}")
+        npz = os.path.join(out_dir, str(LAZY_ITERS), "model.npz")
+        loaded = m.evaluate.load_landmark_model(npz, "pose_hrnet", NUM_JOINTS, torch.float32, dev)
+        images = loader(LAZY_ITERS)["image"]
+        state.model.eval()
+        with torch.inference_mode():
+            err = (loaded(images) - state.model(images)).abs().max().item()
+        log(f"lazyconfig_train: the checkpoint's .npz ({os.path.getsize(npz)} bytes) through "
+            f"evaluate.load_landmark_model: heatmaps on {images.shape[0]} images {err} from the trained model's "
+            f"(limit 0)")
+        if err != 0:
+            raise RuntimeError(f"lazyconfig_train: the checkpoint gives other heatmaps: {err}")
+
+
+def options_phase(torch, m, dev, card):
+    """``bench.py``'s int8 R101 form at full width under each of the int8
+    HRNet's options O1-O4 (``OPTION_FORMS``; O1 calibrates its own trees with
+    s2d, the others serve them): 2 clips each, counters reset just before
+    and read just after; the heatmaps on the served crops held to the card's
+    per-op walk; the new routes' rows. Then ``tools.lazyconfig_train``.
+    Yields (rows, launches) per option."""
+    t_phase = time.perf_counter()
+    det_cfg, hr_cfg, config = m.rcnn.FASTER_RCNN_R101_SERVING_1OBJ, m.hrnet.POSE_HRNET_W32, m.serving.SERVING_PIPELINE
+    detector = m.rcnn.GeneralizedRCNN(det_cfg, dtype=torch.bfloat16, device=dev,
+                                      generator=torch.Generator().manual_seed(0))
+    landmarks = m.hrnet.HRNet(hr_cfg.with_joints(NUM_JOINTS), dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(1))
+    lm3d = torch.randn(NUM_JOINTS, 3, generator=torch.Generator().manual_seed(2))
+    K = torch.tensor([[2988.6, 0, 960.0], [0, 2988.3, 600.0], [0, 0, 1]])
+    clip = DET_BATCH * DET_EVERY
+    gd = torch.Generator(device=dev).manual_seed(3)
+    clips = [torch.randint(0, 256, (clip, *FRAME_HW, 3), dtype=torch.uint8, device=dev, generator=gd)
+             for _ in range(OPTION_CLIPS + 1)]
+    trees = {}
+    for label, flags in OPTION_FORMS:
+        t0 = time.perf_counter()
+        server = m.serving.build_int8_server(detector, landmarks, lm3d, K, torch.zeros(5), config, det_every=DET_EVERY,
+                                             det_size=OPTION_DET_SIZE, **trees, **flags)
+        sync()
+        if not trees:
+            trees = dict(backbone_q=server.backbone_q, hrnet_q=server.landmarks.q)
+            log(f"int8 options: build_int8_server calibrated the backbone and the HRNet with s2d on the card in "
+                f"{time.perf_counter() - t0:.2f} s; {len(server.landmarks.q['convs_s2d'])} packed sites")
+        cap = {key: Capture(*m.kernels[key][:2]) for key in ("K1", "K5a", "K5")}
+        with contextlib.ExitStack() as stack:
+            for c in cap.values():
+                stack.enter_context(c)
+            server(clips[0])  # warm-up, and the kernels' inputs
+            sync()
+        reset_counts(m)
+        t0 = time.perf_counter()
+        outs = [server(frames) for frames in clips[1:]]
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = read_counts(m)
+        log(f"int8 options {label} ({json.dumps(flags)}): {OPTION_CLIPS} clips x {clip} frames of {FRAME_HW[1]}x"
+            f"{FRAME_HW[0]} in {seconds:.4f} s = {OPTION_CLIPS * clip / seconds:.2f} frames/s; launches "
+            f"{json.dumps(launches)}")
+        for key in ("K1", "K2", "K4", "K5a") + OPTION_COUNTS[label]:
+            if launches[key] == 0:
+                raise RuntimeError(f"int8 options {label}: {key} was not launched by the serving run")
+        for out in outs:
+            for key in ("R", "t", "quat", "keypoints"):
+                if not torch.isfinite(out[key]).all():
+                    raise RuntimeError(f"int8 options {label}: served {key} is not finite")
+        crops = m.warp.crop_bilinear(*cap["K1"].calls[0][0])
+        per_op = m.hrnet_int8.HRNetInt8(server.landmarks.config, server.landmarks.q, fold_normalize=True, device=dev,
+                                        s2d=False)
+        check_option_heatmaps(torch, m, label, server, per_op, landmarks, crops)
+        models = {"option": server.landmarks, "per-op walk": per_op}
+        if label.startswith("O1"):  # the served int8 form's HRNet on the same crops
+            models["served fused form"] = m.hrnet_int8.HRNetInt8(server.landmarks.config, server.landmarks.q,
+                                                                 fold_normalize=True, device=dev, s2d=False, **FUSED)
+        option_times(torch, label, models, crops)
+        del models
+        rows = option_rows(torch, m, label, cap, server.landmarks)
+        del server, per_op, crops, outs
+        yield rows, launches
+        del rows, cap
+        torch.cuda.empty_cache()
+    del trees, detector, landmarks
+    torch.cuda.empty_cache()
+    lazy_train(torch, m, dev, card)
+    log(f"int8 options phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -5100,6 +5338,8 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.models import extra_layers, regnet, tta, zoo
     from spacecraft_pose_estimation_tpu_torch.ops import deform_conv, rotated_boxes
     from spacecraft_pose_estimation_tpu_torch.train import checkpoint, metrics, trainer
+    from spacecraft_pose_estimation_tpu_torch.ops import s2d
+    from spacecraft_pose_estimation_tpu_torch.tools import lazyconfig_train
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
@@ -5118,7 +5358,7 @@ def load_port():
                         fpn=fpn, rpn=rpn, roi_heads=roi_heads, masks=masks, coco_eval=coco_eval,
                         structures=structures, extra_layers=extra_layers, regnet=regnet, tta=tta, zoo=zoo,
                         deform_conv=deform_conv, rotated_boxes=rotated_boxes, checkpoint=checkpoint, metrics=metrics,
-                        trainer=trainer)
+                        trainer=trainer, s2d=s2d, lazyconfig_train=lazyconfig_train)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -5129,9 +5369,12 @@ def load_port():
         "K6": (int8_blocks, "bottleneck_chain", int8_blocks.BOTTLENECK),
         "K7": (int8_blocks, "up_exchange", int8_blocks.EXCHANGE),
     }
-    # beside each kernel's own counter: K5a's grouped launches, K2's and K2b's in the gather read
+    # beside each kernel's own counter: K5a's grouped, padded (by kernel size), clipped and f32 launches, K2's
+    # and K2b's in the gather read
     m.counters = {key: k for key, (_, _, k) in m.kernels.items()} | {
-        "K5a grouped": int8_conv.GROUPED, "K2 gather": roi_align.GATHER, "K2b gather": roi_align.GATHER_BACKWARD}
+        "K5a grouped": int8_conv.GROUPED, "K5a clipped": int8_conv.CLIPPED, "K5a f32": int8_conv.F32,
+        "K2 gather": roi_align.GATHER, "K2b gather": roi_align.GATHER_BACKWARD} | {
+        f"K5a padded {k}x{k}": c for k, c in int8_conv.PADDED.items()}
     m._cuda = _cuda
     return m
 
@@ -5263,6 +5506,14 @@ def main() -> int:
     # the rest of the detection library and the trainer's hooks: TTA around config_1's detector (K2 on the
     # scaled view, K4 on the merge), RegNet, deformable conv, rotated boxes, ASPP, the tracker, PreciseBN
     for rows, launches in library_phase(torch, m, dev, card):
+        report += kernel_report(rows, launches)
+        del rows
+    torch.cuda.empty_cache()
+
+    # the int8 HRNet's options in bench.py's int8 form: s2d (K5a's padded 4x4, 2x2 and 3x3 convs), s2d with the
+    # even3 chains (K5 at 128 channels), merge_fuse (K5a's per-channel clip), fold=2 (K5a's f32 epilogue); then
+    # tools.lazyconfig_train at HRNet-W32's width
+    for rows, launches in options_phase(torch, m, dev, card):
         report += kernel_report(rows, launches)
         del rows
 

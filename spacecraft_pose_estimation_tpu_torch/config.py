@@ -3,14 +3,17 @@
 One frozen-dataclass tree (``ExperimentConfig``) with dotted ``KEY VALUE``
 override lists (:func:`apply_overrides`, the reference's CLI ``opts``), YAML
 files of the same keys (:func:`load_yaml`) and the named presets
-(:func:`get_preset`). ``LazyCall`` / ``instantiate`` and
-``auto_scale_workers`` are not copied. PyYAML is imported only to read a
-YAML file or an override that gives a sequence as text.
+(:func:`get_preset`), the linear scaling rule (:func:`auto_scale_workers`)
+and the LazyConfig nodes (:class:`LazyCall`, :func:`instantiate`) that
+``tools.lazyconfig_train`` reads. PyYAML is imported only to read a YAML
+file or an override that gives a sequence as text.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+from typing import Any
 
 
 def _replace_path(cfg, dotted: str, value):
@@ -187,6 +190,46 @@ def load_yaml(cfg: ExperimentConfig, path: str) -> ExperimentConfig:
         except KeyError:
             continue
     return cfg
+
+
+def auto_scale_workers(cfg: ExperimentConfig, world_size: int) -> ExperimentConfig:
+    """The linear scaling rule (detectron2 ``engine/defaults.py:633``): when
+    ``train.reference_world_size`` is set and differs from ``world_size``,
+    the learning rate scales by world_size / reference_world_size."""
+    ref = cfg.train.reference_world_size
+    if ref == 0 or ref == world_size:
+        return cfg
+    train = dataclasses.replace(cfg.train, lr=cfg.train.lr * (world_size / ref), reference_world_size=world_size)
+    return dataclasses.replace(cfg, train=train)
+
+
+def instantiate(node: Any):
+    """Build objects from {"_target_": "pkg.mod.Obj" or a callable, ...}
+    nodes, depth first (detectron2's LazyConfig ``instantiate``); other
+    dicts, lists and tuples are rebuilt with their items instantiated."""
+    if isinstance(node, dict):
+        built = {k: instantiate(v) for k, v in node.items() if k != "_target_"}
+        if "_target_" not in node:
+            return built
+        target = node["_target_"]
+        if isinstance(target, str):
+            module, _, name = target.rpartition(".")
+            target = getattr(importlib.import_module(module), name)
+        return target(**built)
+    if isinstance(node, (list, tuple)):
+        return type(node)(instantiate(v) for v in node)
+    return node
+
+
+class LazyCall:
+    """``LazyCall(Obj)(a=1)`` -> the node {"_target_": Obj, "a": 1} that
+    :func:`instantiate` calls (detectron2 ``config/lazy.py``)."""
+
+    def __init__(self, target):
+        self._target = target
+
+    def __call__(self, **kwargs):
+        return {"_target_": self._target, **kwargs}
 
 
 # ---------------------------------------------------------------------------

@@ -67,8 +67,8 @@ basic_block_chain_kernel(ChainArgs a) {
   Src cur{a.x + img * img_elems, 0, H, W, C};
   for (int blk = 0; blk < a.nblocks; ++blk) {
     const int8_t* w1 = a.wk + static_cast<int64_t>(blk * 2) * 9 * C * C;
-    const ConvW c1{w1, a.m + (blk * 2) * C, a.b + (blk * 2) * C, 3, 1, C, C, 1};
-    const ConvW c2{w1 + 9 * C * C, a.m + (blk * 2 + 1) * C, a.b + (blk * 2 + 1) * C, 3, 1, C, C, 1};
+    const ConvW c1{w1, a.m + (blk * 2) * C, a.b + (blk * 2) * C, 3, 1, C, C, 1, 1, 1};
+    const ConvW c2{w1 + 9 * C * C, a.m + (blk * 2 + 1) * C, a.b + (blk * 2 + 1) * C, 3, 1, C, C, 1, 1, 1};
     // conv1 -> Q over the rows the remaining convs still need
     const int h1 = L - 2 * blk - 1;
     const StoreRq e1{c1, {Q, base, 0, W, C}, true};

@@ -88,22 +88,22 @@ bottleneck_chain_kernel(BottleneckArgs a) {
     const int lo1 = max(0, r0 - h1), hi1 = min(H, r1 + h1);
     const int lo2 = max(0, r0 - h1 + 1), hi2 = min(H, r1 + h1 - 1);
     const int64_t w1_off = blk == 0 ? 0 : static_cast<int64_t>(cm) * (a.cin0 + (blk - 1) * cout);
-    const ConvW c1{a.w1 + w1_off, a.m1 + blk * cm, a.b1 + blk * cm, 1, 1, in.C, cm, 1};
+    const ConvW c1{a.w1 + w1_off, a.m1 + blk * cm, a.b1 + blk * cm, 1, 1, in.C, cm, 1, 0, 0};
     const StoreRq e1{c1, {T1, base, 0, W, cm}, true};
     conv_rows_mma<kTnMid, V16>(in, c1, lo1, hi1, W, rank, kCluster, smem, e1);
     if (blk == 0) {  // projection shortcut -> X, over the block's output rows
-      const ConvW cd{a.wd, a.md, a.bd, 1, 1, a.cin0, cout, 1};
+      const ConvW cd{a.wd, a.md, a.bd, 1, 1, a.cin0, cout, 1, 0, 0};
       const StoreRq ed{cd, {X, base, 0, W, cout}, false};
       conv_rows_mma<kTnOut, V16>(x_in, cd, lo2, hi2, W, rank, kCluster, smem, ed);
     }
     cluster_barrier();
     const ConvW c2{a.w2 + static_cast<int64_t>(blk) * 9 * cm * cm, a.m2 + blk * cm,
-                   a.b2 + blk * cm, 3, 1, cm, cm, 1};
+                   a.b2 + blk * cm, 3, 1, cm, cm, 1, 1, 1};
     const StoreRq e2{c2, {T2, base, 0, W, cm}, true};
     conv_rows_mma<kTnMid, V16>(t1, c2, lo2, hi2, W, rank, kCluster, smem, e2);
     cluster_barrier();
     const ConvW c3{a.w3 + static_cast<int64_t>(blk) * cm * cout, a.m3 + blk * cout,
-                   a.b3 + blk * cout, 1, 1, cm, cout, 1};
+                   a.b3 + blk * cout, 1, 1, cm, cout, 1, 0, 0};
     const bool last = blk == n - 1;
     const Dst<int8_t> d3{last ? a.out + static_cast<int64_t>(img) * H * W * cout : X, last ? 0 : base, 0,
                          W, cout};

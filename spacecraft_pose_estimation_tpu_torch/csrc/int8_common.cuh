@@ -43,16 +43,19 @@ struct Dst {
 
 // One conv's weights, K-major (cout, k, k, cin) as int8_mma.cuh's
 // conv_tile_mma reads them, and its per-output-channel requant vectors;
-// cin is per group.
+// cin is per group. pad_y and pad_x are the zero rows above and columns
+// left of the input (k / 2 for a SAME conv; the bottom and right padding
+// follow from the output size the caller gives).
 struct ConvW {
   const int8_t* w;
   const float* m;
   const float* b;
   int k, stride, cin, cout, groups;
+  int pad_y, pad_x;
 };
 
-__device__ __forceinline__ int8_t requant(float f) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(f), -127.f), 127.f));
+__device__ __forceinline__ int8_t requant(float f, float lo = -127.f) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(f), lo), 127.f));
 }
 
 __device__ __forceinline__ float epilogue(const ConvW& cw, int ch, int acc, bool relu) {
@@ -77,6 +80,21 @@ struct StoreRq {
   Dst<int8_t> dst;
   bool relu;
   __device__ __forceinline__ int8_t stage(int ch, int acc) const { return requant(epilogue(cw, ch, acc, relu)); }
+  template <int N>
+  __device__ __forceinline__ void finish(int, int, int, int8_t (&)[N], int) const {}
+};
+
+// StoreRq with a per-output-channel lower bound: clip(rint(f), lo[ch], 127),
+// the merged fuse convs of mixed relu flags (K5a with lo).
+struct StoreRqClip {
+  using Out = int8_t;
+  ConvW cw;
+  Dst<int8_t> dst;
+  bool relu;
+  const float* lo;
+  __device__ __forceinline__ int8_t stage(int ch, int acc) const {
+    return requant(epilogue(cw, ch, acc, relu), lo[ch]);
+  }
   template <int N>
   __device__ __forceinline__ void finish(int, int, int, int8_t (&)[N], int) const {}
 };

@@ -5,7 +5,8 @@
 // conv_tile_mma computes one tile of kTM = 128 output pixels x TN (32, 64
 // or 128) output channels of an int8 x int8 -> int32 convolution (NHWC
 // activations, K-major weights (cout, k, k, cin), k x k taps, stride s,
-// zero padding k / 2) as an implicit GEMM on the int8 tensor cores, then
+// zero padding pad_y rows above and pad_x columns left, k / 2 for the
+// SAME convs of K5, K6 and K7) as an implicit GEMM on the int8 tensor cores, then
 // hands every sum to an epilogue of int8_common.cuh.
 //
 // * The multiply is wgmma.mma_async m64nTNk32 .s32.s8.s8 with A and B in
@@ -169,15 +170,14 @@ struct TileLoad {
     nci = (cw_.cin + kChunk - 1) / kChunk;  // chunks per tap
     nchunk = cw_.k * cw_.k * nci;
     nstage = (nchunk + kChunksPerStage - 1) / kChunksPerStage;
-    const int pad = cw_.k / 2;
 #pragma unroll
     for (int j = 0; j < kRowsA; ++j) {
       const int p = p_base + threadIdx.x / 8 + 32 * j;
       iy0[j] = -(1 << 28);  // a pixel past npx reads as padding
       ix0[j] = 0;
       if (p < rg.npx) {
-        iy0[j] = (rg.row0 + p / rg.ncols) * cw_.stride - pad;
-        ix0[j] = (rg.col0 + p % rg.ncols) * cw_.stride - pad;
+        iy0[j] = (rg.row0 + p / rg.ncols) * cw_.stride - cw_.pad_y;
+        ix0[j] = (rg.col0 + p % rg.ncols) * cw_.stride - cw_.pad_x;
       }
     }
   }

@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) up_exchange_kernel(ExchangeArgs a) {
     int8_t* dst = reinterpret_cast<int8_t*>(low + u.buf);
     buf[j] = dst;
     const Src s{u.u + static_cast<int64_t>(img) * u.h * u.w * u.cu, 0, u.h, u.w, u.cu};
-    const ConvW cw{u.wk, u.m, u.b, 1, 1, u.cu, C, 1};
+    const ConvW cw{u.wk, u.m, u.b, 1, 1, u.cu, C, 1, 0, 0};
     const StoreRq epi{cw, {dst, lo_y[j], lo_x[j], n_x[j], C}, false};
     const Region rg{lo_y[j], lo_x[j], n_x[j], (ceil_div(y0 + rows, u.f) - lo_y[j]) * n_x[j]};
     const int tiles_c = ceil_div(C, TN);

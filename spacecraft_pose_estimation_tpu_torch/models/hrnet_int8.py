@@ -14,15 +14,26 @@ asked, whole block chains and exchanges go to K5, K6 and K7
 layouts (HWIO weights), so ``convert.quantized_to_torch`` of a JAX tree runs
 here unchanged.
 
-Not ported yet (they raise ``NotImplementedError``): the space-to-depth
-branch 0 (``s2d``), ``merge_fuse``, ``fold_residual``, ``fold_fuse_up`` and
-``fused_even3``. One routing difference: the JAX walk keeps layer1 per-op
-when the whole-image K6 would overflow the TPU's VMEM; here layer1 takes
-the chain kernel whenever ``fused_blocks`` or ``layer1_strips`` is set.
+The walk's options are the JAX package's. Each handle carries a layout:
+``std``, the space-to-depth cell packings ``even`` and ``odd`` of branch 0
+(``s2d``, ``ops/s2d.py``; K5a on the packed sites, and with ``fused_even3``
+K5 on the even3-packed chains), or ``f32pre``, a conv's pre-round f32
+epilogue handed to its add (``fold_residual``, and through the fuse
+upsample with ``fold_fuse_up``). ``merge_fuse`` runs the fuse convs that
+read one branch as one K5a launch with a per-channel lower clip bound.
+``s2d``, ``fused_even3`` and ``merge_fuse`` are bit-equal to the per-op
+walk; the folds skip one rounding and are held to it by the JAX package's
+bars. Two routing differences: the JAX walk keeps layer1 per-op when the
+whole-image K6 would overflow the TPU's VMEM, where here layer1 takes the
+chain kernel whenever ``fused_blocks`` or ``layer1_strips`` is set; and K7
+(``fuse_exchange``) takes int8 operands only, so an exchange that fold
+hands an f32 operand runs per op (the JAX exchange kernel is off unless a
+debug variable turns it on).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -31,8 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops import int8_blocks, int8_conv
-from ..ops.int8_conv import requant
+from ..ops import int8_blocks, int8_conv, s2d as s2d_ops
+from ..ops.int8_conv import pack_kmajor, requant
 from ..pipeline import IMAGENET_MEAN, IMAGENET_STD
 from .hrnet import BLOCKS, HRNet, HRNetConfig
 from .layers import BN_EPS
@@ -43,8 +54,9 @@ Tensor = torch.Tensor
 class _Handle(NamedTuple):
     """Dataflow token threaded through the walk."""
 
-    value: Any  # int8 NHWC tensor (_Int8Ops) or None (_QuantizeOps)
+    value: Any  # int8 NHWC tensor (_Int8Ops), f32 for 'f32pre', or None (_QuantizeOps)
     scale: Any  # activation scale of `value` (_QuantizeOps)
+    layout: str = "std"  # 'std', the s2d packings 'even' / 'odd', or 'f32pre'
 
 
 def tree_map(fn, tree):
@@ -141,7 +153,7 @@ class _QuantizeOps:
         self.q["adds"][name] = {"coeffs": torch.tensor([h.scale / s_out for h in hs], dtype=torch.float32)}
         return _Handle(None, s_out)
 
-    def upsample(self, h, factor):
+    def upsample(self, h, factor, like=None):
         return h
 
     def final(self, name, h):
@@ -154,10 +166,14 @@ class _QuantizeOps:
 class _Int8Ops:
     """Walk in 'execute' mode over the quantized tree of an :class:`HRNetInt8`."""
 
+    _UP_RE = re.compile(r"^(?P<p>.+)/fuse/up(?P<i>\d+)_(?P<j>\d+)$")
+    _DN0_RE = re.compile(r"^(?P<p>.+)/fuse/down(?P<i>\d+)_(?P<j>\d+)_0$")
+
     def __init__(self, model: "HRNetInt8", x: Tensor):
         self.m = model
         self.q = model.q
         self.x = x
+        self._merge_cache: dict[str, _Handle] = {}  # merge_fuse: each family member's slice, this forward
 
     def has(self, name):
         return name in self.q["convs"]
@@ -173,31 +189,141 @@ class _Int8Ops:
         return _Handle(requant(f).contiguous(), None)
 
     def convbn(self, name, h, stride, relu):
+        """The routes of the JAX walk, in its order: a merged fuse family,
+        then a packed s2d site, then the std site, whose output is the
+        pre-round f32 (``f32pre``) where fold hands it to an add."""
+        if self.m.merge_fuse:
+            mh = self._merged_fuse_conv(name, h, stride, relu)
+            if mh is not None:
+                return mh
+        if self.m.s2d:
+            c2 = self.q["convs_s2d"].get(name)
+            if c2 is not None:
+                return self._convbn_s2d(h, stride, relu, c2)
         c = self.q["convs"][name]
-        return _Handle(int8_conv.int8_conv(h.value, c["w8"], c["m"], c["b"], stride=stride, relu=relu,
-                                           wk=c.get("w8k")), None)
+        x = h.value if h.layout == "std" else self._requant(h).value
+        # the consumer is a residual or fuse add at the same resolution
+        fold = (self.m.fold_residual and not relu and ("/fuse/up" not in name or self.m.fold_fuse_up)
+                and h.layout == "std")
+        y = int8_conv.int8_conv(x, c["w8"], c["m"], c["b"], stride=stride, relu=relu, out_f32=fold,
+                                wk=c.get("w8k"))
+        return _Handle(y, None, "f32pre" if fold else "std")
+
+    def _merged_fuse_conv(self, name, h, stride, relu):
+        """One K5a launch for all fuse convs reading branch j (the up{i}_{j}
+        1x1s, or the down{i}_{j}_0 stride-2 3x3s), sliced per member. Each
+        output channel keeps its own sum and requant vectors, and a
+        family's mixed relu flags (a down chain's first conv is relu unless
+        it is also the last) become a per-channel lower clip bound:
+        relu-before-round equals clip-at-0-after-round. None (the per-op
+        route) for other sites, one-member families, and when s2d or fold
+        re-route these sites, as the JAX walk."""
+        if self.m.s2d or self.m.fold_residual or h.layout != "std":
+            return None
+        cached = self._merge_cache.get(name)
+        if cached is not None:
+            return cached
+        m_up = self._UP_RE.match(name)
+        m_dn = None if m_up else self._DN0_RE.match(name)
+        match = m_up or m_dn
+        if match is None:
+            return None
+        p, j = match.group("p"), int(match.group("j"))
+        if m_up:
+            fam = [(f"{p}/fuse/up{i}_{j}", False) for i in range(j) if f"{p}/fuse/up{i}_{j}" in self.q["convs"]]
+        else:
+            fam = [(f"{p}/fuse/down{i}_{j}_0", i - j > 1) for i in range(j + 1, j + 9)
+                   if f"{p}/fuse/down{i}_{j}_0" in self.q["convs"]]
+        if len(fam) < 2:
+            return None
+        if dict(fam)[name] != relu:
+            raise ValueError(f"merge_fuse: {name} is walked with relu={relu}, its family says otherwise")
+        w, m, b, lo, wk = self.m.packed(("merge", p, "up" if m_up else "down", j),
+                                        lambda: _merged_fuse_operands(self.q, fam))
+        q8 = int8_conv.int8_conv(h.value, w, m, b, stride=stride, wk=wk, lo=lo)
+        off = 0
+        for s, _ in fam:
+            width = self.q["convs"][s]["w8"].shape[-1]
+            self._merge_cache[s] = _Handle(q8[..., off:off + width].contiguous(), None)
+            off += width
+        return self._merge_cache[name]
+
+    def _requant(self, h):
+        """Round an f32pre handle back to int8 (for a consumer other than
+        ``add``; unused on the standard walk)."""
+        if h.layout != "f32pre":
+            raise ValueError(f"a std int8 site got a {h.layout} input")
+        return _Handle(requant(h.value), None)
+
+    def _convbn_s2d(self, h, stride, relu, c2):
+        """A packed branch-0 site (``ops/s2d.py``), bit-equal to the std int8
+        walk. The conv follows from (layout, stride): a std input is the
+        entry (k 4, stride 2, even out); a packed input at stride 2 the down
+        (std half-resolution out); an even input with a 3x3 twin the even3
+        conv; else the alternating 2x2 convs even -> odd -> even, the odd
+        output's structural slots zeroed."""
+        args = (c2["w8p"], c2["m"], c2["b"], relu)
+        wk = c2.get("w8pk")
+        if h.layout == "std":
+            if c2["w8p"].shape[0] != 4:
+                raise ValueError(f"s2d: a std input reaches a packed site of kernel {c2['w8p'].shape[0]}")
+            return _Handle(s2d_ops.conv_std_to_even(h.value, *args, wk=wk), None, "even")
+        if h.layout not in ("even", "odd") or (stride == 2 and h.layout != "even"):
+            raise ValueError(f"s2d: a packed site got a {h.layout} input at stride {stride}")
+        if stride == 2:
+            return _Handle(s2d_ops.conv_even_down(h.value, *args, wk=wk), None)
+        if h.layout == "even" and c2["w8p"].shape[0] == 3:
+            return _Handle(s2d_ops.conv_even3(h.value, *args, wk=wk), None, "even")
+        if h.layout == "even":
+            y = s2d_ops.conv_even_to_odd(h.value, *args, wk=wk)
+            _, hp, wp, c4 = y.shape
+            mask = self.m.packed(("odd_mask", hp, wp, c4),
+                                 lambda: s2d_ops.odd_zero_mask(hp, wp, c4 // 4, torch.int8, y.device))
+            return _Handle(y * mask, None, "odd")
+        return _Handle(s2d_ops.conv_odd_to_even(h.value, *args, wk=wk), None, "even")
 
     def add(self, name, hs, relu):
+        """f32pre operands are real values in their site's scale units
+        already; int8 ones widen. The output takes the operands' packing."""
         coeffs = self.q["adds"][name]["coeffs"]
         f = hs[0].value.to(torch.float32) * coeffs[0]
         for i, h in enumerate(hs[1:], 1):
             f = f + h.value.to(torch.float32) * coeffs[i]
         if relu:
             f = torch.clamp_min(f, 0.0)
-        return _Handle(requant(f), None)
+        return _Handle(requant(f), None, next((h.layout for h in hs if h.layout != "f32pre"), "std"))
 
-    def upsample(self, h, factor):
+    def upsample(self, h, factor, like=None):
+        """Nearest upsample; delivered even-packed where the target branch is
+        packed; an f32pre value stays f32pre for its add."""
+        if like is not None and like.layout == "even":
+            return _Handle(s2d_ops.upsample_std_to_even(h.value, factor), None, "even")
         v = h.value.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)
-        return _Handle(v, None)
+        return _Handle(v, None, "f32pre" if h.layout == "f32pre" else "std")
 
     def final(self, name, h):
+        if h.layout == "even":  # the block-diagonal 1x1 on the packed map, then unpacked
+            c = self.q["final_s2d"]
+            f = s2d_ops.conv_even_1x1(h.value, c["w8p"], c["m"], c["b"], out_f32=True, wk=c.get("w8pk"))
+            return s2d_ops.unpack_even(f)
+        if h.layout != "std":
+            raise ValueError(f"the int8 head got a {h.layout} input")
         c = self.q["final"]
         if c["w8"].shape[0] != 1:
             raise NotImplementedError("the int8 head is a 1x1 conv (final_conv_kernel=1)")
         return int8_conv.int8_conv(h.value, c["w8"], c["m"], c["b"], out_f32=True, wk=c.get("w8k"))
 
     def branch_chain(self, prefix, branch, nblocks, h):
-        """A module branch's BasicBlock chain as one K5 launch."""
+        """A module branch's BasicBlock chain as one K5 launch: the even3-packed
+        chain of an even branch with ``fused_even3``, or a std branch's."""
+        if h.layout == "even" and self.m.fused_even3:
+            packed = self.m.packed(("chain_even3", prefix, branch),
+                                   lambda: int8_blocks.chain_params_even3_from_q(self.q, prefix, branch, nblocks))
+            if packed is not None:
+                w, m, b, coeffs, wk = packed
+                return _Handle(int8_blocks.basic_block_chain(h.value, w, m, b, coeffs, nblocks, wk=wk), None, "even")
+        if h.layout != "std":
+            return None
         width_ok = self.m.fused_min_width is not None and h.value.shape[-1] >= self.m.fused_min_width
         if not (self.m.fused_blocks or width_ok):
             return None
@@ -222,8 +348,10 @@ class _Int8Ops:
         return _Handle(out, None)
 
     def fuse_exchange(self, prefix, i, ys, downs):
-        """Exchange output i (up 1x1s, nearest upsample, n-way add) as one K7 launch."""
-        if not (self.m.fuse_exchange and self.m.fused_blocks):
+        """Exchange output i (up 1x1s, nearest upsample, n-way add) as one K7
+        launch, on int8 std operands only: a packed branch or an f32pre down
+        runs per op."""
+        if not (self.m.fuse_exchange and self.m.fused_blocks) or any(y.layout != "std" for y in (*ys, *downs)):
             return None
         ops = int8_blocks.up_exchange_operands(self.q, prefix, i, [y.value for y in ys])
         if ops is None:
@@ -231,6 +359,17 @@ class _Int8Ops:
         ups, coeffs, wks = ops
         out = int8_blocks.up_exchange(ys[i].value, [d.value for d in downs], ups, coeffs, wks=wks)
         return _Handle(out, None)
+
+
+def _merged_fuse_operands(q: dict, fam: list) -> tuple:
+    """A merge_fuse family's sites [(name, relu)] concatenated along the
+    output channels: (w, m, b, lo, wk), lo 0 for a relu member's channels
+    and -127 for the others', wk the kernel's K-major copy of w."""
+    convs = [q["convs"][s] for s, _ in fam]
+    w = torch.cat([c["w8"] for c in convs], dim=-1)
+    lo = torch.cat([torch.full((c["w8"].shape[-1],), 0.0 if r else -127.0, device=w.device)
+                    for c, (_, r) in zip(convs, fam)])
+    return (w, torch.cat([c["m"] for c in convs]), torch.cat([c["b"] for c in convs]), lo, pack_kmajor(w))
 
 
 def _forward(ops, cfg: HRNetConfig):
@@ -307,7 +446,7 @@ def _forward(ops, cfg: HRNetConfig):
                         continue
                     if j > i:
                         y = ops.convbn(f"{prefix}/fuse/up{i}_{j}", ys[j], 1, False)
-                        y = ops.upsample(y, 2 ** (j - i))
+                        y = ops.upsample(y, 2 ** (j - i), like=ys[i])
                     else:
                         y = downs[ai]
                         ai += 1
@@ -348,19 +487,74 @@ def _collect_scales(model: HRNet, calib_x: Tensor) -> dict[str, float]:
     return scales
 
 
+def _s2d_sites(cfg: HRNetConfig) -> dict[str, str]:
+    """name -> kind of every conv site of the s2d-packed branch 0: 'entry'
+    (std input, even-packed output, k 4 stride 2), 'alt' (the BasicBlock
+    convs inside the packed domain), 'down' (even-packed input, std
+    half-resolution output). Mirrors :func:`_forward`."""
+    sites: dict[str, str] = {"transition1/adapt0": "entry"}
+    for si, spec in enumerate((cfg.stage2, cfg.stage3, cfg.stage4)):
+        for m in range(spec.num_modules):
+            prefix = f"stage{si + 2}_m{m}"
+            for k in range(spec.num_blocks[0]):
+                sites[f"{prefix}/branch0/block{k}/conv1"] = "alt"
+                sites[f"{prefix}/branch0/block{k}/conv2"] = "alt"
+            multi = not (si == 2 and m == spec.num_modules - 1)
+            if len(spec.num_channels) > 1:
+                for i in range(1, len(spec.num_channels) if multi else 1):
+                    sites[f"{prefix}/fuse/down{i}_0_0"] = "down"
+    return sites
+
+
+def s2d_pack_quantized(q: dict, cfg: HRNetConfig, scheme: str = "even3") -> dict:
+    """``q`` with the packed twins of the branch-0 sites (``convs_s2d``) and
+    of the head (``final_s2d``), the JAX package's tree: 'entry' sites
+    packed by ``w3_pack_from_std``, 'down' by ``w3_pack_down``, 'alt' by
+    ``w3_pack_even3`` (``scheme='even3'``, 3x3 even -> even) or
+    ``w3_pack_alt`` (``'alt'``, the 2x2 even <-> odd convs); requant vectors
+    tiled where the output is packed. Host-side numpy scatters."""
+    if cfg.head != "classic":
+        raise NotImplementedError("s2d packing covers the classic head only")
+    packed: dict = {}
+    for name, kind in _s2d_sites(cfg).items():
+        c = q["convs"].get(name)
+        if c is None:
+            continue
+        w8 = c["w8"].cpu()
+        if kind == "entry":
+            wp = s2d_ops.w3_pack_from_std(w8)
+        elif kind == "alt":
+            wp = s2d_ops.w3_pack_even3(w8) if scheme == "even3" else s2d_ops.w3_pack_alt(w8)
+        else:
+            wp = s2d_ops.w3_pack_down(w8)
+        ent = {"w8p": torch.from_numpy(wp)}
+        if kind in ("entry", "alt"):
+            ent["m"], ent["b"] = _f32(s2d_ops.tile_vec(_np(c["m"]))), _f32(s2d_ops.tile_vec(_np(c["b"])))
+        else:
+            ent["m"], ent["b"] = c["m"], c["b"]
+        packed[name] = ent
+    q = dict(q)
+    fin = q.get("final")
+    if fin:
+        q["final_s2d"] = {"w8p": torch.from_numpy(s2d_ops.w1_pack(fin["w8"].cpu())),
+                          "m": _f32(s2d_ops.tile_vec(_np(fin["m"]))), "b": _f32(s2d_ops.tile_vec(_np(fin["b"])))}
+    q["convs_s2d"] = packed
+    return q
+
+
 def quantize_hrnet(model: HRNet, calib_x: Tensor, s2d: bool = False) -> dict:
     """Calibrate over ``calib_x`` (normalized (B, H, W, 3) crops on the
     model's device) and quantize. Returns the JAX package's tree
-    ({convs, convs_raw, adds, final, in_scale}) of CPU tensors."""
+    ({convs, convs_raw, adds, final, in_scale}, and with ``s2d`` the packed
+    twins ``convs_s2d`` and ``final_s2d``, :func:`s2d_pack_quantized`) of
+    CPU tensors."""
     if model.config.head != "classic":
         raise NotImplementedError("int8 path covers the classic head only")  # as the JAX quantizer
-    if s2d:
-        raise NotImplementedError("the space-to-depth branch 0 (s2d) is not ported yet")
     scales = _collect_scales(model, calib_x)
     ops = _QuantizeOps(model, scales)
     _forward(ops, model.config)
     ops.q["in_scale"] = torch.tensor(scales["input"], dtype=torch.float32)
-    return ops.q
+    return s2d_pack_quantized(ops.q, model.config) if s2d else ops.q
 
 
 class HRNetInt8(nn.Module):
@@ -372,27 +566,38 @@ class HRNetInt8(nn.Module):
     ``layer1_strips`` runs layer1 as K6 in 32-row strips (K6s);
     ``fused_min_width`` fuses only branches at least that wide;
     ``fuse_exchange`` (with ``fused_blocks``) runs the fuse exchanges as K7.
+    ``s2d`` runs branch 0 space-to-depth packed on the tree's ``convs_s2d``
+    (default: on when the tree has them, as the JAX package); with it,
+    ``fused_even3`` runs branch 0's even3-packed chains as K5.
+    ``merge_fuse`` merges the fuse convs that read one branch (not with
+    ``s2d`` or ``fold_residual``, which re-route those sites).
+    ``fold_residual`` hands the convs that feed only an add (relu off, the
+    fuse up 1x1s aside) to it unrounded; ``fold_fuse_up`` (with it) the up
+    1x1s too, through their upsample.
     ``q`` is moved to ``device`` (CUDA unless given), which the module keeps
     as ``self.device``: it holds no parameters. Every int8 site gets its
-    K-major weights ``w8k`` beside ``w8`` here, once (``int8_conv.with_kmajor``),
-    which K5a and K7 read; K5's and K6's packed operands (with their K-major
-    copies) are built at their first call and kept (:meth:`packed`).
+    K-major weights ``w8k`` beside ``w8`` (``w8pk`` beside a packed twin's
+    ``w8p``) here, once (``int8_conv.with_kmajor``), which K5a and K7 read;
+    K5's and K6's packed operands and merge_fuse's concatenations (with
+    their K-major copies) are built at their first call and kept
+    (:meth:`packed`).
     """
 
     def __init__(self, config: HRNetConfig, q: dict, fused_blocks: bool = False,
                  layer1_strips: bool = False, fused_min_width: int | None = None,
                  fold_normalize: bool = False, fuse_exchange: bool = False, device=None,
-                 s2d: bool = False, merge_fuse: bool = False, fold_residual: bool = False,
+                 s2d: bool | None = None, merge_fuse: bool = False, fold_residual: bool = False,
                  fold_fuse_up: bool = False, fused_even3: bool = False):
         super().__init__()
-        for flag, on in (("s2d", s2d), ("merge_fuse", merge_fuse), ("fold_residual", fold_residual),
-                         ("fold_fuse_up", fold_fuse_up), ("fused_even3", fused_even3)):
-            if on:
-                raise NotImplementedError(f"HRNetInt8: {flag} is not ported yet")
         self.config = config
         self.fused_blocks, self.layer1_strips = fused_blocks, layer1_strips
         self.fused_min_width, self.fold_normalize = fused_min_width, fold_normalize
         self.fuse_exchange = fuse_exchange
+        self.s2d = bool(q.get("convs_s2d")) if s2d is None else s2d
+        if self.s2d and "convs_s2d" not in q:
+            raise ValueError("HRNetInt8: s2d needs the packed twins of quantize_hrnet(..., s2d=True)")
+        self.fused_even3, self.merge_fuse = fused_even3, merge_fuse
+        self.fold_residual, self.fold_fuse_up = fold_residual, fold_fuse_up
         self.device = resolve_device(device)
         self.q = int8_conv.with_kmajor(tree_map(lambda t: t.to(self.device), q))
         self._packed: dict = {}

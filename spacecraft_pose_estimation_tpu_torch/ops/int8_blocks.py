@@ -12,7 +12,8 @@ Port of ``spacecraft_pose_estimation_tpu/ops/pallas_blocks.py``:
   output, counterpart of ``fused_up_exchange``;
 
 and the packers that gather their operands from a quantized tree
-(``chain_params_from_q``, ``bottleneck_params_from_q``,
+(``chain_params_from_q``, ``chain_params_even3_from_q`` for branch 0's
+space-to-depth even3 chains, ``bottleneck_params_from_q``,
 ``up_exchange_operands``). Each ``*_plain`` function is the per-op int8 walk
 of the same sites through :func:`..int8_conv.int8_conv_plain`, and is what
 the wrappers run for CPU tensors. All three kernels multiply on the int8
@@ -120,13 +121,27 @@ def chain_params_from_q(q: dict, prefix: str, branch: int, nblocks: int):
     """One module branch's BasicBlock sites stacked for K5: (w, m, b, coeffs,
     wk), wk the kernel's K-major copy of w, or None when a block has a
     projection ('down')."""
+    return _chain_params(q, q["convs"], "w8", prefix, branch, nblocks)
+
+
+def chain_params_even3_from_q(q: dict, prefix: str, branch: int, nblocks: int):
+    """One module branch's chain in the even3-packed domain (``ops/s2d.py``)
+    stacked for K5, as ``chain_params_from_q``: the packed (3, 3, 4C, 4C)
+    twins of ``convs_s2d`` and their tiled requant vectors, so K5 runs the
+    branch at 4C channels on the H / 2 x W / 2 packed map. None when a block
+    has a projection, lacks a packed twin, or is packed in the 2x2 'alt'
+    scheme (which no chain runs)."""
+    return _chain_params(q, q.get("convs_s2d") or {}, "w8p", prefix, branch, nblocks)
+
+
+def _chain_params(q: dict, convs: dict, key: str, prefix: str, branch: int, nblocks: int):
     ws, ms, bs, cs = [], [], [], []
     for k in range(nblocks):
         bn = f"{prefix}/branch{branch}/block{k}"
-        if f"{bn}/down" in q["convs"]:
+        c1, c2 = convs.get(f"{bn}/conv1"), convs.get(f"{bn}/conv2")
+        if f"{bn}/down" in q["convs"] or c1 is None or c2 is None or c1[key].shape[0] != 3 or c2[key].shape[0] != 3:
             return None
-        c1, c2 = q["convs"][f"{bn}/conv1"], q["convs"][f"{bn}/conv2"]
-        ws.append(torch.stack([c1["w8"], c2["w8"]]))
+        ws.append(torch.stack([c1[key], c2[key]]))
         ms.append(torch.stack([c1["m"], c2["m"]]))
         bs.append(torch.stack([c1["b"], c2["b"]]))
         cs.append(torch.as_tensor(q["adds"][bn]["coeffs"], dtype=torch.float32))

@@ -72,11 +72,12 @@ class PoseServer:
 
     def __init__(self, detector, landmark_model, landmarks_3d, K, dist,
                  config: PipelineConfig = SERVING_PIPELINE, det_every: int = 16,
-                 det_size: int = 768, backbone_q: dict | None = None):
+                 det_size: int = 768, backbone_q: dict | None = None, backbone_fold: bool = False):
         self.detector = detector
         self.det_every, self.det_size = det_every, det_size
         # int8 backbone tree, on the detector's device, with its kernel weights packed once
         self.backbone_q = pack_backbone(detector.config.backbone, backbone_q) if backbone_q is not None else None
+        self.backbone_fold = backbone_fold  # the int8 backbone's fold_residual
         self.landmarks = landmark_model
         self.pose = make_pose_pipeline(landmark_model, landmarks_3d, K, dist, config)
 
@@ -85,7 +86,8 @@ class PoseServer:
         when the server has one."""
         feats = None
         if self.backbone_q is not None:
-            feats = backbone_int8_apply(self.detector.config.backbone, self.backbone_q, self.detector.normalize(lb))
+            feats = backbone_int8_apply(self.detector.config.backbone, self.backbone_q, self.detector.normalize(lb),
+                                        fold_residual=self.backbone_fold)
         return self.detector(lb, precomputed_feats=feats)
 
     @torch.inference_mode()
@@ -115,7 +117,7 @@ class PoseServer:
 
 def build_int8_server(detector, landmark_model, landmarks_3d, K, dist,
                       config: PipelineConfig = SERVING_PIPELINE, det_every: int = 16, det_size: int = 768,
-                      backbone_q: dict | None = None, hrnet_q: dict | None = None,
+                      backbone_q: dict | None = None, hrnet_q: dict | None = None, fold: int = 0,
                       **hrnet_flags) -> PoseServer:
     """The int8 serving forms of ``bench.py``: ``det_kind="r101_1obj_int8"``
     (the R101 presets) and ``"x101_int8"`` (``FASTER_RCNN_X101_SERVING``),
@@ -127,11 +129,15 @@ def build_int8_server(detector, landmark_model, landmarks_3d, K, dist,
     (e.g. ``convert.quantized_to_torch`` of the JAX package's); the missing
     ones are calibrated as ``bench.py`` does, on uniform random pixels drawn
     from seed 0: two letterboxed images for the backbone, then four crops
-    for the HRNet. ``hrnet_flags`` go to ``HRNetInt8`` (``fused_blocks``,
-    ``layer1_strips``, ``fused_min_width``, ``fuse_exchange``). The
-    backbone's ``fold_residual`` is not served: ``bench.py`` couples it to
-    HRNet's (``BENCH_FOLD``), which is not ported.
+    for the HRNet, quantized with ``s2d`` when ``hrnet_flags`` ask for it.
+    ``hrnet_flags`` go to ``HRNetInt8`` (``fused_blocks``, ``layer1_strips``,
+    ``fused_min_width``, ``fuse_exchange``, ``s2d``, ``fused_even3``,
+    ``merge_fuse``). ``fold`` is ``bench.py``'s ``BENCH_FOLD``: 1 runs the
+    backbone and the HRNet with ``fold_residual``, 2 the HRNet with
+    ``fold_fuse_up`` as well.
     """
+    if fold not in (0, 1, 2):
+        raise ValueError(f"build_int8_server: fold is 0, 1 or 2, got {fold}")
     device = next(detector.parameters()).device
     rng = np.random.default_rng(0)
     calib_det = rng.integers(0, 255, (2, det_size, det_size, 3))
@@ -141,7 +147,9 @@ def build_int8_server(detector, landmark_model, landmarks_3d, K, dist,
         backbone_q = quantize_backbone(detector.config.backbone, detector, detector.normalize(images))
     if hrnet_q is None:
         crops = torch.from_numpy(calib_crops.astype(np.float32)).to(device)
-        hrnet_q = quantize_hrnet(landmark_model, normalize_crops(crops))
-    landmarks = HRNetInt8(landmark_model.config, hrnet_q, fold_normalize=True, device=device, **hrnet_flags)
+        hrnet_q = quantize_hrnet(landmark_model, normalize_crops(crops), s2d=bool(hrnet_flags.get("s2d")))
+    landmarks = HRNetInt8(landmark_model.config, hrnet_q, fold_normalize=True, device=device,
+                          fold_residual=fold >= 1, fold_fuse_up=fold >= 2, **hrnet_flags)
     return PoseServer(detector, landmarks, landmarks_3d, K, dist, config, det_every=det_every,
-                      det_size=det_size, backbone_q=tree_map(lambda t: t.to(device), backbone_q))
+                      det_size=det_size, backbone_q=tree_map(lambda t: t.to(device), backbone_q),
+                      backbone_fold=fold >= 1)

@@ -138,8 +138,3 @@ def test_fused_routes_run_their_kernels(tiny):
     # HRNET_TINY: 1 + 1 + 1 modules of 2, 3, 4 branches; exchanges 2 + 3 + 1
     assert calls == {"chain": 9, "bottleneck": 1, "exchange": 6}
 
-
-@pytest.mark.parametrize("flag", ["s2d", "merge_fuse", "fold_residual", "fold_fuse_up", "fused_even3"])
-def test_unported_flags_raise(tiny, flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        thi.HRNetInt8(HRNET_TINY.with_joints(J), {}, device="cpu", **{flag: True})

@@ -15,6 +15,9 @@ per-op and with every fused kernel route on.
 The int8 X101 form (``det_kind="x101_int8"``: ``FASTER_RCNN_X101_SERVING``'s
 grouped trunk with the stride in its 3x3s) runs the same composition on
 ``RCNN_TINY`` with the JAX tests' ``TINY_X`` trunk and X101's pixel std.
+``BENCH_FOLD=2`` (``bench.py:339-364``: the backbone's ``fold_residual``, the
+HRNet's ``fold_residual`` and ``fold_fuse_up``) is ``build_int8_server(fold=2)``
+against the JAX graph built the same way.
 
 Bounds, as ``test_torch_serving.py`` (boxes 1e-3 px, keypoints 1e-2 px,
 R, t, q 1e-4) and on the same scene with one exact pose (one frame
@@ -128,10 +131,11 @@ def _server(s, lm3d, **flags):
                              **flags)
 
 
-def _exact_landmarks(s):
+def _exact_landmarks(s, **flags):
     """3-D landmarks that the served frame's keypoints fit exactly at
-    (R_TRUE, T_TRUE): the port's keypoints lifted to depths 8-12."""
-    server = _server(s, np.zeros((J, 3), np.float32))
+    (R_TRUE, T_TRUE): the port's keypoints (served with ``flags``) lifted to
+    depths 8-12."""
+    server = _server(s, np.zeros((J, 3), np.float32), **flags)
     frames = t(s["frames"])
     kp = n(server.pose(frames, server.detect(frames)[1])["keypoints"][0])
     z = np.random.default_rng(8).uniform(8, 12, J)
@@ -139,12 +143,12 @@ def _exact_landmarks(s):
     return ((cam - T_TRUE) @ R_TRUE).astype(np.float32)  # R^T (p_cam - t)
 
 
-def _jax_serve(s, lm3d):
-    """bench.py:322-404 at this size (int8 backbone, HRNetInt8 on raw crops)."""
+def _jax_serve(s, lm3d, fold=0):
+    """bench.py:322-404 at this size (int8 backbone, HRNetInt8 on raw crops), ``BENCH_FOLD=fold``."""
     cfg = s["j_det_cfg"]
     mean, std = jnp.asarray(cfg.pixel_mean), jnp.asarray(cfg.pixel_std)
-    pose_run = jpipe.make_pose_pipeline(jhi.HRNetInt8(s["jhr"].config, fold_normalize=True), lm3d, K, DIST,
-                                        jpipe.PipelineConfig(warp_dtype="float32", **CONFIG))
+    lm = jhi.HRNetInt8(s["jhr"].config, fold_residual=fold >= 1, fold_fuse_up=fold >= 2, fold_normalize=True)
+    pose_run = jpipe.make_pose_pipeline(lm, lm3d, K, DIST, jpipe.PipelineConfig(warp_dtype="float32", **CONFIG))
     h, w = FRAMES_HW
     scale = DET_SIZE / max(h, w)
     lb_h, lb_w = int(round(h * scale)), int(round(w * scale))
@@ -153,7 +157,7 @@ def _jax_serve(s, lm3d):
     lb = jax.image.resize(keyframes, (keyframes.shape[0], lb_h, lb_w, 3), method="bilinear")
     lb = jnp.pad(lb, ((0, 0), (0, DET_SIZE - lb_h), (0, DET_SIZE - lb_w), (0, 0)))
     # eager, as the port rounds its bf16 stem convs (jit rounds them elsewhere)
-    feats = jbi.backbone_int8_apply(cfg.backbone, s["qb"], (lb - mean) / std)
+    feats = jbi.backbone_int8_apply(cfg.backbone, s["qb"], (lb - mean) / std, fold_residual=fold >= 1)
     dets = jax.jit(lambda v, lb, f: s["jdet"].apply(v, lb, train=False, precomputed_feats=f))(s["det_vars"], lb, feats)
     best = jrcnn.select_best_box(dets, (DET_SIZE, DET_SIZE)) / scale
     xywh = jnp.stack([best[:, 0], best[:, 1], best[:, 2] - best[:, 0], best[:, 3] - best[:, 1]], axis=1)
@@ -161,10 +165,15 @@ def _jax_serve(s, lm3d):
     return jax.tree_util.tree_map(np.asarray, (best, boxes, pose_run(s["qh"], frames, boxes)))
 
 
-@pytest.mark.parametrize("flags", [{}, FUSED], ids=["per_op", "fused"])
+@pytest.mark.parametrize("flags", [{}, FUSED, {"fold": 2}], ids=["per_op", "fused", "fold2"])
 def test_int8_server_matches_jax_serving_graph(setup, flags):
-    best, boxes, want = setup["want"]
-    got = _server(setup, setup["lm3d"], **flags)(t(setup["frames"]))
+    fold = flags.get("fold", 0)
+    if fold and f"want_fold{fold}" not in setup:  # the scene's exact pose, on the folded form's keypoints
+        setup[f"lm3d_fold{fold}"] = _exact_landmarks(setup, fold=fold)
+        setup[f"want_fold{fold}"] = _jax_serve(setup, setup[f"lm3d_fold{fold}"], fold)
+    lm3d = setup[f"lm3d_fold{fold}" if fold else "lm3d"]
+    best, boxes, want = setup[f"want_fold{fold}" if fold else "want"]
+    got = _server(setup, lm3d, **flags)(t(setup["frames"]))
     np.testing.assert_allclose(n(got["det_boxes"]), best, atol=1e-3)
     np.testing.assert_allclose(n(got["boxes"]), boxes, atol=1e-3)
     np.testing.assert_allclose(n(got["keypoints"]), want["keypoints"], atol=1e-2)
@@ -191,3 +200,19 @@ def test_int8_server_calibrates_its_own_trees(setup):
     out = server(t(setup["frames"]))
     assert out["keypoints"].shape == (CLIP, J, 2) and torch.isfinite(out["keypoints"]).all()
     assert out["det_boxes"].shape == (CLIP // DET_EVERY, 4) and torch.isfinite(out["det_boxes"]).all()
+
+
+def test_int8_server_calibrates_s2d_trees(setup):
+    """Asked for s2d, build_int8_server quantizes the HRNet with its
+    space-to-depth twins; with fused_even3 its branch 0 runs K5 packed, and
+    the served poses equal the per-op server's bit for bit."""
+    flags = dict(s2d=True, fused_blocks=True, fused_even3=True)
+    server = build_int8_server(setup["tdet"], setup["thr"], np.zeros((J, 3), np.float32), K, DIST,
+                               tpipe.PipelineConfig(**CONFIG), det_every=DET_EVERY, det_size=DET_SIZE, **flags)
+    assert server.landmarks.s2d and server.landmarks.q["convs_s2d"] and server.landmarks.q["final_s2d"]
+    walk = build_int8_server(setup["tdet"], setup["thr"], np.zeros((J, 3), np.float32), K, DIST,
+                             tpipe.PipelineConfig(**CONFIG), det_every=DET_EVERY, det_size=DET_SIZE, s2d=False)
+    frames = t(setup["frames"])
+    got, want = server(frames), walk(frames)
+    for key in ("keypoints", "confidence", "R", "t"):
+        assert torch.equal(got[key], want[key]), key
