@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training, detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN), int8-option (s2d, fused_even3, merge_fuse, fold) and LazyConfig-training paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training, detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN), int8-option (s2d, fused_even3, merge_fuse, fold), LazyConfig-training and tools (demo, benchmark, utils, data parallelism) paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -255,7 +255,27 @@ toolkit. It
    joints, 512^2 -> 128^2 synthetic batches of 8, Adam 1e-3, 10
    iterations): finite losses, and the checkpoint's ``.npz`` through
    ``evaluate.load_landmark_model`` giving the trained model's heatmaps;
-21. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+21. runs the tools, the utils and data parallelism ("tools"):
+   ``utils.memory.retry_if_oom`` on a real out-of-memory error (12 GiB a
+   row of 8: the full call must raise ``torch.OutOfMemoryError``, the retry
+   succeed at 2 or 4 parts and equal a direct call on them);
+   ``tools.demo`` at ``pose_hrnet`` 512^2 (random weights saved through the
+   port's ``CheckpointManager``) on a seeded 1920x1200 PNG with landmarks
+   and calibration, as the command and as ``demo.run`` (K1 once a call,
+   counters reset just before and read just after; keypoints within 1e-3
+   px of ``make_pose_pipeline`` on the same frame, weights and generator; R
+   and t finite; the overlay decodes), ``utils.vis.save_debug_images`` on
+   its heatmaps, and K1 held to its plain version on the demo's crop;
+   ``tools.benchmark`` on every task at the JAX tool's defaults (train and
+   eval ``pose_hrnet`` 512^2 batch 32, train-det ``config_1`` 800^2 batch 4,
+   which must launch K2, K2b and K4, data on 32 seeded PNGs);
+   ``utils.analysis`` (``model_summary`` of HRNet-W32; ``flops_of`` of the
+   R101 backbone + FPN at 768^2 equal to ``conv_flops``); ``parallel`` with
+   NCCL at world size 1 (a ``data_parallel`` step of ``HRNET_TINY`` equal to
+   the plain step within 1e-6, a sharded ``RCNN_TINY`` forward equal to the
+   unsharded one with K2 and K4 launched, the world-1 gathers);
+   ``collect_env_info``, whose device row must name the card;
+22. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -292,6 +312,7 @@ TENSOR_CORE_SOURCES = ("int8_conv_requant.cu", "basic_block_chain.cu",  # K5a, K
 
 
 _LAST_LOGGED = [""]  # shown on standard error if the script fails
+PHASE_READINGS: dict[str, float] = {}  # numbers one phase logs for a later one to put beside its own
 
 
 def log(msg: str) -> None:
@@ -2696,6 +2717,7 @@ def det_repeated_batch(torch, m, dev, args, batch, card) -> None:
     log(f"detector train step on one repeated batch of 4 (config_1 X101-32x8d FPN 800^2, bf16, SGD at a constant "
         f"{DET_REPEAT_LR}) on {card}: loss_total {[round(v, 6) for v in losses]}; first {losses[0]:.6f}, mean of "
         f"the last 5 {last:.6f} (must be lower); step {median(ms[5:]):.4f} ms (median of steps 6-{DET_REPEATS})")
+    PHASE_READINGS["config_1 repeated-batch step ms"] = median(ms[5:])
     if not (all(math.isfinite(v) for v in losses) and last < losses[0]):
         raise RuntimeError(f"{DET_REPEATS} updates on one batch did not lower loss_total: {losses}")
     det_step_split(torch, m, state, batch, card)
@@ -5244,6 +5266,318 @@ def options_phase(torch, m, dev, card):
     log(f"int8 options phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+TOOLS_OOM_ROW_GIB = 12  # retry_if_oom's probe: 12 GiB a row of a lead of 8, 96 GiB in all, more than the card holds
+TOOLS_OOM_LEAD = 8
+TOOLS_BENCH_FRAMES = 32  # the data task's json: one batch of 32 at least (the iterator drops a short tail)
+TOOLS_DP_BATCH, TOOLS_DP_LR = 16, 1e-2  # tests/test_scaling.py's DP step: HRNET_TINY, 3 joints, SGD, 32^2
+TOOLS_FLOPS_SIZE = 768  # the served letterbox, as the serving run's conv_flops count
+
+
+class printed_lines(contextlib.AbstractContextManager):
+    """Collect what is printed to standard output while active, as ``lines``."""
+
+    def __enter__(self):
+        import io
+
+        self.buf, self.lines = io.StringIO(), []
+        self.redirect = contextlib.redirect_stdout(self.buf)
+        self.redirect.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.redirect.__exit__(*exc)
+        self.lines = self.buf.getvalue().splitlines()
+
+
+def tools_oom(torch, m, dev) -> None:
+    """``utils.memory.retry_if_oom`` on a real out-of-memory error: the
+    function wants 12 GiB a row of its lead; the full call must raise
+    ``torch.OutOfMemoryError``, the retry succeed at 2 or 4 parts, and the
+    result equal a direct call on chunks of that size."""
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"tools: retry_if_oom: the card's free memory {free / 2**30:.2f} of {total / 2**30:.2f} GiB; the probe "
+        f"wants {TOOLS_OOM_ROW_GIB} GiB a row of {TOOLS_OOM_LEAD}")
+    row = TOOLS_OOM_ROW_GIB * 2**30 // 4
+    calls, ooms = [], []
+
+    def fill(x):
+        calls.append(x.shape[0])
+        try:
+            buf = torch.empty((x.shape[0], row), dtype=torch.float32, device=dev)
+        except torch.OutOfMemoryError:
+            ooms.append(x.shape[0])
+            raise
+        buf.copy_(x[:, :1].expand_as(buf))
+        out = buf[:, ::2**20].sum(1) + x.sum(1)
+        del buf
+        return out
+
+    x = torch.arange(TOOLS_OOM_LEAD * 4, dtype=torch.float32, device=dev).reshape(TOOLS_OOM_LEAD, 4)
+    t0 = time.perf_counter()
+    got = m.memory.retry_if_oom(fill)(x)
+    sync()
+    seconds = time.perf_counter() - t0
+    chunk = calls[-1]
+    log(f"tools: retry_if_oom calls by lead {calls}, out-of-memory at {ooms}, {TOOLS_OOM_LEAD // chunk} parts "
+        f"in {seconds:.3f} s")
+    if not ooms or ooms[0] != TOOLS_OOM_LEAD or chunk not in (TOOLS_OOM_LEAD // 2, TOOLS_OOM_LEAD // 4):
+        raise RuntimeError(f"retry_if_oom: expected one OOM of the full call, then 2 or 4 parts: {calls}, {ooms}")
+    want = torch.cat([fill(x[i:i + chunk]) for i in range(0, TOOLS_OOM_LEAD, chunk)])
+    if not torch.equal(got, want):
+        raise RuntimeError(f"retry_if_oom's result differs from the direct call on chunks of {chunk}")
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def demo_scene(torch, m, out_dir: str):
+    """One seeded 1920x1200 BGR PNG (dim noise, the 11 landmarks of a
+    random body drawn as 9x9 white squares at their projections), its
+    ``landmarks.csv`` and ``calibration.json`` (the evaluation's camera),
+    and the landmarks' box, x y w h."""
+    import os
+
+    import cv2
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(20)
+    lm3d = rng.normal(0, 0.5, (NUM_JOINTS, 3))
+    h, w = FRAME_HW
+    K = np.array([[2988.6, 0, w / 2], [0, 2988.3, h / 2], [0, 0, 1]])
+    dist = np.array(EVAL_DIST)
+    q = np.array([0.9, 0.2, -0.3, 0.1])
+    R = m.geometry.quat_to_dcm(torch.tensor(q / np.linalg.norm(q), dtype=torch.float32)).double().numpy()
+    uv = m.coco_io.project_landmarks(lm3d, R, np.array([0.2, -0.1, 9.0]), K, dist)
+    frame = rng.integers(0, 48, (h, w, 3)).astype(np.uint8)
+    for x, y in np.rint(uv).astype(int):
+        frame[max(y - 4, 0):max(y + 5, 0), max(x - 4, 0):max(x + 5, 0)] = 255
+    lo, hi = uv.min(0) - 40, uv.max(0) + 40
+    paths = {name: os.path.join(out_dir, name) for name in ("frame.png", "landmarks.csv", "calibration.json")}
+    cv2.imwrite(paths["frame.png"], frame)
+    pd.DataFrame(lm3d, columns=["x", "y", "z"]).to_csv(paths["landmarks.csv"], index=False)
+    with open(paths["calibration.json"], "w") as f:
+        json.dump({"intrinsics": {"camera_matrix": K.tolist(), "distortion_coefficients": dist.tolist()}}, f)
+    return frame, paths, [float(lo[0]), float(lo[1]), float(hi[0] - lo[0]), float(hi[1] - lo[1])]
+
+
+def tools_demo(torch, m, dev, card, out_dir: str):
+    """``tools.demo`` at ``pose_hrnet`` 512^2 (random weights saved through
+    the port's ``CheckpointManager``) on one 1920x1200 PNG with landmarks
+    and calibration: the command and ``demo.run``, each launching K1 once;
+    the keypoints within 1e-3 px of ``make_pose_pipeline`` called directly
+    (same frame, weights and generator), R and t finite and equal to it;
+    then ``utils.vis.save_debug_images`` on the demo's heatmaps. Returns
+    K1's row on the demo's crop and the command's launches."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    frame, paths, box = demo_scene(torch, m, out_dir)
+    model = m.models.build_landmark_model("pose_hrnet", NUM_JOINTS, device=dev, dtype=torch.bfloat16,
+                                          generator=torch.Generator().manual_seed(0))
+    ck = os.path.join(out_dir, "checkpoints")
+    m.checkpoint.CheckpointManager(ck).save(
+        1, m.train_state.TrainState(model, m.optim.build_optimizer("adam", model.parameters(), 1e-3)))
+    del model
+    overlay = os.path.join(out_dir, "demo_out.jpg")
+    argv = ["--image", paths["frame.png"], "--checkpoint", ck, "--box", *map(str, box), "--landmarks-file",
+            paths["landmarks.csv"], "--calibration-file", paths["calibration.json"], "--output", overlay]
+    reset_counts(m)
+    sync()
+    t0 = time.perf_counter()
+    with printed_lines() as printed:
+        out_main = m.demo.main(argv)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(m)
+    for line in printed.lines:
+        log(f"tools: demo printed: {line}")
+    drawn = cv2.imread(overlay)
+    if drawn is None or drawn.shape != frame.shape:
+        raise RuntimeError(f"tools.demo's overlay {overlay} does not decode to a {frame.shape} image")
+    model = m.demo.load_model(ck, "pose_hrnet", NUM_JOINTS, dev)
+    lm3d = m.coco_io.load_landmarks_csv(paths["landmarks.csv"])
+    cam = m.camera.CameraModel.from_calibration_json(paths["calibration.json"], FRAME_HW[1], FRAME_HW[0])
+    reset_counts(m)
+    with Capture(*m.kernels["K1"][:2]) as cap:
+        out_run, drawn_run = m.demo.run(frame, model, box, lm3d, cam, (512, 512))
+    sync()
+    run_launches = read_counts(m)
+    direct = m.pipeline.make_pose_pipeline(
+        model, lm3d.astype(np.float32), cam.K.astype(np.float32), cam.dist.astype(np.float32),
+        m.pipeline.PipelineConfig(image_size=(512, 512), solver="ransac"))(
+        torch.from_numpy(np.ascontiguousarray(frame[..., ::-1]))[None].to(dev),
+        torch.tensor([box], device=dev), generator=torch.Generator(device=dev).manual_seed(0))
+    kp_err = max(float((o["keypoints"] - direct["keypoints"]).abs().max()) for o in (out_main, out_run))
+    pose_err = max(float((o[k] - direct[k]).abs().max()) for o in (out_main, out_run) for k in ("R", "t"))
+    log(f"tools: demo (pose_hrnet 512^2 bf16, RANSAC 256) on a {FRAME_HW[1]}x{FRAME_HW[0]} PNG in {seconds:.2f} s "
+        f"(the command, the weights' restore and the first call included) on {card}: K1 launches {launches['K1']} "
+        f"(command), {run_launches['K1']} (demo.run); keypoints {kp_err:.3g} px from make_pose_pipeline's, R and t "
+        f"{pose_err:.3g} apart; mean confidence {float(out_run['confidence'].mean()):.4f}")
+    if launches["K1"] != 1 or run_launches["K1"] != 1:
+        raise RuntimeError(f"tools.demo: K1 launched {launches['K1']} / {run_launches['K1']} times, not once a call")
+    if kp_err > 1e-3 or pose_err > 1e-3:
+        raise RuntimeError(f"tools.demo differs from make_pose_pipeline: keypoints {kp_err}, pose {pose_err}")
+    for o in (out_main, out_run):
+        if not (torch.isfinite(o["R"]).all() and torch.isfinite(o["t"]).all()):
+            raise RuntimeError("tools.demo: R or t is not finite")
+    if drawn_run.shape != frame.shape or not (drawn_run != frame).any():
+        raise RuntimeError("demo.run drew nothing")
+    crops = m.warp.crop_bilinear(*cap.calls[0][0]).float()
+    hm = out_run["heatmaps"].float()
+    joints = m.heatmap.get_max_preds(hm)[0] * (crops.shape[1] / hm.shape[1])
+    debug = SimpleNamespace(save_batch_images_gt=True, save_batch_images_pred=True, save_heatmaps_gt=True,
+                            save_heatmaps_pred=True)
+    prefix = os.path.join(out_dir, "debug", "demo")
+    m.vis.save_debug_images(debug, crops, hm, hm, joints, torch.ones(joints.shape[:2]), prefix)
+    sizes = {}
+    for suffix in ("gt", "pred", "hm_gt", "hm_pred"):
+        img = cv2.imread(f"{prefix}_{suffix}.jpg")
+        if img is None:
+            raise RuntimeError(f"utils.vis.save_debug_images: {prefix}_{suffix}.jpg does not decode")
+        sizes[suffix] = list(img.shape)
+    log(f"tools: utils.vis.save_debug_images on the demo's crop and heatmaps ({tuple(hm.shape)}): {json.dumps(sizes)}")
+    row = crop_row(torch, m, dev, cap.calls[0], "crop_bilinear (tools.demo: one 512^2 crop of a 1920x1200 frame)")
+    return row, launches
+
+
+def tools_benchmark(torch, m, dev, card, out_dir: str) -> None:
+    """``tools.benchmark`` on every task at the JAX tool's defaults (train and
+    eval: ``pose_hrnet`` 512^2, batch 32; train-det: ``config_1`` at 800^2,
+    batch 4, whose run must launch K2, K2b and K4; data: 32 seeded 1280x720
+    PNGs of the landmark scene)."""
+    import os
+
+    import cv2
+
+    for task in ("train", "eval"):
+        with printed_lines() as printed:
+            res = m.benchmark.main(["--task", task])
+        log(f"tools: benchmark --task {task} on {card}: {printed.lines[-1]} ({json.dumps(res)})")
+    reset_counts(m)
+    with printed_lines() as printed:
+        res = m.benchmark.main(["--task", "train-det", "--model", "config_1", "--input-size", "800", "--batch-size", "4"])
+    sync()
+    launches = read_counts(m)
+    log(f"tools: benchmark --task train-det on {card}: {printed.lines[-1]}; the detector phase's trainer step on one "
+        f"repeated batch read {PHASE_READINGS.get('config_1 repeated-batch step ms')} ms; launches "
+        f"{json.dumps(launches)}")
+    for key in ("K2", "K2b", "K4"):
+        if launches[key] == 0:
+            raise RuntimeError(f"benchmark --task train-det did not launch {key}")
+    examples = landmark_scene(torch, m, dev, TOOLS_BENCH_FRAMES, 31, out_dir, "bench")
+    for name, img in examples.frames.items():
+        cv2.imwrite(os.path.join(out_dir, name), img.cpu().numpy())
+    with printed_lines() as printed:
+        res = m.benchmark.main(["--task", "data", "--train-json", os.path.join(out_dir, "bench.json"),
+                                "--image-dir", out_dir])
+    log(f"tools: benchmark --task data ({TOOLS_BENCH_FRAMES} PNGs of {TRAIN_HW[1]}x{TRAIN_HW[0]}, batch 32): "
+        f"{printed.lines[-1]}")
+
+
+def tools_analysis(torch, m, dev) -> None:
+    """``model_summary`` of HRNet-W32 at 512^2, and ``flops_of`` of the R101
+    backbone + FPN at 768^2, which must equal ``conv_flops`` of the same call."""
+    hr = m.models.build_landmark_model("pose_hrnet", NUM_JOINTS, device=dev, dtype=torch.bfloat16,
+                                       generator=torch.Generator().manual_seed(0))
+    log(f"tools: model_summary(HRNet-W32): {m.analysis.model_summary(hr, torch.zeros(1, 512, 512, 3, device=dev))}")
+    del hr
+    det = m.rcnn.GeneralizedRCNN(m.rcnn.FASTER_RCNN_R101_SERVING_1OBJ, dtype=torch.bfloat16, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    frame = torch.randint(0, 256, (1, *FRAME_HW, 3), dtype=torch.uint8, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(5))
+    lb = m.serving.letterbox(frame, TOOLS_FLOPS_SIZE)[0]
+    with torch.inference_mode():
+        counted = m.analysis.flops_of(det.pyramid, lb)["flops"]
+    hooked = conv_flops(torch, m, [det.backbone, det.fpn], lambda: det.pyramid(lb))
+    log(f"tools: flops_of(R101 backbone + FPN, {TOOLS_FLOPS_SIZE}^2) {counted:.0f}, conv_flops {hooked:.0f}")
+    if counted != hooked:
+        raise RuntimeError(f"flops_of {counted} != conv_flops {hooked} on the R101 backbone + FPN")
+
+
+def tools_parallel(torch, m, dev, card):
+    """``parallel`` on the card, NCCL at world size 1: the mesh; a
+    ``data_parallel`` train step of ``HRNET_TINY`` equal to the plain step
+    within 1e-6 (loss and parameters); a sharded ``RCNN_TINY`` forward
+    through ``data_parallel`` equal to the unsharded one (boxes 1e-3,
+    ``valid`` equal), K2 and K4 launched; the world-1 gathers; the group
+    destroyed. Returns the forward's launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    mesh = m.parallel.make_mesh("cuda")
+    log(f"tools: make_mesh('cuda'): {mesh}, backend {dist.get_backend()}, world {dist.get_world_size()}")
+    g = torch.Generator(device=dev).manual_seed(6)
+    batch = {"image": torch.randn(TOOLS_DP_BATCH, 32, 32, 3, device=dev, generator=g),
+             "target": torch.rand(TOOLS_DP_BATCH, 8, 8, 3, device=dev, generator=g),
+             "target_weight": torch.ones(TOOLS_DP_BATCH, 3, device=dev)}
+    cfg = dataclasses.replace(m.hrnet.HRNET_TINY, num_joints=3)
+    models, metrics = [], []
+    for parallel in (False, True):
+        model = m.hrnet.HRNet(cfg, device=dev, generator=torch.Generator().manual_seed(7))
+        run = m.parallel.data_parallel(model, mesh) if parallel else model
+        state = m.train_state.TrainState(run, m.optim.build_optimizer("sgd", model.parameters(), TOOLS_DP_LR))
+        metrics.append(m.train_state.make_train_step()(state, m.parallel.shard_batch(batch, mesh) if parallel else batch))
+        models.append(model)
+    loss_err = abs(float(metrics[1]["loss"]) - float(metrics[0]["loss"]))
+    sd = [mod.state_dict() for mod in models]
+    param_err = max(float((sd[1][k] - sd[0][k]).abs().max()) for k in sd[0])
+    log(f"tools: data_parallel train step (HRNET_TINY, 3 joints, SGD {TOOLS_DP_LR}, batch {TOOLS_DP_BATCH} at 32^2, "
+        f"{dist.get_backend()} world {dist.get_world_size()}) against the plain step: loss {float(metrics[0]['loss']):.6g}, off {loss_err:.3g}; "
+        f"parameters and statistics off {param_err:.3g} (bar 1e-6)")
+    if loss_err > 1e-6 or param_err > 1e-6:
+        raise RuntimeError(f"the data-parallel step differs from the plain step: loss {loss_err}, params {param_err}")
+    det, _ = tiny_models(torch, m, dev, torch.float32)
+    images = torch.rand(8, 64, 64, 3, device=dev, generator=g) * 255
+    with torch.no_grad():
+        ref = det(images)
+        reset_counts(m)
+        out = m.parallel.data_parallel(det, mesh)(m.parallel.shard_batch(images, mesh))
+        sync()
+    launches = read_counts(m)
+    box_err = float((out["boxes"] - ref["boxes"]).abs().max())
+    log(f"tools: data_parallel RCNN_TINY forward on 8 sharded 64^2 images: boxes {box_err:.3g} from the unsharded "
+        f"forward's, valid equal {bool(torch.equal(out['valid'], ref['valid']))} ({int(ref['valid'].sum())} valid); "
+        f"launches {json.dumps(launches)}")
+    if box_err > 1e-3 or not torch.equal(out["valid"], ref["valid"]):
+        raise RuntimeError(f"the data-parallel detection forward differs: boxes {box_err}")
+    for key in ("K2", "K4"):
+        if launches[key] == 0:
+            raise RuntimeError(f"the data-parallel detection forward did not launch {key}")
+    gathered = m.multihost.all_gather_objects({"rank": m.multihost.get_rank()})
+    reduced = m.multihost.reduce_dict({"loss": 2.5, "acc": 0.5})
+    log(f"tools: all_gather_objects {gathered}, reduce_dict {reduced}")
+    if gathered != [{"rank": 0}] or reduced != {"loss": 2.5, "acc": 0.5}:
+        raise RuntimeError("the world-1 gathers differ from their no-op results")
+    dist.destroy_process_group()
+
+
+def tools_phase(torch, m, dev, card):
+    """The tools, the utils and data parallelism on the card; returns (the
+    demo's K1 row, the demo command's launches)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tools_oom(torch, m, dev)
+    with tempfile.TemporaryDirectory() as out_dir:
+        row, launches = tools_demo(torch, m, dev, card, out_dir)
+        tools_benchmark(torch, m, dev, card, out_dir)
+    torch.cuda.empty_cache()
+    tools_analysis(torch, m, dev)
+    tools_parallel(torch, m, dev, card)
+    info = m.collect_env.collect_env_info()
+    for line in info.splitlines():
+        log(f"tools: collect_env: {line}")
+    devices = next(line for line in info.splitlines() if line.startswith("devices "))
+    if card.split(",")[0].strip() not in devices:
+        raise RuntimeError(f"collect_env_info's device row {devices!r} does not name the card {card!r}")
+    log(f"tools phase: {time.perf_counter() - t_phase:.1f} s")
+    return [row], launches
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -5340,6 +5674,10 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.train import checkpoint, metrics, trainer
     from spacecraft_pose_estimation_tpu_torch.ops import s2d
     from spacecraft_pose_estimation_tpu_torch.tools import lazyconfig_train
+    from spacecraft_pose_estimation_tpu_torch import parallel
+    from spacecraft_pose_estimation_tpu_torch.parallel import multihost
+    from spacecraft_pose_estimation_tpu_torch.tools import benchmark, demo
+    from spacecraft_pose_estimation_tpu_torch.utils import analysis, collect_env, memory, vis
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
@@ -5358,7 +5696,9 @@ def load_port():
                         fpn=fpn, rpn=rpn, roi_heads=roi_heads, masks=masks, coco_eval=coco_eval,
                         structures=structures, extra_layers=extra_layers, regnet=regnet, tta=tta, zoo=zoo,
                         deform_conv=deform_conv, rotated_boxes=rotated_boxes, checkpoint=checkpoint, metrics=metrics,
-                        trainer=trainer, s2d=s2d, lazyconfig_train=lazyconfig_train)
+                        trainer=trainer, s2d=s2d, lazyconfig_train=lazyconfig_train, parallel=parallel,
+                        multihost=multihost, benchmark=benchmark, demo=demo, analysis=analysis,
+                        collect_env=collect_env, memory=memory, vis=vis)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -5399,7 +5739,7 @@ def main() -> int:
 
     log("optional packages the port's library path does without: " + json.dumps(
         {name: importlib.util.find_spec(name) is not None
-         for name in ("cv2", "PIL", "pandas", "yaml", "h5py", "zstandard", "flatbuffers")}))
+         for name in ("cv2", "PIL", "pandas", "yaml", "h5py", "zstandard", "flatbuffers", "cloudpickle")}))
 
     build_s = _cuda.build_all()
     log("build (s): " + json.dumps({k: round(v, 2) for k, v in build_s.items()}))
@@ -5516,6 +5856,11 @@ def main() -> int:
     for rows, launches in options_phase(torch, m, dev, card):
         report += kernel_report(rows, launches)
         del rows
+    torch.cuda.empty_cache()
+
+    # the tools, the utils and data parallelism: retry_if_oom on a real OOM, tools.demo (K1), tools.benchmark on
+    # every task (train-det: K2, K2b, K4), utils.analysis, NCCL data parallelism at world size 1 (K2, K4)
+    report += kernel_report(*tools_phase(torch, m, dev, card))
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

@@ -93,13 +93,18 @@ def run_scene(frames_bgr_uint8, names: Sequence[str], out_dir: str, detector, la
     return res
 
 
+def orbax_directory_error(path: str) -> ValueError:
+    """The error for a checkpoint path that is a JAX orbax directory."""
+    return ValueError(
+        f"{path} is a directory (an orbax checkpoint?); the port reads a .npz of the Flax variables "
+        "with '/'-joined keys, e.g. np.savez(path, **flax.traverse_util.flatten_dict(variables, sep='/'))"
+    )
+
+
 def load_npz_variables(path: str) -> dict:
     """A ``.npz`` of ``/``-joined Flax variable keys -> the nested tree."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax checkpoint?); the port reads a .npz of the Flax variables "
-            "with '/'-joined keys, e.g. np.savez(path, **flax.traverse_util.flatten_dict(variables, sep='/'))"
-        )
+        raise orbax_directory_error(path)
     tree: dict = {}
     with np.load(path) as npz:
         for key in npz.files:

@@ -12,6 +12,8 @@ mode: running statistics under ``.eval()``, batch statistics under
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -84,7 +86,17 @@ class BatchNorm(nn.Module):
     quantity, rounded differently); then the running statistics
     ``0.9 * running + 0.1 * batch`` with the biased variance, not the
     unbiased one ``nn.BatchNorm2d`` would store. It is built in eval mode,
-    so the port's models serve as built; ``model.train()`` switches it."""
+    so the port's models serve as built; ``model.train()`` switches it.
+
+    ``process_group`` (set by ``parallel.data_parallel``): train mode then
+    takes its statistics over the whole batch of every rank in the group,
+    as the JAX package's ``jit`` over a sharded batch does. Each rank's
+    float32 sums of x and x^2 and its count go through one differentiable
+    all-reduce, and the mean and biased variance are Flax's E[x],
+    E[x^2] - E[x]^2; the normalization and the running statistics follow
+    as above."""
+
+    process_group = None
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -96,6 +108,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x):
+        if self.training and self.process_group is not None:
+            return self._global_batch_norm(x)
         if self.training:
             # no running statistics handed in: the kernel would update them with the unbiased variance
             y, mean, invstd = torch.ops.aten.native_batch_norm(x, self.scale, self.bias, None, None, True, 0.0,
@@ -107,6 +121,26 @@ class BatchNorm(nn.Module):
         mul = self.scale * torch.rsqrt(self.var + self.eps)
         add = self.bias - self.mean * mul
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
+
+    def _global_batch_norm(self, x):
+        from torch.distributed.nn.functional import all_reduce
+
+        xf = x.float()
+        count = torch.full((1,), xf.numel() / xf.shape[1], dtype=torch.float32, device=x.device)
+        local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count])
+        with warnings.catch_warnings():  # newer PyTorch names a successor without autograd
+            warnings.simplefilter("ignore", FutureWarning)
+            total = all_reduce(local, group=self.process_group)
+        c = xf.shape[1]
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        return y.to(x.dtype)
 
 
 class ConvBN(nn.Module):

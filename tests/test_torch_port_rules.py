@@ -382,3 +382,36 @@ def test_library_modules_need_cuda_or_an_explicit_device():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert next(RegNet(REGNET_TINY, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_demo_benchmark_and_mesh_need_cuda_or_an_explicit_device(tmp_path):
+    """``tools.demo``, ``tools.benchmark`` and ``parallel.make_mesh`` run on
+    CUDA unless given the CPU, and raise where the card is missing, before
+    any file is read or any process group is started."""
+    if torch.cuda.is_available():
+        return
+    import torch.distributed as dist
+
+    from spacecraft_pose_estimation_tpu_torch.parallel import make_mesh
+    from spacecraft_pose_estimation_tpu_torch.tools import benchmark, demo
+
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            demo.main(["--image", "f.png", "--checkpoint", str(tmp_path)] + extra)
+        for task in ("data", "train", "train-det", "eval"):
+            with pytest.raises(RuntimeError, match="--device cpu"):
+                benchmark.main(["--task", task] + extra)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mesh(device)
+    assert not dist.is_initialized()
+
+
+def test_no_jax_check_covers_the_tools_utils_and_parallel_modules():
+    """The utils, the demo, the benchmark and ``parallel/`` keep their own
+    copies of what they need: the import check above reaches each of them."""
+    sources = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert {f"utils/{name}.py" for name in ("registry", "logger", "env", "collect_env", "serialize", "zipreader",
+                                            "file_io", "memory", "analysis", "vis")} <= sources
+    assert {"tools/demo.py", "tools/benchmark.py", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/multihost.py"} <= sources
