@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training, detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN), int8-option (s2d, fused_even3, merge_fuse, fold), LazyConfig-training and tools (demo, benchmark, utils, data parallelism) paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training, detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN), int8-option (s2d, fused_even3, merge_fuse, fold), LazyConfig-training, tools (demo, benchmark, utils, data parallelism) and projects (PointRend, PointSup, DeepLab, Panoptic-DeepLab) paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -275,7 +275,30 @@ toolkit. It
    the plain step within 1e-6, a sharded ``RCNN_TINY`` forward equal to the
    unsharded one with K2 and K4 launched, the world-1 gathers);
    ``collect_env_info``, whose device row must name the card;
-22. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+22. runs the projects ("projects"): first their tiny paths in float32 on
+   the card against the CPU (PointRend's standard, implicit and semantic
+   heads with the CPU's top-k selections fed to the card, PointSup on K2's
+   and K2b's gather read, DeepLabV3+ and both Panoptic-DeepLab heads on
+   ``DEEPLAB_TINY``: outputs, losses and gradients within 1e-3 of scale;
+   ``get_panoptic_segmentation`` on the CPU's outputs equal); then
+   PointRend on ``config_1``'s X101-32x8d FPN (bf16, seeded, FrozenBN
+   calibrated, 100 detections an image) at 800^2, batch 4: the detections
+   (K2, K4; counters reset just before, read just after),
+   ``PointRendMaskHead(PointRendConfig())`` (28 -> 3 steps -> 224^2) and the
+   implicit head (28 -> 5 steps -> 896^2) on P2, and 3 SGD steps of each
+   head's point loss on the GT boxes and masks; PointSup
+   (``cascade.MaskHead`` pooled by K2's gather read at P 14, 3 SGD steps of
+   ``mask_rcnn_point_sup_loss`` on 10 points an instance, K2b's gather read
+   in the backward); DeepLabV3+ R103-OS16 (3 SGD steps under
+   ``warmup_poly_schedule`` on 2 crops of 512x1024, inference at 1024x2048)
+   with ``PointRendSemSegHead`` at its defaults (one step, one inference);
+   Panoptic-DeepLab R52-OS16 (3 Adam steps on 4 crops whose targets
+   ``PanopticTargetGenerator`` makes, inference at 1024x2048,
+   ``get_panoptic_segmentation`` at its defaults on the heads' outputs and
+   on the frame's targets, equal to the CPU's); K2 and K4 held to their
+   plain versions on the detector's inference, K2 and K2b on PointSup's
+   calls;
+23. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -3789,13 +3812,14 @@ RETINA_TRAIN_FRAMES, RETINA_VAL_FRAMES, RETINA_STEPS, RETINA_REPEATS = 20, 10, 6
 RETINA_REPEAT_LR = 1e-5
 
 
-def calibrate_frozen_bn(torch, m, model, images) -> None:
+def calibrate_frozen_bn(torch, m, model, images, run=None) -> None:
     """Set every FrozenBN's statistics to those of its input on ``images``
-    (scale 1, bias 0), in forward order in one pass, so the seeded trunk
-    keeps its activations at about unit scale as a pretrained trunk's
-    folded BN does. Without it the random R101's features put RetinaNet's
-    logits in the thousands: loss_cls ~1e5 at the first step and NaN by
-    the fourth, even at the warmup's lr of 1e-7 (H100, config_20)."""
+    (scale 1, bias 0), in forward order in one pass of ``run`` (default
+    ``model.pyramid``), so the seeded trunk keeps its activations at about
+    unit scale as a pretrained trunk's folded BN does. Without it the random
+    R101's features put RetinaNet's logits in the thousands: loss_cls ~1e5
+    at the first step and NaN by the fourth, even at the warmup's lr of 1e-7
+    (H100, config_20)."""
     def pre(mod, inputs):
         x = inputs[0].float()
         mod.mean.copy_(x.mean(dim=(0, 2, 3)))
@@ -3807,7 +3831,7 @@ def calibrate_frozen_bn(torch, m, model, images) -> None:
              if isinstance(mod, m.resnet_backbone.FrozenBN)]
     try:
         with torch.no_grad():
-            model.pyramid(images)
+            (run or model.pyramid)(images)
     finally:
         for h in hooks:
             h.remove()
@@ -5578,6 +5602,722 @@ def tools_phase(torch, m, dev, card):
     return [row], launches
 
 
+# --------------------------------------------------------------------------- projects
+
+PROJ_STEPS = 3  # updates of each training path (the first warms cuDNN)
+PROJ_POINTS = 10  # PointSup: annotated points an instance
+PROJ_CROP, PROJ_FRAME = (512, 1024), (1024, 2048)  # the Cityscapes configs' crops, Cityscapes frames
+PROJ_DL_BATCH, PROJ_PD_BATCH = 2, 4  # the configs' 16 (DeepLabV3+ R103) and 32 (Panoptic-DeepLab R52) over 8 cards
+PROJ_CLASSES, PROJ_THINGS, PROJ_IGNORE = 19, tuple(range(11, 19)), 255  # Cityscapes: 11 stuff classes, 8 things
+PROJ_DL_LR = (0.01, 90000, 1000, 0.001, 0.9)  # warmup_poly_schedule: base lr, max iter, warmup iters, factor, power
+PROJ_PD_LR = 1e-3  # Adam, under warmup_poly_schedule(1e-3, 90000)
+PIXEL_MEAN, PIXEL_STD = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)  # ImageNet RGB, as the DeepLab configs
+# PROJ_P2_RMS: the PointRend heads read the seeded detector's P2 divided by its RMS over the batch (a smoke-only
+# step, as the FrozenBN calibration): even calibrated, the random X101 + FPN's P2 is several units in scale, and the
+# implicit head's dynamic MLP, whose four layers each scale with the features, then started at a point loss of 90
+# and reached NaN at its third SGD step (H100, PR 21)
+
+
+class FedSelection(contextlib.AbstractContextManager):
+    """Patch ``point_rend.top_k_indices`` (every index top-k of the PointRend
+    heads). Without ``feed``: record each call's indices. With another run's
+    record: compute this run's own, count the calls whose indices differ
+    from the record, and return the recorded ones, so that a top-k over
+    card-computed values that ranks near-equal values otherwise than the
+    CPU does not fork the comparison."""
+
+    def __init__(self, torch, m, feed=None):
+        self.torch, self.pr, self.feed, self.record, self.differ = torch, m.point_rend, feed, [], 0
+
+    def __enter__(self):
+        self.orig = orig = self.pr.top_k_indices
+
+        def top_k(x, k):
+            own = orig(x, k)
+            self.record.append(own.cpu())
+            if self.feed is None:
+                return own
+            want = self.feed[len(self.record) - 1]
+            self.differ += int(not self.torch.equal(own.cpu(), want))
+            return want.to(own.device)
+
+        self.pr.top_k_indices = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.pr.top_k_indices = self.orig
+
+
+def scaled_errors(got: dict, want: dict) -> dict[str, float]:
+    """Each entry's max abs error over its own scale (max |want|, at least 1e-6)."""
+    return {k: (got[k].float() - w.float()).abs().max().item() / max(w.float().abs().max().item(), 1e-6)
+            for k, w in want.items()}
+
+
+def panoptic_scene(rng, h: int, w: int):
+    """A seeded panoptic id map (h, w) and its segments: four horizontal stuff
+    bands (classes 0-10) under 12 thing ellipses (classes 11-18) from 4 px
+    to a fifth of the frame, so some are under the target generator's small
+    area, some occluded or cut by the border; the first is a crowd."""
+    import numpy as np
+
+    pan = np.zeros((h, w), np.int64)
+    segs = []
+    bounds = [0, *np.sort(rng.choice(np.arange(1, h), 3, replace=False)).tolist(), h]
+    for i in range(4):
+        pan[bounds[i]:bounds[i + 1]] = i + 1
+        segs.append({"id": i + 1, "category_id": int(rng.integers(0, 11)), "iscrowd": 0})
+    yy, xx = np.ogrid[:h, :w]
+    for j in range(12):
+        cy, cx, ry, rx = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(4, h / 5), rng.uniform(4, w / 8)
+        pan[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = 5 + j
+        segs.append({"id": 5 + j, "category_id": int(rng.integers(11, 19)), "iscrowd": int(j == 0)})
+    return pan, segs
+
+
+def seg_images(torch, dev, sem_maps, rng):
+    """(N, H, W) class maps -> (N, H, W, 3) float32 images on ``dev``: a
+    colour a class plus noise, normalized by PIXEL_MEAN and PIXEL_STD."""
+    import numpy as np
+
+    palette = rng.uniform(0, 255, (256, 3))
+    img = palette[np.asarray(sem_maps)] + rng.normal(0, 20, (*np.shape(sem_maps), 3))
+    img = (np.clip(img, 0, 255) - np.array(PIXEL_MEAN)) / np.array(PIXEL_STD)
+    return torch.from_numpy(img.astype(np.float32)).to(dev)
+
+
+def split_step(torch, forward, opt, count: int):
+    """One update: ``forward()`` -> loss, zero_grad + backward, ``opt.step``;
+    CUDA events around each. Returns (loss, [forward, backward, step] ms)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss = forward()
+    ev[1].record()
+    opt.zero_grad()
+    loss.backward()
+    ev[2].record()
+    opt.step(count)
+    ev[3].record()
+    sync()
+    return loss.item(), [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def train_path(torch, label: str, forward, opt, images: int, card) -> None:
+    """PROJ_STEPS updates (``split_step``), their wall ms and images/s (over
+    the median of the steps after the first), the last step's split, the
+    peak memory, then torch.profiler over one more step: its busy share and
+    kernel launches. Raises on a loss that is not finite."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    ms, splits, losses = [], [], []
+    for i in range(PROJ_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        loss, split = split_step(torch, forward, opt, i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        splits.append(split)
+        losses.append(loss)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_counts(torch, lambda: split_step(torch, forward, opt, PROJ_STEPS))
+    log(f"projects: {label} on {card}: steps {[round(v, 4) for v in ms]} ms (the first with cuDNN's warm-up), "
+        f"{images / median(ms[1:]) * 1e3:.2f} images/s; forward / backward / step {[round(v, 4) for v in splits[-1]]} "
+        f"ms (CUDA events, the last step); peak memory {peak_gb:.4f} GB ({held_gb:.4f} GB held before); a profiled "
+        f"step busy {prof['busy_us']:.0f} of {prof['wall_us']:.0f} us = {prof['busy_us'] / prof['wall_us']:.4f}, "
+        f"{prof['kernel_launches']} kernel launches; losses {[round(v, 6) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"projects: {label}: a loss is not finite: {losses}")
+
+
+def timed_steps(torch, module, name: str):
+    """Wrap ``module.<name>`` (a subdivision step) with CUDA events; returns
+    (the list that collects each call's ms after a sync, a restore callable)."""
+    spans, orig = [], getattr(module, name)
+
+    def step(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    setattr(module, name, step)
+    return spans, lambda: delattr(module, name)
+
+
+def check_projects_tiny_against_cpu(torch, m) -> None:
+    """The projects' tiny paths in float32 (TF32 off) on the card against the
+    CPU, from the same seeded parameters on the same inputs and draws:
+    PointRend's mask head (training: coarse and point logits, point labels,
+    the point loss and its gradients; subdivision inference), the implicit
+    head (the same, with its l2), the semantic-segmentation head (the point
+    loss, its gradients, inference), PointSup's loss on ``cascade.MaskHead``
+    pooled by K2's gather read (and its gradients through K2b's), DeepLabV3+
+    on DEEPLAB_TINY (loss, gradients, logits) and both Panoptic-DeepLab heads
+    (weighted losses, gradients, outputs): each within 1e-3 of its scale.
+    The PointRend heads' top-k selections are the CPU's, fed to the card
+    (``FedSelection``; the card's own are counted against them). Then the
+    post-processing on the CPU's outputs, given to the card: panoptic map,
+    centres and validity equal."""
+    import numpy as np
+
+    pr, ps, dl, pd = m.point_rend, m.pointsup, m.deeplab, m.panoptic_deeplab
+    rng = np.random.default_rng(91)
+    fmap = torch.from_numpy(rng.normal(size=(32, 32, 16)).astype(np.float32))
+    boxes = torch.tensor([[8.0, 8.0, 72.0, 96.0], [0.0, 0.0, 128.0, 128.0], [30.0, 50.0, 60.0, 58.0]])
+    gt = torch.zeros(3, 128, 128)
+    gt[:, 20:90, 20:60] = 1.0
+    valid = torch.tensor([1.0, 1.0, 0.0])
+    cfg = pr.PointRendConfig(train_num_points=24, subdivision_steps=2, subdivision_num_points=64, fc_dim=32, num_fc=2)
+    icfg = pr.PointRendConfig(train_num_points=16, subdivision_steps=2, subdivision_num_points=16, fc_dim=8, num_fc=1)
+    draws = pr.point_draws(3, cfg.train_num_points, cfg.oversample_ratio, cfg.importance_sample_ratio, "cpu",
+                           torch.Generator().manual_seed(92))
+    idraws = {"coords": torch.rand((3, icfg.train_num_points, 2), generator=torch.Generator().manual_seed(93))}
+    coarse_seg = torch.from_numpy(rng.normal(size=(2, 16, 16, 5)).astype(np.float32))
+    fine_seg = torch.from_numpy(rng.normal(size=(2, 32, 32, 8)).astype(np.float32))
+    seg_tgt = torch.from_numpy(rng.integers(0, 5, (2, 64, 64)))
+    seg_tgt[0, :8] = 255
+    sdraws = pr.point_draws(2, 32, 3.0, 0.75, "cpu", torch.Generator().manual_seed(94))
+    levels = {f"p{i + 2}": torch.randn(2, 32 >> i, 48 >> i, 16, generator=torch.Generator().manual_seed(95 + i))
+              for i in range(4)}
+    sup_boxes = coverage_boxes(torch, 6, 192, torch.Generator().manual_seed(99)).reshape(2, 3, 4)
+    sup_boxes[..., 2:] = torch.maximum(sup_boxes[..., 2:], sup_boxes[..., :2] + 4.0)
+    sup_pts = sup_boxes[:, :, None, :2] + torch.rand((2, 3, PROJ_POINTS, 2), generator=torch.Generator().manual_seed(
+        100)) * 1.2 * (sup_boxes[:, :, None, 2:] - sup_boxes[:, :, None, :2])
+    sup_lab = (torch.rand((2, 3, PROJ_POINTS), generator=torch.Generator().manual_seed(101)) > 0.5).float()
+    x = torch.from_numpy(rng.normal(size=(2, 64, 64, 3)).astype(np.float32))
+    tgt = torch.from_numpy(rng.integers(0, 5, (2, 64, 64)))
+    tgt[0, :8] = PROJ_IGNORE
+    wts = torch.from_numpy(rng.uniform(0.5, 3.0, (2, 64, 64)).astype(np.float32))
+    ct, cw = torch.rand(2, 64, 64, generator=torch.Generator().manual_seed(102)), (torch.rand(2, 64, 64) > 0.5).float()
+    ot = 8 * torch.randn(2, 64, 64, 2, generator=torch.Generator().manual_seed(103))
+    ow = (torch.rand(2, 64, 64, generator=torch.Generator().manual_seed(104)) > 0.3).float()
+    roi = m.roi_heads.ROIHeadsConfig(num_classes=1)
+    out, record, differ = {}, None, 0
+    for device in ("cpu", "cuda"):
+        to = lambda v: v.to(device)  # noqa: E731
+        gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+        res = {}
+
+        def grads(prefix, module):
+            res.update({f"{prefix} grad {k}": p.grad for k, p in module.named_parameters() if p.grad is not None})
+
+        with FedSelection(torch, m, record) as sel:
+            head = pr.PointRendMaskHead(cfg, 16, device=device, generator=gen(105))
+            coarse, pl, lab = head([to(fmap)], to(boxes), gt_masks=to(gt), valid=to(valid), train=True,
+                                   draws={k: to(v) for k, v in draws.items()})
+            loss = pr.roi_mask_point_loss(pl, lab, None, to(valid))
+            loss.backward()
+            res.update({"mask head coarse": coarse, "mask head points": pl, "mask head labels": lab,
+                        "mask head loss": loss})
+            grads("mask head", head)
+            ihead = pr.ImplicitPointRendMaskHead(icfg, 16, device=device, generator=gen(106))
+            ilog, ilab, il2 = ihead([to(fmap)], to(boxes), gt_masks=to(gt), train=True,
+                                    draws={"coords": to(idraws["coords"])})
+            iloss = pr.roi_mask_point_loss(ilog, ilab, None, to(valid)) + il2
+            iloss.backward()
+            res.update({"implicit points": ilog, "implicit labels": ilab, "implicit loss": iloss})
+            grads("implicit", ihead)
+            shead = pr.PointRendSemSegHead(5, 8, train_num_points=32, subdivision_steps=2, subdivision_num_points=64,
+                                           fc_dim=16, num_fc=2, device=device, generator=gen(107))
+            _, sloss = shead(to(coarse_seg), [to(fine_seg)], targets=to(seg_tgt), train=True,
+                             draws={k: to(v) for k, v in sdraws.items()})
+            sloss.backward()
+            res["semseg loss"] = sloss
+            grads("semseg", shead)
+            with torch.no_grad():
+                res["mask head inference"] = head([to(fmap)], to(boxes))
+                res["implicit inference"] = ihead([to(fmap)], to(boxes))
+                res["semseg inference"] = shead(to(coarse_seg), [to(fine_seg)])[0]
+        record, differ = (sel.record, differ) if device == "cpu" else (record, sel.differ)
+        # PointSup on the cascade's mask head, pooled by K2's gather read (K2b in its backward)
+        mhead = m.cascade.MaskHead(16, 1, conv_dim=16, num_convs=2)
+        m.layers.init_params(mhead, gen(108))
+        mhead.to(device)
+        feats = {k: to(v).detach().requires_grad_() for k, v in levels.items()}
+        logits = mhead(m.cascade.pool_gather(feats, to(sup_boxes), roi, m.fpn.FPN_STRIDES, 14))
+        ploss = ps.mask_rcnn_point_sup_loss(logits, to(sup_boxes).reshape(-1, 4),
+                                            to(sup_pts).reshape(-1, PROJ_POINTS, 2),
+                                            to(sup_lab).reshape(-1, PROJ_POINTS), None)
+        ploss.backward()
+        # a level no box pools from gets no gradient from CPU autograd, zeros from K2b
+        res.update({"pointsup logits": logits, "pointsup loss": ploss,
+                    **{f"pointsup grad {k}": torch.zeros_like(v) if v.grad is None else v.grad
+                       for k, v in feats.items()}})
+        grads("pointsup", mhead)
+        # DeepLabV3+ and the Panoptic-DeepLab heads on DEEPLAB_TINY
+        trunk = dl.DeepLabResNet(dl.DEEPLAB_TINY, device=device, generator=gen(109))
+        v3p = dl.DeepLabV3PlusHead(5, (16, 128), project_channels=(8,), aspp_channels=16, decoder_channels=(16, 16),
+                                   ignore_value=PROJ_IGNORE, device=device, generator=gen(110))
+        sem_h = pd.PanopticDeepLabSemSegHead(5, (16, 128), decoder_channels=(16, 16), head_channels=8,
+                                             ignore_value=PROJ_IGNORE, device=device, generator=gen(111))
+        ins_h = pd.PanopticDeepLabInsEmbedHead((16, 128), decoder_channels=(16, 16), head_channels=8, device=device,
+                                               generator=gen(112))
+        feats = trunk(to(x))
+        _, dls = v3p(feats, to(tgt), train=True)
+        _, sls = sem_h(feats, to(tgt), to(wts), train=True)
+        _, _, cls_, ols = ins_h(feats, to(ct), to(cw), to(ot), to(ow), train=True)
+        for name, value, modules in (("v3+", dls["loss_sem_seg"], (trunk, v3p)),
+                                     ("panoptic", sls["loss_sem_seg"] + cls_["loss_center"] + ols["loss_offset"],
+                                      (trunk, sem_h, ins_h))):
+            for mod in modules:
+                mod.zero_grad()
+            value.backward(retain_graph=True)
+            res[f"{name} loss"] = value
+            for i, mod in enumerate(modules):
+                grads(f"{name} {i}", mod)
+        with torch.no_grad():
+            feats = trunk(to(x))
+            res["v3+ logits"] = v3p(feats)[0]
+            res["panoptic sem"] = sem_h(feats)[0]
+            res["panoptic center"], res["panoptic offset"] = ins_h(feats)[:2]
+        out[device] = {k: v.detach().cpu() for k, v in res.items()}
+    errs = scaled_errors(out["cuda"], out["cpu"])
+    worst = max(errs, key=errs.get)
+    log(f"tiny projects, card vs CPU (f32): {len(errs)} outputs, losses and gradients, max error {errs[worst]:.3g} of "
+        f"scale ({worst}; bar 1e-3); the card's own top-k selections differed from the CPU's in {differ} of "
+        f"{len(record)} calls (the CPU's were fed)")
+    if errs[worst] > 1e-3:
+        raise RuntimeError(f"tiny projects differ between the card and the CPU: {json.dumps(errs)}")
+    # the post-processing on the CPU's outputs: on a seeded scene and on the tiny heads' outputs
+    h, w = 96, 128
+    center = torch.from_numpy(rng.uniform(0, 0.05, (h, w)).astype(np.float32))
+    for cy, cx, v in ((20, 30, 0.9), (60, 90, 0.7), (80, 20, 0.5), (60, 91, 0.7)):
+        center[cy, cx] = v
+    offsets = torch.from_numpy(rng.normal(0, 30, (h, w, 2)).astype(np.float32))
+    sem = torch.from_numpy(rng.integers(0, 5, (h, w)))
+    sem[:, :40] = 3
+    thing = torch.tensor([False, False, True, True, True])
+    cases = [("seeded scene", sem, center, offsets, dict(stuff_area=64)),
+             ("tiny heads", out["cpu"]["panoptic sem"][0].argmax(-1), out["cpu"]["panoptic center"][0, ..., 0],
+              out["cpu"]["panoptic offset"][0], dict(stuff_area=64))]
+    for name, s, c, o, kw in cases:
+        want = pd.get_panoptic_segmentation(s, c, o, thing, 5, **kw)
+        got = pd.get_panoptic_segmentation(s.cuda(), c.cuda(), o.cuda(), thing.cuda(), 5, **kw)
+        same = [torch.equal(g.cpu(), w_) for g, w_ in zip(got, want)]
+        log(f"tiny projects, card vs CPU: get_panoptic_segmentation on the {name}' {tuple(s.shape)} outputs: "
+            f"panoptic map, centres, validity equal {same}; {int(want[2].sum())} centres, "
+            f"{len(torch.unique(want[0]))} panoptic ids")
+        if not all(same):
+            raise RuntimeError(f"get_panoptic_segmentation differs between the card and the CPU on the {name}")
+
+
+def projects_pointrend(torch, m, dev, card):
+    """PointRend on ``config_1``'s X101-32x8d FPN (bf16 over float32, seeded,
+    100 detections an image) at 800^2, batch 4, on ``heads_scene`` frames:
+    the detections (K2 on the box head, K4 in RPN and box head), then
+    ``PointRendMaskHead(PointRendConfig())`` and the implicit head on each
+    image's P2 and detections, counters reset just before and read just
+    after; PROJ_STEPS SGD steps (config_1's solver) of each head's point loss
+    (plus the implicit head's l2) on the scene's GT boxes and masks, on the
+    frozen pyramid; the heads read P2 over its RMS (PROJ_P2_RMS). Returns the rows of K2 and K4 on the inference, the
+    launches, the detector and the scene."""
+    pr = m.point_rend
+    cfg = m.zoo.DETECTOR_PRESETS["config_1"].config
+    det = m.rcnn.GeneralizedRCNN(cfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(121))
+    scene = heads_scene(torch, m, dev, HEADS_BATCH, 122)
+    prc = pr.PointRendConfig()
+    head = pr.PointRendMaskHead(prc, cfg.fpn_channels, device=dev, generator=torch.Generator().manual_seed(123))
+    ihead = pr.ImplicitPointRendMaskHead(prc, cfg.fpn_channels, device=dev,
+                                         generator=torch.Generator().manual_seed(124))
+    log(f"projects: PointRend (PointRendConfig(): coarse {prc.coarse_resolution} -> {prc.coarse_output_side}, start "
+        f"{prc.init_resolution}, {prc.effective_steps} steps of {prc.subdivision_num_points} points; implicit: "
+        f"{ihead.point_head.num_params} parameters an instance, start {math.isqrt(prc.subdivision_num_points)}, "
+        f"{prc.subdivision_steps} steps) on config_1's X101-32x8d FPN (bf16 over float32, seeded, "
+        f"{cfg.roi.detections_per_image} detections an image, FrozenBN calibrated on the batch) at {HEADS_HW}^2, batch "
+        f"{HEADS_BATCH}")
+    calibrate_frozen_bn(torch, m, det, scene["image"])  # the implicit head's point loss diverges on raw seeded features
+    with torch.no_grad():
+        det(scene["image"])  # cuDNN's first calls at this size
+    kept, orig_pyramid = {}, det.pyramid
+
+    def pyramid(images, precomputed_feats=None):
+        kept["p"] = orig_pyramid(images, precomputed_feats)
+        return kept["p"]
+
+    k2, k4 = Capture(m.roi_align, "roi_align_multilevel"), Capture(m.nms, "nms_mask_sorted")
+    spans, restore = timed_steps(torch, head, "subdivision_step")
+    ispans, irestore = timed_steps(torch, ihead, "subdivision_step")
+    det.pyramid = pyramid
+    try:
+        with k2, k4, torch.no_grad():
+            reset_counts(m)
+            sync()
+            t0 = time.perf_counter()
+            dets = det(scene["image"])
+            sync()
+            det_ms = (time.perf_counter() - t0) * 1e3
+            raw = kept["p"]["p2"].permute(0, 2, 3, 1)
+            p2_rms = raw.float().square().mean().sqrt().item()
+            p2 = (raw / p2_rms).to(raw.dtype)  # see PROJ_P2_RMS
+            masks, shapes = [], set()
+            for _ in range(2):  # the first call warms the heads' kernels
+                spans.clear()
+                sync()
+                t0 = time.perf_counter()
+                masks = [head([p2[b]], dets["boxes"][b]) for b in range(HEADS_BATCH)]
+                sync()
+                pr_ms = (time.perf_counter() - t0) * 1e3
+            ispans.clear()
+            sync()
+            t0 = time.perf_counter()
+            finite_i = True
+            for b in range(HEADS_BATCH):
+                imask = ihead([p2[b]], dets["boxes"][b])
+                shapes.add(tuple(imask.shape))
+                finite_i &= bool(torch.isfinite(imask).all())
+            sync()
+            ipr_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counts(m)
+    finally:
+        del det.pyramid
+        restore()
+        irestore()
+    by_step = lambda sp, n: [round(sum(s.elapsed_time(e) for s, e in sp[i::n]) / HEADS_BATCH, 4)  # noqa: E731
+                             for i in range(n)]  # each step's mean over the images
+    step_ms, istep_ms = by_step(spans, prc.effective_steps), by_step(ispans, prc.subdivision_steps)
+    side = prc.init_resolution * 2 ** prc.effective_steps
+    finite = all(bool(torch.isfinite(x).all()) for x in masks)
+    log(f"projects: PointRend inference on {card}: the seeded P2's RMS {p2_rms:.4f}, divided out for both heads; "
+        f"the detector {det_ms:.4f} ms a batch of {HEADS_BATCH} "
+        f"({int(dets['valid'].sum())} valid of {tuple(dets['boxes'].shape[:2])}); PointRendMaskHead {pr_ms:.4f} ms "
+        f"for the {HEADS_BATCH} images' {dets['boxes'].shape[1]} boxes each -> {tuple(masks[0].shape)}, its "
+        f"subdivision steps {step_ms} ms an image (CUDA events); implicit {ipr_ms:.4f} ms -> {sorted(shapes)}, its "
+        f"steps {istep_ms} ms an image; finite {finite} / {finite_i}; launches {json.dumps(launches)}")
+    if tuple(masks[0].shape) != (cfg.roi.detections_per_image, side, side, 1) or not finite or not finite_i:
+        raise RuntimeError(f"projects: PointRend's masks are {tuple(masks[0].shape)} or not finite")
+    if shapes != {(cfg.roi.detections_per_image, 896, 896, 1)}:
+        raise RuntimeError(f"projects: the implicit head's masks are {shapes}, not 896^2")
+    for key in ("K2", "K4"):
+        if launches[key] == 0:
+            raise RuntimeError(f"kernel {key} was not launched by PointRend's detector")
+    # training on the frozen pyramid: the scene's GT boxes and masks
+    with torch.no_grad():
+        p2 = (det.pyramid(scene["image"])["p2"].permute(0, 2, 3, 1) / p2_rms).to(torch.bfloat16)
+    valid = scene["gt_valid"].float()
+    for label, module in (("PointRendMaskHead", head), ("ImplicitPointRendMaskHead", ihead)):
+        opt = m.optim.build_optimizer("sgd", list(module.parameters()), HEADS_LR, weight_decay=1e-4, momentum=0.9)
+        gen = torch.Generator(device=dev).manual_seed(125)
+
+        def forward(module=module):
+            loss = 0.0
+            for b in range(HEADS_BATCH):
+                args = ([p2[b]], scene["gt_boxes"][b])
+                kw = dict(gt_masks=scene["gt_masks"][b], valid=valid[b], train=True, generator=gen)
+                if module is head:
+                    _, logits, labels = module(*args, **kw)
+                    extra = 0.0
+                else:
+                    logits, labels, extra = module(*args, **kw)
+                loss = loss + (pr.roi_mask_point_loss(logits, labels, None, valid[b]) + extra) / HEADS_BATCH
+            return loss
+
+        train_path(torch, f"{label} training (config_1's P2, {HEADS_BATCH} images, SGD {HEADS_LR})", forward, opt,
+                   HEADS_BATCH, card)
+    rows = [pooler_row(torch, m, k2.calls[-1], f"roi_align_multilevel (projects: PointRend's config_1 detector, box "
+                                               f"head, {k2.calls[-1][0][1].shape[0]} ROIs, windowed read window)"),
+            *nms_rows(torch, m, dev, k4.calls[:2], "projects: PointRend's config_1 detector ")]
+    return rows, launches, det, scene
+
+
+def annotation_points(torch, scene, n: int, seed: int):
+    """PointSup's annotation: n points an instance drawn uniformly from its GT
+    box grown by a tenth a side (some fall outside: label -1 in the loss),
+    each labelled by the GT mask at its pixel; padded instances get the
+    frame as their box. Returns (boxes (B*G, 4), points (B*G, n, 2), labels
+    (B*G, n), valid (B*G,))."""
+    dev = scene["gt_boxes"].device
+    b, g = scene["gt_valid"].shape
+    valid = scene["gt_valid"].reshape(-1)
+    frame = torch.tensor([0.0, 0.0, HEADS_HW, HEADS_HW], device=dev)
+    boxes = torch.where(valid[:, None], scene["gt_boxes"].reshape(-1, 4), frame)
+    wh = boxes[:, 2:] - boxes[:, :2]
+    u = torch.rand((b * g, n, 2), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    pts = boxes[:, None, :2] - 0.1 * wh[:, None] + 1.2 * wh[:, None] * u
+    xy = pts.long().clamp(0, HEADS_HW - 1)
+    masks = scene["gt_masks"].reshape(b * g, HEADS_HW, HEADS_HW)
+    labels = masks[torch.arange(b * g, device=dev)[:, None], xy[..., 1], xy[..., 0]].float()
+    return boxes, pts, labels, valid
+
+
+def projects_pointsup(torch, m, dev, card, det, scene):
+    """PointSup on the PointRend path's X101 pyramid: ``cascade.MaskHead`` on
+    the scene's GT boxes, pooled by ``cascade.pool_gather`` at P 14 (K2's
+    gather read), PROJ_STEPS SGD steps of ``mask_rcnn_point_sup_loss`` on
+    PROJ_POINTS annotated points an instance, the pyramid's levels taking
+    the gradient through K2b's gather read; counters reset just before and
+    read just after. Returns the rows of K2 and K2b in the gather read and
+    the launches."""
+    cfg = det.config
+    with torch.no_grad():
+        pyr = det.pyramid(scene["image"])
+    feats = {lvl: pyr[lvl].permute(0, 2, 3, 1).detach().requires_grad_() for lvl in cfg.roi.in_levels}
+    head = m.cascade.MaskHead(cfg.fpn_channels, cfg.roi.num_classes)
+    m.layers.init_params(head, torch.Generator().manual_seed(131))
+    head.to(dev)
+    boxes, pts, labels, valid = annotation_points(torch, scene, PROJ_POINTS, 132)
+    g = scene["gt_valid"].shape[1]
+    log(f"projects: PointSup (cascade.MaskHead, {cfg.fpn_channels} channels, pooled by K2's gather read at P 14 "
+        f"from {cfg.roi.in_levels}) on the X101 pyramid of {HEADS_BATCH} frames: {int(valid.sum())} instances of "
+        f"{HEADS_BATCH}x{g} slots, {PROJ_POINTS} points each ({int((labels > 0).sum())} on the mask)")
+    opt = m.optim.build_optimizer("sgd", list(head.parameters()), HEADS_LR, weight_decay=1e-4, momentum=0.9)
+
+    def forward():
+        for f in feats.values():
+            f.grad = None
+        pooled = m.cascade.pool_gather(feats, boxes.reshape(HEADS_BATCH, g, 4), cfg.roi, m.fpn.FPN_STRIDES, 14)
+        logits = head(pooled, torch.bfloat16)
+        return m.pointsup.mask_rcnn_point_sup_loss(logits, boxes, pts, labels, None, valid.float())
+
+    k2 = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[3] == 14)
+    k2b = Capture(m.roi_align, "roi_align_multilevel_backward", keep=lambda a: a[5] == 14)
+    with k2, k2b:
+        reset_counts(m)
+        train_path(torch, f"PointSup training (cascade.MaskHead, {HEADS_BATCH} images, SGD {HEADS_LR})", forward,
+                   opt, HEADS_BATCH, card)
+        launches = read_counts(m)
+    log(f"projects: PointSup launches {json.dumps(launches)}; the levels' gradients finite "
+        f"{all(f.grad is None or bool(torch.isfinite(f.grad).all()) for f in feats.values())}")
+    for key in ("K2 gather", "K2b gather"):
+        if launches[key] == 0:
+            raise RuntimeError(f"kernel {key} was not launched by PointSup's training")
+    r = k2.calls[-1][0][1].shape[0]
+    rows = [pooler_row(torch, m, k2.calls[-1], f"roi_align_multilevel (projects: PointSup's mask head, {r} GT "
+                                               f"boxes, gather read, P 14)", count="K2 gather"),
+            pooler_backward_row(torch, m, k2b.calls[-1], f"roi_align_multilevel_backward (projects: PointSup's mask "
+                                                         f"head, {r} GT boxes, gather read, P 14, bf16 gradient)",
+                                count="K2b gather")]
+    return rows, launches
+
+
+def projects_deeplab(torch, m, dev, card):
+    """DeepLabV3+ on R103 at output stride 16 (detectron2
+    ``deeplab_v3_plus_R_103_os16_mg124_poly_90k_bs16.yaml``: the deep stem,
+    multi-grid (1, 2, 4), 19 classes), bf16 over float32, seeded: PROJ_STEPS
+    SGD steps (momentum 0.9, weight decay 1e-4, ``warmup_poly_schedule``
+    PROJ_DL_LR, hard-pixel mining at 0.2) on PROJ_DL_BATCH 512x1024 crops,
+    inference at 1024x2048; then ``PointRendSemSegHead`` at its defaults on
+    V3+'s logits brought to stride 4 (``interpolate_bilinear``) and res2: one
+    training step and one inference back to 1024x2048."""
+    import numpy as np
+
+    dl, pr = m.deeplab, m.point_rend
+    tcfg = dl.DeepLabResNetConfig(resnet=m.resnet_backbone.ResNetConfig(depth=101))
+    trunk = dl.DeepLabResNet(tcfg, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(141))
+    ch = trunk.out_channels
+    head = dl.DeepLabV3PlusHead(PROJ_CLASSES, (ch["res2"], ch["res5"]), ignore_value=PROJ_IGNORE,
+                                dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(142))
+    rng = np.random.default_rng(143)
+    gen = m.panoptic_deeplab.PanopticTargetGenerator(ignore_label=PROJ_IGNORE, thing_ids=frozenset(PROJ_THINGS))
+    sems = []
+    for _ in range(PROJ_DL_BATCH):
+        sem = gen(*panoptic_scene(rng, *PROJ_CROP))["sem_seg"]
+        vh, vw = PROJ_CROP[0] // 8, PROJ_CROP[1] // 8
+        y, x = rng.integers(0, PROJ_CROP[0] - vh), rng.integers(0, PROJ_CROP[1] - vw)
+        sem[y:y + vh, x:x + vw] = PROJ_IGNORE  # a void region
+        sems.append(sem)
+    labels = torch.from_numpy(np.stack(sems)).to(dev)
+    images = seg_images(torch, dev, np.where(labels.cpu().numpy() == PROJ_IGNORE, 0, labels.cpu().numpy()), rng)
+    frames = seg_images(torch, dev, np.stack([gen(*panoptic_scene(rng, *PROJ_FRAME))["sem_seg"]
+                                              for _ in range(PROJ_DL_BATCH)]), rng)
+    calibrate_frozen_bn(torch, m, trunk, images, trunk)
+    sched = dl.warmup_poly_schedule(*PROJ_DL_LR)
+    n_params = sum(p.numel() for p in trunk.parameters()) + sum(p.numel() for p in head.parameters())
+    log(f"projects: DeepLabV3+ R103-OS16 (deep stem {tcfg.stem_channels}, res4 dilation {tcfg.res4_dilation}, res5 "
+        f"{tcfg.res5_dilation} x multi-grid {tcfg.res5_multi_grid}, ASPP 256 at (6, 12, 18), project 48, decoder 256, "
+        f"{PROJ_CLASSES} classes; {n_params} parameters) in bf16 over float32, seeded, FrozenBN calibrated on the "
+        f"batch; {PROJ_DL_BATCH} crops of "
+        f"{PROJ_CROP[0]}x{PROJ_CROP[1]}, SGD momentum 0.9 under warmup_poly_schedule{PROJ_DL_LR}, hard-pixel "
+        f"mining 0.2, ignore {PROJ_IGNORE} ({int((labels == PROJ_IGNORE).sum())} px)")
+    opt = m.optim.build_optimizer("sgd", list(trunk.parameters()) + list(head.parameters()),
+                                  lambda s: float(sched(s)), weight_decay=1e-4, momentum=0.9)
+    train_path(torch, "DeepLabV3+ R103-OS16 training", lambda: head(trunk(images), labels, train=True)[1][
+        "loss_sem_seg"], opt, PROJ_DL_BATCH, card)
+    with torch.no_grad():
+        for _ in range(2):  # the first warms cuDNN at this size
+            sync()
+            t0 = time.perf_counter()
+            full_feats = trunk(frames)
+            logits, _ = head(full_feats)
+            sync()
+            inf_ms = (time.perf_counter() - t0) * 1e3
+    log(f"projects: DeepLabV3+ inference on {card}: {inf_ms:.4f} ms a batch of {PROJ_DL_BATCH} frames of "
+        f"{PROJ_FRAME[0]}x{PROJ_FRAME[1]} -> {tuple(logits.shape)} float32, finite "
+        f"{bool(torch.isfinite(logits).all())}")
+    if tuple(logits.shape) != (PROJ_DL_BATCH, *PROJ_FRAME, PROJ_CLASSES) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("projects: DeepLabV3+'s logits are not finite logits of the frame")
+    # PointRend's semantic-segmentation head on V3+'s logits at stride 4 and res2
+    seg = pr.PointRendSemSegHead(PROJ_CLASSES, ch["res2"], ignore_value=PROJ_IGNORE, device=dev,
+                                 generator=torch.Generator().manual_seed(144))
+    with torch.no_grad():
+        crop_feats = trunk(images)
+        coarse = pr.interpolate_bilinear(head(crop_feats)[0], (PROJ_CROP[0] // 4, PROJ_CROP[1] // 4))
+    opt = m.optim.build_optimizer("sgd", list(seg.parameters()), lambda s: float(sched(s)), weight_decay=1e-4,
+                                  momentum=0.9)
+    sgen = torch.Generator(device=dev).manual_seed(145)
+    train_path(torch, f"PointRendSemSegHead training (V3+'s stride-4 logits, res2; {seg.train_num_points} points)",
+               lambda: seg(coarse, [crop_feats["res2"]], targets=labels, train=True, generator=sgen)[1], opt,
+               PROJ_DL_BATCH, card)
+    spans, restore = timed_steps(torch, seg, "subdivision_step")
+    try:
+        with torch.no_grad():
+            coarse = pr.interpolate_bilinear(logits, (PROJ_FRAME[0] // 4, PROJ_FRAME[1] // 4))
+            for _ in range(2):
+                spans.clear()
+                sync()
+                t0 = time.perf_counter()
+                sem, _ = seg(coarse, [full_feats["res2"]])
+                sync()
+                seg_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore()
+    step_ms = [s.elapsed_time(e) for s, e in spans]
+    changed = float((sem.argmax(-1) != pr.upsample_bilinear(coarse, 4).argmax(-1)).float().mean())
+    log(f"projects: PointRendSemSegHead inference on {card}: {seg_ms:.4f} ms for {PROJ_DL_BATCH} frames, "
+        f"{tuple(coarse.shape)} -> {tuple(sem.shape)}, subdivision steps {[round(v, 4) for v in step_ms]} ms "
+        f"({seg.subdivision_num_points} points each); labels changed against the plain x4 upsample: {changed:.6f} of "
+        f"the pixels; finite {bool(torch.isfinite(sem).all())}")
+    if tuple(sem.shape) != (PROJ_DL_BATCH, *PROJ_FRAME, PROJ_CLASSES) or not bool(torch.isfinite(sem).all()):
+        raise RuntimeError("projects: PointRend's semantic logits are not finite logits of the frame")
+
+
+def projects_panoptic(torch, m, dev, card):
+    """Panoptic-DeepLab on R52 at output stride 16 (detectron2
+    ``panoptic_deeplab_R_52_os16_mg124_poly_90k_bs32_crop_512_1024.yaml``:
+    ``DEEPLAB_R50``'s deep-stem trunk, the semantic head at 256, the
+    instance head at 128 / 32), bf16 over float32, seeded: PROJ_STEPS Adam
+    steps (PROJ_PD_LR under ``warmup_poly_schedule``) of the weighted
+    semantic, centre and offset losses on PROJ_PD_BATCH 512x1024 crops whose
+    targets ``PanopticTargetGenerator`` makes from seeded panoptic maps;
+    then inference at 1024x2048 and ``get_panoptic_segmentation`` at its
+    defaults, held exactly to the CPU's on the card's head outputs."""
+    import numpy as np
+
+    dl, pd = m.deeplab, m.panoptic_deeplab
+    trunk = dl.DeepLabResNet(dl.DEEPLAB_R50, dtype=torch.bfloat16, device=dev,
+                             generator=torch.Generator().manual_seed(151))
+    ch = (trunk.out_channels["res2"], trunk.out_channels["res5"])
+    sem_h = pd.PanopticDeepLabSemSegHead(PROJ_CLASSES, ch, ignore_value=PROJ_IGNORE, dtype=torch.bfloat16,
+                                         device=dev, generator=torch.Generator().manual_seed(152))
+    ins_h = pd.PanopticDeepLabInsEmbedHead(ch, dtype=torch.bfloat16, device=dev,
+                                           generator=torch.Generator().manual_seed(153))
+    rng = np.random.default_rng(154)
+    gen = pd.PanopticTargetGenerator(ignore_label=PROJ_IGNORE, thing_ids=frozenset(PROJ_THINGS))
+    t0 = time.perf_counter()
+    targets = [gen(*panoptic_scene(rng, *PROJ_CROP)) for _ in range(PROJ_PD_BATCH)]
+    gen_s = time.perf_counter() - t0
+    tg = {k: torch.from_numpy(np.stack([t_[k] for t_ in targets])).to(dev)
+          for k in ("sem_seg", "center", "offset", "sem_seg_weights", "center_weights", "offset_weights")}
+    images = seg_images(torch, dev, np.where(tg["sem_seg"].cpu().numpy() == PROJ_IGNORE, 0,
+                                             tg["sem_seg"].cpu().numpy()), rng)
+    frame_pan, frame_segs = panoptic_scene(rng, *PROJ_FRAME)
+    frame_tg = gen(frame_pan, frame_segs)
+    frame = seg_images(torch, dev, np.where(frame_tg["sem_seg"] == PROJ_IGNORE, 0, frame_tg["sem_seg"])[None], rng)
+    calibrate_frozen_bn(torch, m, trunk, images, trunk)
+    small = int(sum((t_["sem_seg_weights"] > 1).sum() for t_ in targets))
+    log(f"projects: Panoptic-DeepLab R52-OS16 (DEEPLAB_R50's trunk, semantic head 256, instance head 128 / 32) in bf16 "
+        f"over float32, seeded, FrozenBN calibrated on the batch; {PROJ_PD_BATCH} crops of "
+        f"{PROJ_CROP[0]}x{PROJ_CROP[1]}, Adam {PROJ_PD_LR} under "
+        f"warmup_poly_schedule; targets by PanopticTargetGenerator in {gen_s:.3f} s on the host: "
+        f"{sum(len(t_['center_points']) for t_ in targets)} thing centres, {small} px of small instances (x3), "
+        f"{int((tg['center_weights'] == 0).sum())} px without centre weight (crowd)")
+    sched = dl.warmup_poly_schedule(PROJ_PD_LR, 90000)
+    params = [p for mod in (trunk, sem_h, ins_h) for p in mod.parameters()]
+    opt = m.optim.build_optimizer("adam", params, lambda s: float(sched(s)))
+
+    def forward():
+        feats = trunk(images)
+        _, sl = sem_h(feats, tg["sem_seg"], tg["sem_seg_weights"], train=True)
+        _, _, cl, ol = ins_h(feats, tg["center"], tg["center_weights"], tg["offset"], tg["offset_weights"], train=True)
+        return sl["loss_sem_seg"] + cl["loss_center"] + ol["loss_offset"]
+
+    train_path(torch, "Panoptic-DeepLab R52-OS16 training (semantic + 200 centre + 0.01 offset)", forward, opt,
+               PROJ_PD_BATCH, card)
+    thing = torch.zeros(PROJ_CLASSES, dtype=torch.bool, device=dev)
+    thing[list(PROJ_THINGS)] = True
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def infer():
+        ev[0].record()
+        feats = trunk(frame)
+        ev[1].record()
+        logits, _ = sem_h(feats)
+        ev[2].record()
+        center, offset, _, _ = ins_h(feats)
+        ev[3].record()
+        return logits, center, offset
+
+    inf_ms, splits = [], []
+    with torch.no_grad():
+        for _ in range(3):  # the first warms cuDNN at this size
+            logits = center = offset = None  # the last call's outputs freed first
+            sync()
+            t0 = time.perf_counter()
+            logits, center, offset = infer()
+            sync()
+            inf_ms.append((time.perf_counter() - t0) * 1e3)
+            splits.append([round(ev[i].elapsed_time(ev[i + 1]), 4) for i in range(3)])
+        prof = profile_counts(torch, infer)
+        sem = logits[0].argmax(-1)
+        # the semantic head's ASPP alone on the frame's res5, once and twice in a batch
+        res5 = trunk(frame)["res5"]
+        aspp_ms = {b: time_ms(lambda r=res5.expand(b, -1, -1, -1).contiguous(): sem_h.decoder.aspp_res5(r), 3)
+                   for b in (1, 2)}
+    # the same fusion on the frame's own targets (its semantic map, centre heatmap and offsets): the instances back
+    gt_in = [torch.from_numpy(frame_tg[k]).to(dev) for k in ("sem_seg", "center", "offset")]
+    gt_in[0] = torch.where(gt_in[0] == PROJ_IGNORE, torch.zeros_like(gt_in[0]), gt_in[0])
+    gt_things = sum(1 for s_ in frame_segs if s_["category_id"] in PROJ_THINGS and (frame_pan == s_["id"]).any())
+    for label, args in (("the heads' outputs", (sem, center[0, ..., 0], offset[0])), ("the frame's targets", gt_in)):
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            got = pd.get_panoptic_segmentation(*args, thing, PROJ_CLASSES)
+            sync()
+            pp_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = pd.get_panoptic_segmentation(*(a.cpu() for a in args), thing.cpu(), PROJ_CLASSES)
+        cpu_s = time.perf_counter() - t0
+        same = [torch.equal(g.cpu(), w_) for g, w_ in zip(got, want)]
+        ids = torch.unique(got[0])
+        ids = ids[ids >= 0]
+        log(f"projects: Panoptic-DeepLab get_panoptic_segmentation (threshold 0.1, NMS 7, top 200, stuff area 2048) on "
+            f"{label} at {PROJ_FRAME[0]}x{PROJ_FRAME[1]} on {card}: {pp_ms:.4f} ms; {int(got[2].sum())} centres, "
+            f"{len(ids)} panoptic ids besides void ({int((ids % 1000 > 0).sum())} instances; the frame has {gt_things} "
+            f"things); "
+            f"the CPU's on the same inputs ({cpu_s:.2f} s) equal: panoptic map, centres, validity {same}")
+        if tuple(got[0].shape) != PROJ_FRAME or not all(same):
+            raise RuntimeError(f"projects: the card's panoptic segmentation of {label} differs from the CPU's")
+    log(f"projects: Panoptic-DeepLab inference on {card}: the trunk and both heads {[round(v, 4) for v in inf_ms]} "
+        f"ms a {PROJ_FRAME[0]}x{PROJ_FRAME[1]} frame (the first warms cuDNN), trunk / semantic head / instance head "
+        f"{splits} ms (CUDA events); a profiled call busy {prof['busy_us']:.0f} of {prof['wall_us']:.0f} us = "
+        f"{prof['busy_us'] / prof['wall_us']:.4f}, {prof['kernel_launches']} kernel launches; outputs finite "
+        f"{all(bool(torch.isfinite(v).all()) for v in (logits, center, offset))}; ASPP ({res5.shape[-1]} -> 256, "
+        f"dilations 6, 12, 18) on the frame's res5 {tuple(res5.shape)}: {aspp_ms[1]:.4f} ms, on it twice in a batch "
+        f"{aspp_ms[2]:.4f} ms (CUDA events)")
+
+
+def projects_phase(torch, m, dev, card):
+    """PointRend, PointSup, DeepLab and Panoptic-DeepLab on the card: first
+    their tiny paths against the CPU; then PointRend and PointSup on
+    config_1's X101 detector (each path's counters reset just before it and
+    read just after), DeepLabV3+ (with PointRend's semantic head) and
+    Panoptic-DeepLab at full width. Yields the detector paths' (rows,
+    launches)."""
+    t0 = time.perf_counter()
+    check_projects_tiny_against_cpu(torch, m)
+    rows, launches, det, scene = projects_pointrend(torch, m, dev, card)
+    yield rows, launches
+    del rows
+    yield projects_pointsup(torch, m, dev, card, det, scene)
+    del det, scene
+    torch.cuda.empty_cache()
+    projects_deeplab(torch, m, dev, card)
+    torch.cuda.empty_cache()
+    projects_panoptic(torch, m, dev, card)
+    log(f"projects phase: {time.perf_counter() - t0:.1f} s")
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -5678,6 +6418,7 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.parallel import multihost
     from spacecraft_pose_estimation_tpu_torch.tools import benchmark, demo
     from spacecraft_pose_estimation_tpu_torch.utils import analysis, collect_env, memory, vis
+    from spacecraft_pose_estimation_tpu_torch.projects import deeplab, panoptic_deeplab, point_rend, pointsup
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
@@ -5698,7 +6439,8 @@ def load_port():
                         deform_conv=deform_conv, rotated_boxes=rotated_boxes, checkpoint=checkpoint, metrics=metrics,
                         trainer=trainer, s2d=s2d, lazyconfig_train=lazyconfig_train, parallel=parallel,
                         multihost=multihost, benchmark=benchmark, demo=demo, analysis=analysis,
-                        collect_env=collect_env, memory=memory, vis=vis)
+                        collect_env=collect_env, memory=memory, vis=vis, point_rend=point_rend, pointsup=pointsup,
+                        deeplab=deeplab, panoptic_deeplab=panoptic_deeplab)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -5861,6 +6603,14 @@ def main() -> int:
     # the tools, the utils and data parallelism: retry_if_oom on a real OOM, tools.demo (K1), tools.benchmark on
     # every task (train-det: K2, K2b, K4), utils.analysis, NCCL data parallelism at world size 1 (K2, K4)
     report += kernel_report(*tools_phase(torch, m, dev, card))
+    torch.cuda.empty_cache()
+
+    # the projects: PointRend (standard and implicit) and PointSup on config_1's X101 detector (K2 and K4 in its
+    # inference; K2 and K2b in the gather read under PointSup), DeepLabV3+ R103 with PointRend's semantic head, and
+    # Panoptic-DeepLab R52 with its post-processing
+    for rows, launches in projects_phase(torch, m, dev, card):
+        report += kernel_report(rows, launches)
+        del rows
 
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

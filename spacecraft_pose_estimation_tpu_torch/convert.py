@@ -2,17 +2,21 @@
 
 The port's module names mirror the Flax trees of ``HRNet``,
 ``GeneralizedRCNN`` (with its mask and keypoint heads), ``RetinaNet``,
-``FCOS``, ``CascadeROIHeads``, ``RegNet``, ``DeformConv``, ``ASPP`` and
-``ConvSeq`` (``stem1.conv``, ``stage2_m0.fuse.up0_1``,
-``backbone.res2_b0.shortcut``, ``roi_heads.box_head.fc1``, ``head.cls_conv0``,
-``p6``, ``mask_head.mask_fcn1``, ``box_head0.fc1``, ``s3_b1.se.fc1``,
-``atrous2``, ``seq0.bn`` ...), so the map is by name: conv kernels go from
-HWIO to OIHW, transposed-conv kernels (the modules named ``deconv``,
-``deconv0`` ...: the CMS heads', PoseResNet's and the mask head's; and the
-keypoint head's ``score_lowres``) are flipped in space and laid out (in, out, kh, kw), a raw 4-d ``kernel`` parameter
-(``DeformConv``'s) goes from HWIO to OIHW as ``weight`` like a conv's, dense
-kernels are transposed, and everything else (biases, BN scale/bias, and the
-``batch_stats`` or frozen ``mean``/``var``) is copied as it is.
+``FCOS``, ``CascadeROIHeads``, ``RegNet``, ``DeformConv``, ``ASPP``,
+``ConvSeq`` and the ``projects/`` heads and trunks (``stem1.conv``,
+``stage2_m0.fuse.up0_1``, ``backbone.res2_b0.shortcut``,
+``roi_heads.box_head.fc1``, ``head.cls_conv0``, ``p6``,
+``mask_head.mask_fcn1``, ``box_head0.fc1``, ``s3_b1.se.fc1``, ``atrous2``,
+``seq0.bn``, ``coarse_head.reduce_s``, ``point_head.fc1``, ``res5_b2.conv2``,
+``decoder.fuse_res2_0``, ``center_head1`` ...), so the map is by name: conv
+kernels go from HWIO to OIHW, transposed-conv kernels (the modules named
+``deconv``, ``deconv0`` ...: the CMS heads', PoseResNet's and the mask
+head's; and the keypoint head's ``score_lowres``) are flipped in space and
+laid out (in, out, kh, kw), a raw 4-d ``kernel`` parameter (``DeformConv``'s)
+goes from HWIO to OIHW as ``weight`` like a conv's, dense kernels are
+transposed, and everything else (biases, BN scale/bias, the ``batch_stats``
+or frozen ``mean``/``var``, and the ``buffers`` collection: the implicit
+PointRend head's ``positional_encoding_gaussian_matrix``) is copied as it is.
 
 :func:`quantized_to_torch` carries an int8 quantized tree
 (``quantize_hrnet`` or ``quantize_backbone`` output) over key for key: the
@@ -58,7 +62,9 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     ``models.rcnn.GeneralizedRCNN``, ``models.retinanet.RetinaNet``,
     ``models.fcos.FCOS``, ``models.cascade.CascadeROIHeads``,
     ``models.regnet.RegNet``, ``ops.deform_conv.DeformConv``,
-    ``models.extra_layers.ASPP`` and ``models.layers.ConvSeq``;
+    ``models.extra_layers.ASPP``, ``models.layers.ConvSeq`` and the
+    ``projects/`` modules (``point_rend``'s heads, ``deeplab``'s trunk and
+    heads, ``panoptic_deeplab``'s heads);
     load the result with ``load_state_dict(..., strict=True)`` so that a
     name the two sides disagree on raises.
     """
@@ -81,25 +87,31 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
 
 
 def module_to_flax(model: torch.nn.Module) -> dict:
-    """:func:`state_dict_to_flax` of ``model``: its buffers (BatchNorm
-    statistics) go to ``batch_stats``, its parameters to ``params`` (the
-    detector's FrozenBN ``mean`` and ``var`` among them, as in the JAX
-    ``params`` tree)."""
-    return state_dict_to_flax(model.state_dict(), {name for name, _ in model.named_buffers()})
+    """:func:`state_dict_to_flax` of ``model``: the buffers a module names in
+    its ``FLAX_BUFFERS`` go to ``buffers`` (Flax's collection of that name),
+    its other buffers (BatchNorm statistics) to ``batch_stats``, its
+    parameters to ``params`` (the detector's FrozenBN ``mean`` and ``var``
+    among them, as in the JAX ``params`` tree)."""
+    flax_buffers = {f"{prefix}.{name}" if prefix else name for prefix, mod in model.named_modules()
+                    for name in getattr(mod, "FLAX_BUFFERS", ())}
+    stats = {name for name, _ in model.named_buffers()} - flax_buffers
+    return state_dict_to_flax(model.state_dict(), stats, flax_buffers)
 
 
-def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor], stats: Collection[str]) -> dict:
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor], stats: Collection[str],
+                       buffers: Collection[str] = ()) -> dict:
     """The inverse of :func:`flax_to_state_dict`: {"params": ...,
     "batch_stats": ...} of nested dicts of float32 numpy arrays, conv
     kernels back to HWIO and dense kernels to (in, out). ``stats`` names the
-    entries that go to ``batch_stats``; the rest go to ``params``. The
-    arrays are copies, so later updates of the model leave them as they
-    were."""
-    out: dict = {"params": {}, "batch_stats": {}}
+    entries that go to ``batch_stats``, ``buffers`` those that go to a
+    ``buffers`` collection (present only when one does); the rest go to
+    ``params``. The arrays are copies, so later updates of the model leave
+    them as they were."""
+    out: dict = {"params": {}, "batch_stats": {}} | ({"buffers": {}} if buffers else {})
     for name, value in state_dict.items():
         *modules, leaf = name.split(".")
         arr = value.detach().to("cpu", torch.float32).numpy()
-        collection = "batch_stats" if name in stats else "params"
+        collection = "batch_stats" if name in stats else "buffers" if name in buffers else "params"
         if leaf == "weight":
             leaf = "kernel"
             if arr.ndim == 4 and _is_deconv(modules):  # (in, out, kh, kw) -> (kh, kw, in, out), unflipped

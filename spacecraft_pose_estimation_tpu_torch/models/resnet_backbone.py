@@ -57,17 +57,21 @@ class MergedGroupConv(Conv):
     sums, so the port does not copy it.
     """
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int, groups: int):
-        super().__init__(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False, groups=groups)
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, groups: int, dilation: int = 1):
+        super().__init__(cin, cout, kernel, stride, dilation * (kernel - 1) // 2, bias=False, groups=groups,
+                         dilation=dilation)
 
 
 class ConvFrozenBN(nn.Module):
+    """Conv (no bias, padding ``dilation * (kernel - 1) // 2``) -> FrozenBN -> optional ReLU."""
+
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, act: bool = True,
-                 groups: int = 1):
+                 groups: int = 1, dilation: int = 1):
         super().__init__()
         self.act = act
-        self.conv = (MergedGroupConv(cin, cout, kernel, stride, groups) if groups > 1
-                     else Conv(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False))
+        self.conv = (MergedGroupConv(cin, cout, kernel, stride, groups, dilation) if groups > 1
+                     else Conv(cin, cout, kernel, stride, dilation * (kernel - 1) // 2, bias=False,
+                               dilation=dilation))
         self.norm = FrozenBN(cout)
 
     def forward(self, x):
@@ -79,14 +83,15 @@ class BottleneckX(nn.Module):
     """Detectron2 BottleneckBlock: 1x1 -> 3x3 (groups) -> 1x1 + shortcut.
 
     The stride sits on the 1x1 (Caffe2 trunks) or, with ``stride_in_1x1``
-    False, on the 3x3 (ResNeXt)."""
+    False, on the 3x3 (ResNeXt). ``dilation`` dilates the 3x3 alone (the
+    DeepLab trunks' res4 / res5)."""
 
     def __init__(self, cin: int, out_channels: int, bottleneck_channels: int, stride: int = 1,
-                 groups: int = 1, stride_in_1x1: bool = True):
+                 groups: int = 1, stride_in_1x1: bool = True, dilation: int = 1):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = ConvFrozenBN(cin, bottleneck_channels, 1, s1)
-        self.conv2 = ConvFrozenBN(bottleneck_channels, bottleneck_channels, 3, s3, groups=groups)
+        self.conv2 = ConvFrozenBN(bottleneck_channels, bottleneck_channels, 3, s3, groups=groups, dilation=dilation)
         self.conv3 = ConvFrozenBN(bottleneck_channels, out_channels, 1, 1, act=False)
         self.shortcut = (
             ConvFrozenBN(cin, out_channels, 1, stride, act=False)

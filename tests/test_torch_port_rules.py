@@ -415,3 +415,30 @@ def test_no_jax_check_covers_the_tools_utils_and_parallel_modules():
                                             "file_io", "memory", "analysis", "vis")} <= sources
     assert {"tools/demo.py", "tools/benchmark.py", "parallel/__init__.py", "parallel/mesh.py",
             "parallel/multihost.py"} <= sources
+
+
+def test_no_jax_check_covers_the_projects_modules():
+    """PointRend, PointSup, DeepLab and Panoptic-DeepLab (with its own copy of
+    the target generator's numpy code) are under the import check above."""
+    sources = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert {f"projects/{name}.py" for name in ("__init__", "point_rend", "pointsup", "deeplab",
+                                               "panoptic_deeplab")} <= sources
+
+
+def test_projects_modules_need_cuda_or_an_explicit_device():
+    if torch.cuda.is_available():
+        return
+    from spacecraft_pose_estimation_tpu_torch.projects import deeplab, panoptic_deeplab, point_rend
+
+    tiny = point_rend.PointRendConfig(fc_dim=8, num_fc=1)
+    for build in (lambda: point_rend.PointRendMaskHead(tiny, 8), lambda: point_rend.ImplicitPointRendMaskHead(tiny, 8),
+                  lambda: point_rend.PointRendSemSegHead(3, 8, fc_dim=8, num_fc=1),
+                  lambda: point_rend.regular_grid_coords(2, 4),
+                  lambda: deeplab.DeepLabResNet(deeplab.DEEPLAB_TINY),
+                  lambda: deeplab.DeepLabV3Head(3, 16, aspp_channels=8),
+                  lambda: deeplab.DeepLabV3PlusHead(3, (8, 16), aspp_channels=8, decoder_channels=(8, 8)),
+                  lambda: panoptic_deeplab.PanopticDeepLabSemSegHead(3, (8, 16), decoder_channels=(8, 8)),
+                  lambda: panoptic_deeplab.PanopticDeepLabInsEmbedHead((8, 16), decoder_channels=(8, 8))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert next(deeplab.DeepLabResNet(deeplab.DEEPLAB_TINY, device="cpu").parameters()).device.type == "cpu"
