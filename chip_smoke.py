@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training, detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN), int8-option (s2d, fused_even3, merge_fuse, fold), LazyConfig-training, tools (demo, benchmark, utils, data parallelism) and projects (PointRend, PointSup, DeepLab, Panoptic-DeepLab) paths on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving, evaluation, training, domain-adaptation, detector-training (Faster R-CNN and RetinaNet), weight import and export, Mask / Keypoint / Cascade R-CNN and FCOS, event-camera, DVS-training, detection-library (TTA, RegNet, deformable conv, rotated boxes, ASPP, tracker, trainer hooks, PreciseBN), int8-option (s2d, fused_even3, merge_fuse, fold), LazyConfig-training, tools (demo, benchmark, utils, data parallelism) and projects (PointRend, PointSup, DeepLab, Panoptic-DeepLab; DensePose, TridentNet, ViTDet, MViTv2, TensorMask, Rethinking-BN) paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -298,7 +298,27 @@ toolkit. It
    on the frame's targets, equal to the CPU's); K2 and K4 held to their
    plain versions on the detector's inference, K2 and K2b on PointSup's
    calls;
-23. prints the card, a ``{"kernels": [...]}`` line and, last, the result
+23. runs the last projects ("projects c"): first their tiny paths in
+   float32 on the card against the CPU (DensePose on both routes with the
+   chart loss and its gradients through K2b, TridentNet's stage, ViTDet,
+   MViTv2, both BNConvTower variants, swap_align2nat: within 1e-3 of
+   scale; the branch merge through K4 and the chart labels of the CPU's
+   outputs equal); then DensePose (``DensePoseConfig()``) on ``config_1``'s
+   X101-32x8d FPN (bf16, seeded, FrozenBN calibrated, 100 detections an
+   image) at 800^2, batch 4: the decoder route (K2's gather read on the
+   merged stride-4 map, P 28, 400 ROIs) and ``chart_result_for_grid``, the
+   route without the decoder (K2's gather read on P2-P5), the DeepLab head,
+   and 3 SGD steps of the decoder and head on 32 instances x 128 points a
+   frame (K2b's gather read in the backward); TridentNet-R101's res4 (23
+   blocks) on 2 frames' res3, every branch and branch 1, and the branch
+   merge on 4 x 3 x 100 jittered detections (K4); ViTDet-B + FPN(256) at
+   1024^2, batch 2, and MViTv2-B at 1024^2, batch 1 (forward and one
+   backward); BNConvTower (256 x 4) on P3-P7, both variants, train and
+   eval; swap_align2nat on (2, 15, 15, 100, 100) at lambda 2; K2 (one
+   level and four) and K2b held to their plain versions on DensePose's
+   calls, K4 on the merge's; each path's counters reset just before it and
+   read just after;
+24. prints the card, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the result
@@ -6318,6 +6338,534 @@ def projects_phase(torch, m, dev, card):
     log(f"projects phase: {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------- projects c
+
+PC_P = 28  # DensePose's pooler resolution (ROI_DENSEPOSE_HEAD.POOLER_RESOLUTION)
+PC_INSTANCES, PC_POINTS = 32, 128  # DensePose training: annotated instances a frame, points an instance
+PC_GT_SIDE = 64  # the coarse segmentation's GT grid an instance
+# TridentNet-R101's res4: 23 trident blocks, 1024 out, 256 bottleneck, stride 2, dilations (1, 2, 3), on the res3
+# map of 800^2 frames (512 channels, 100^2)
+PC_TRIDENT = dict(num_blocks=23, cin=512, out_channels=1024, bottleneck_channels=256, stride=2)
+PC_TRIDENT_FRAMES, PC_TRIDENT_HW = 2, 100
+PC_VIT_HW, PC_VIT_BATCH = 1024, 2  # ViTDet-B's LSJ input
+PC_MVIT_HW, PC_MVIT_BATCH = 1024, 1
+PC_TOWER_HW = (100, 50, 25, 13, 7)  # RetinaNet's P3-P7 at 800^2
+PC_SWAP_SHAPE, PC_SWAP_LAMBDA = (2, 15, 15, 100, 100), 2  # TensorMask's 15x15 windows on a 100^2 level
+# parameters whose gradient is zero in exact arithmetic, so that the card and the CPU give each its own rounding
+# noise: the bias of MViTv2's key LayerNorm adds q . b to every logit of a query's row, which the softmax removes
+PC_NULL_GRADS = ("attn.norm_k.bias",)
+
+
+def check_projects_c_tiny_against_cpu(torch, m) -> None:
+    """The last projects' tiny paths in float32 (TF32 off) on the card
+    against the CPU, from the same seeded parameters on the same inputs:
+    DensePose on both routes (the decoder's map pooled by K2's gather read
+    on one level against ``roi_align_maps``; the pyramid by K2's four-level
+    gather read against its plain version; the gradients through K2b's
+    gather read), the chart loss and the heads', decoder's and pyramid's
+    gradients; TridentNet's stage on every branch and on one; ViTDet and
+    MViTv2 (outputs and every gradient); both BNConvTower variants (a train
+    step, the running statistics, eval); swap_align2nat and its gradient:
+    each within 1e-3 of its scale. Then, equal: ``chart_result_for_grid``'s
+    labels of the CPU's outputs given to the card, and TridentNet's branch
+    merge (K4) on the same seeded detections."""
+    import dataclasses
+
+    import numpy as np
+
+    dp, tn, vd, mv, tmk, rb = m.densepose, m.tridentnet, m.vitdet, m.mvitv2, m.tensormask, m.rethinking_bn
+    rng = np.random.default_rng(181)
+    normal = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))  # noqa: E731
+    pyr = [normal(2, 64 >> i, 64 >> i, 8) for i in range(4)]
+    ann, boxes, batch_idx = densepose_annotations(torch, dp, "cpu", 2, 3, 20, 4, 16, 64, 182)
+    boxes[1] = torch.tensor([0.0, 0.0, 128.0, 128.0])  # past the frame: pooled from P3 by the multilevel route
+    boxes[4] = torch.tensor([-40.0, -40.0, 240.0, 200.0])  # from P4
+    dcfg = dp.DensePoseConfig(num_stacked_convs=2, conv_head_dim=32, num_patches=3, decoder_channels=8)
+    x_trident, x_vit, x_mvit = normal(2, 16, 16, 8), normal(1, 96, 96, 3), normal(1, 64, 64, 3)
+    tower_in = [normal(2, 8 >> i, 8 >> i, 4) for i in range(3)]
+    x_swap = normal(2, 3, 2, 5, 7)
+    cot_swap = normal(2, 6, 4, 3, 4)
+    det_boxes = torch.from_numpy(rng.uniform(0, 60, (6, 10, 2)).astype(np.float32))
+    det_boxes = torch.cat([det_boxes, det_boxes + torch.from_numpy(rng.uniform(5, 30, (6, 10, 2)).astype(np.float32))],
+                          -1)
+    dets = (det_boxes, torch.from_numpy(rng.choice([0.3, 0.6, 0.9], (6, 10)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 2, (6, 10)).astype(np.int32)),
+            torch.from_numpy((rng.uniform(size=(6, 10)) > 0.3).astype(np.float32)))
+    cots = {}
+
+    def cot_of(v):
+        """A seeded cotangent of ``v``'s shape, the same on both devices."""
+        key = tuple(v.shape)
+        if key not in cots:
+            cots[key] = normal(*key)
+        return cots[key]
+
+    out, exact, nulls = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        to = lambda v: v.to(device)  # noqa: E731
+        gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+        res = {}
+
+        def grads(prefix, module):
+            named = [(k, p.grad) for k, p in module.named_parameters() if p.grad is not None]
+            scale = max(g.abs().max().item() for _, g in named)
+            for k, g in named:
+                if k.endswith(PC_NULL_GRADS):  # zero in exact arithmetic: held to the module's gradient scale
+                    nulls[f"{device} {prefix} grad {k}"] = g.abs().max().item() / scale
+                else:
+                    res[f"{prefix} grad {k}"] = g
+
+        dec = dp.DensePoseDecoder(dcfg, 8, device=device, generator=gen(183))
+        for route, kind in (("decoder", "v1convx"), ("multilevel", "deeplab")):
+            head = dp.DensePoseHead(dataclasses.replace(dcfg, head=kind), 8, device=device, generator=gen(184))
+            feats = [to(f).detach().requires_grad_() for f in pyr]
+            o = dp.densepose_roi_forward(head, feats, to(boxes), decoder=dec if route == "decoder" else None,
+                                         batch_idx=to(batch_idx))
+            losses = dp.densepose_chart_loss(o, dp.PackedChartAnnotations(*map(to, ann)), dcfg)
+            sum(losses.values()).backward()
+            res.update({f"densepose {route} {k}": v for k, v in zip(o._fields, o)} | {
+                f"densepose {route} {k}": v for k, v in losses.items()} | {  # a level no box pools from: zeros
+                f"densepose {route} grad p{i + 2}": torch.zeros_like(f) if f.grad is None else f.grad
+                for i, f in enumerate(feats)})
+            grads(f"densepose {route} head", head)
+        grads("densepose decoder", dec)
+        stage = tn.TridentStage(2, 8, 16, 8, 2, device=device, generator=gen(185))
+        with torch.no_grad():
+            res["trident all branches"] = stage(to(x_trident))
+            res["trident branch 1"] = stage(to(x_trident), 1)
+        exact[device] = tn.merge_branch_detections(*map(to, dets), 3, 0.5, 16)
+        # gradients of <outputs, seeded cotangents>: the sum of squares of a LayerNorm's (or a train-mode BN's)
+        # output hardly moves with its input, so its gradient would be rounding noise
+        for name, model, x in (("vitdet", vd.ViTDetBackbone(vd.VITDET_TINY, (96, 96), device=device,
+                                                            generator=gen(186)), x_vit),
+                               ("mvitv2", mv.MViTv2Backbone(mv.MVITV2_TINY, (64, 64), device=device,
+                                                            generator=gen(187)), x_mvit)):
+            feats = model(to(x))
+            sum(torch.sum(v * to(cot_of(v))) for v in feats.values()).backward()
+            res.update({f"{name} {k}": v for k, v in feats.items()})
+            grads(name, model)
+        for variant in ("cycle", "shared"):
+            tower = rb.BNConvTower(3, 4, 8, 2, variant, device=device, generator=gen(188))
+            tower.train()
+            with torch.no_grad():
+                res.update({f"tower {variant} train {i}": o for i, o in enumerate(tower([to(f) for f in tower_in]))})
+            tower.eval()
+            outs = tower([to(f) for f in tower_in])
+            sum(torch.sum(o * to(cot_of(o))) for o in outs).backward()
+            grads(f"tower {variant}", tower)
+            res.update({f"tower {variant} eval {i}": o for i, o in enumerate(outs)} | {
+                f"tower {variant} {k}": v for k, v in tower.named_buffers()})
+        xs = to(x_swap).detach().requires_grad_()
+        y = tmk.swap_align2nat(xs, 2)
+        torch.sum(y * to(cot_swap)).backward()
+        res.update({"swap_align2nat": y, "swap_align2nat grad": xs.grad})
+        out[device] = {k: v.detach().cpu() for k, v in res.items()}
+    errs = scaled_errors(out["cuda"], out["cpu"])
+    worst = max(errs, key=errs.get)
+    log(f"tiny projects c, card vs CPU (f32): {len(errs)} outputs, losses, statistics and gradients, max error "
+        f"{errs[worst]:.3g} of scale ({worst}; bar 1e-3)")
+    if errs[worst] > 1e-3:
+        raise RuntimeError(f"tiny projects c differ between the card and the CPU: {json.dumps(errs)}")
+    log(f"tiny projects c: the gradients that are zero in exact arithmetic (MViTv2's norm_k biases: a shift of every "
+        f"key moves each query's logits alike), largest over their module's largest gradient: "
+        f"{max(nulls.values()):.3g} (bar 1e-3) on {len(nulls)} of them, both devices")
+    if max(nulls.values()) > 1e-3:
+        raise RuntimeError(f"tiny projects c: a gradient that is zero in exact arithmetic is not: {json.dumps(nulls)}")
+    merge_same = [torch.equal(g.cpu(), w) for g, w in zip(exact["cuda"], exact["cpu"])]
+    chart = dp.DensePoseChartPredictorOutput(*(out["cpu"][f"densepose decoder {k}"]
+                                                 for k in dp.DensePoseChartPredictorOutput._fields))
+    want = dp.chart_result_for_grid(chart, (21, 17))
+    got = dp.chart_result_for_grid(dp.DensePoseChartPredictorOutput(*(v.cuda() for v in chart)), (21, 17))
+    labels_same = torch.equal(got[0].cpu(), want[0])
+    uv_err = (got[1].cpu() - want[1]).abs().max().item()
+    log(f"tiny projects c, card vs CPU: TridentNet's branch merge (K4 on the card) boxes, scores, classes, valid equal "
+        f"{merge_same} ({int(exact['cpu'][3].sum())} kept); chart_result_for_grid on the CPU's outputs: labels equal "
+        f"{labels_same}, uv max error {uv_err:.3g}")
+    if not all(merge_same) or not labels_same or uv_err > 1e-5:
+        raise RuntimeError("tiny projects c: the branch merge or the chart labels differ between the card and the CPU")
+
+
+def densepose_annotations(torch, dp, dev, b: int, instances: int, points: int, parts: int, gt_side: int, hw: int,
+                          seed: int):
+    """Seeded PackedChartAnnotations on ``dev``: ``instances`` GT boxes an
+    image of ``b`` (5-38% of the ``hw`` frame a side), the last a padded
+    slot; the estimates their GT boxes moved by up to a twentieth of their
+    size; ``points`` points an instance (a tenth invalid; part labels 0 to
+    ``parts`` - 1, 0 the background); the coarse GT a ``gt_side`` grid of
+    15 labels. Returns (ann, the estimates as XYXY (b * instances, 4), their
+    image indices)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, p = b * instances, b * instances * points
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)  # noqa: E731
+    wh = hw * (0.05 + 0.33 * rand(n, 2))
+    gt = torch.cat([rand(n, 2) * (hw - wh), wh], 1)
+    est = gt + (rand(n, 4) - 0.5) * 0.1 * wh.repeat(1, 2)
+    ann = dp.PackedChartAnnotations(
+        x_gt=256 * rand(p), y_gt=256 * rand(p), u_gt=rand(p), v_gt=rand(p),
+        fine_segm_labels_gt=torch.randint(0, parts, (p,), generator=gen, device=dev),
+        point_instance=torch.arange(n, device=dev).repeat_interleave(points), point_valid=rand(p) > 0.1,
+        bbox_xywh_gt=gt, bbox_xywh_est=est,
+        coarse_segm_gt=torch.randint(0, 15, (n, gt_side, gt_side), generator=gen, device=dev),
+        instance_valid=torch.arange(n, device=dev) < n - 1)
+    boxes = torch.cat([est[:, :2], est[:, :2] + est[:, 2:]], 1)
+    return ann, boxes, torch.arange(b, device=dev, dtype=torch.int32).repeat_interleave(instances)
+
+
+def projects_densepose(torch, m, dev, card):
+    """DensePose (``DensePoseConfig()``: the decoder at 256 channels, the
+    v1convx head of 8 x 512 convs, the chart predictor to 112^2) on
+    ``config_1``'s X101-32x8d FPN (bf16 over float32, seeded, FrozenBN
+    calibrated, 100 detections an image) at 800^2, batch 4, on
+    ``heads_scene`` frames: the decoder route (K2's gather read on the
+    merged stride-4 map, one level, P 28, over the 400 detections) and
+    ``chart_result_for_grid`` at 112^2; the route without the decoder once
+    (K2's gather read on P2-P5); the DeepLab head once; then PROJ_STEPS SGD
+    steps (config_1's solver) of the decoder and the head on
+    ``densepose_annotations``, whose backward runs K2b's gather read on the
+    merged map. Each path's counters reset just before it and read just
+    after. The heads read the pyramid over its RMS (PROJ_P2_RMS). Returns
+    the (rows, launches) of the three kernel paths and the detections."""
+    dp = m.densepose
+    cfg = m.zoo.DETECTOR_PRESETS["config_1"].config
+    gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    det = m.rcnn.GeneralizedRCNN(cfg, dtype=torch.bfloat16, device=dev, generator=gen(191))
+    scene = heads_scene(torch, m, dev, HEADS_BATCH, 192)
+    calibrate_frozen_bn(torch, m, det, scene["image"])
+    dcfg = dp.DensePoseConfig()
+    dec = dp.DensePoseDecoder(dcfg, cfg.fpn_channels, dtype=torch.bfloat16, device=dev, generator=gen(193))
+    head = dp.DensePoseHead(dcfg, dcfg.decoder_channels, dtype=torch.bfloat16, device=dev, generator=gen(194))
+    with torch.no_grad():
+        dets = det(scene["image"])
+        pyr = det.pyramid(scene["image"])
+        rms = pyr["p2"].float().square().mean().sqrt().item()
+        feats = [(pyr[f"p{i}"] / rms).permute(0, 2, 3, 1) for i in range(2, 6)]  # see PROJ_P2_RMS
+    del pyr
+    b, r = dets["boxes"].shape[:2]
+    boxes = dets["boxes"].reshape(-1, 4).float().contiguous()
+    bidx = torch.arange(b, device=dev, dtype=torch.int32).repeat_interleave(r)
+    log(f"projects c: DensePose (decoder {dcfg.decoder_channels}, v1convx {dcfg.num_stacked_convs} x "
+        f"{dcfg.conv_head_dim}, chart predictor to {dcfg.heatmap_size}^2, K2 gather at P {PC_P}) on config_1's "
+        f"X101-32x8d FPN (bf16, seeded, FrozenBN calibrated) at {HEADS_HW}^2, batch {b}: {r} detections an image "
+        f"({int(dets['valid'].sum())} valid); the pyramid over P2's RMS {rms:.4f}")
+    paths = []
+    k2 = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[3] == PC_P and len(a[0]) == 1)
+    with k2, torch.no_grad():
+        for _ in range(2):  # the first call warms cuDNN
+            reset_counts(m)
+            sync()
+            t0 = time.perf_counter()
+            out = dp.densepose_roi_forward(head, feats, boxes, decoder=dec, pooler_resolution=PC_P, batch_idx=bidx)
+            labels, uv = dp.chart_result_for_grid(out, (dcfg.heatmap_size, dcfg.heatmap_size))
+            sync()
+            inf_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counts(m)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        merged = dec(feats)
+        ev[1].record()
+        pooled = dp.pool_merged(merged, boxes, bidx, PC_P, 4)
+        ev[2].record()
+        split_out = head(pooled)
+        ev[3].record()
+        dp.chart_result_for_grid(split_out, (dcfg.heatmap_size, dcfg.heatmap_size))
+        ev[4].record()
+        sync()
+        splits = [round(ev[i].elapsed_time(ev[i + 1]), 4) for i in range(4)]
+        del merged, pooled, split_out
+    finite = all(bool(torch.isfinite(v).all()) for v in (*out, uv))
+    side = 4 * PC_P
+    log(f"projects c: DensePose inference on {card}: {inf_ms:.4f} ms a batch of {b} ({b * r} ROIs; the decoder, "
+        f"K2's gather read on the merged {tuple(k2.calls[-1][0][0][0].shape)} map, the head and predictor, "
+        f"chart_result_for_grid); decoder / pooling / head / converter {splits} ms (CUDA events); outputs "
+        f"{tuple(out.fine_segm.shape)}, finite {finite}; labels {int((labels > 0).sum())} of {labels.numel()} "
+        f"foreground; launches {json.dumps(launches)}")
+    if tuple(out.fine_segm.shape) != (b * r, side, side, dcfg.num_patches + 1) or not finite:
+        raise RuntimeError(f"projects c: DensePose's outputs are {tuple(out.fine_segm.shape)} or not finite")
+    if launches["K2 gather"] == 0:
+        raise RuntimeError("kernel K2 gather was not launched by DensePose's decoder route")
+    del out, labels, uv
+    paths.append(([pooler_row(torch, m, k2.calls[-1], f"roi_align_multilevel (projects c: DensePose's decoder map, "
+                                                       f"{b * r} ROIs, gather read, one level, P {PC_P})",
+                              count="K2 gather")], launches))
+    k2 = Capture(m.roi_align, "roi_align_multilevel", keep=lambda a: a[3] == PC_P and len(a[0]) == 4)
+    with k2, torch.no_grad():
+        reset_counts(m)
+        sync()
+        t0 = time.perf_counter()
+        out = dp.densepose_roi_forward(head, feats, boxes, pooler_resolution=PC_P, batch_idx=bidx)
+        sync()
+        nodec_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(m)
+    levels = m.roi_align.assign_levels(boxes, 4, 2)
+    finite = bool(torch.isfinite(out.u).all())
+    del out
+    with torch.no_grad():
+        dlhead = dp.DensePoseHead(dp.DensePoseConfig(head="deeplab"), dcfg.decoder_channels, dtype=torch.bfloat16,
+                                  device=dev, generator=gen(195))
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            dlout = dp.densepose_roi_forward(dlhead, feats, boxes, decoder=dec, pooler_resolution=PC_P,
+                                             batch_idx=bidx)
+            sync()
+            dl_ms = (time.perf_counter() - t0) * 1e3
+        dl_finite = all(bool(torch.isfinite(v).all()) for v in dlout)
+        del dlout, dlhead
+    log(f"projects c: DensePose without the decoder on {card}: {nodec_ms:.4f} ms (K2's gather read on P2-P5, the "
+        f"ROIs' levels {torch.bincount(levels, minlength=4).tolist()}), finite {finite}; launches "
+        f"{json.dumps(launches)}; the DeepLab head (ASPP 6, 12, 56, GroupNorm 32) on the decoder route {dl_ms:.4f} "
+        f"ms, finite {dl_finite}")
+    if not finite or not dl_finite:
+        raise RuntimeError("projects c: DensePose without the decoder or with the DeepLab head is not finite")
+    if launches["K2 gather"] == 0:
+        raise RuntimeError("kernel K2 gather was not launched by DensePose's route without the decoder")
+    paths.append(([pooler_row(torch, m, k2.calls[-1], f"roi_align_multilevel (projects c: DensePose without the "
+                                                       f"decoder, {b * r} ROIs, gather read, four levels, P {PC_P})",
+                              count="K2 gather")], launches))
+    # training: the decoder and the head, on the frozen pyramid
+    ann, est, est_idx = densepose_annotations(torch, dp, dev, b, PC_INSTANCES, PC_POINTS, dcfg.num_patches + 1,
+                                              PC_GT_SIDE, HEADS_HW, 196)
+    opt = m.optim.build_optimizer("sgd", list(dec.parameters()) + list(head.parameters()), HEADS_LR,
+                                  weight_decay=1e-4, momentum=0.9)
+
+    def forward():
+        o = dp.densepose_roi_forward(head, feats, est, decoder=dec, pooler_resolution=PC_P, batch_idx=est_idx)
+        return sum(dp.densepose_chart_loss(o, ann, dcfg).values())
+
+    k2b = Capture(m.roi_align, "roi_align_multilevel_backward", keep=lambda a: a[5] == PC_P)
+    with k2b:
+        reset_counts(m)
+        train_path(torch, f"DensePose training (decoder + v1convx head, {b} images x {PC_INSTANCES} instances x "
+                          f"{PC_POINTS} points, SGD {HEADS_LR})", forward, opt, b, card)
+        launches = read_counts(m)
+    log(f"projects c: DensePose training launches {json.dumps(launches)}")
+    for key in ("K2 gather", "K2b gather"):
+        if launches[key] == 0:
+            raise RuntimeError(f"kernel {key} was not launched by DensePose's training")
+    paths.append(([pooler_backward_row(torch, m, k2b.calls[-1], f"roi_align_multilevel_backward (projects c: "
+                                                                f"DensePose training, {b * PC_INSTANCES} ROIs on the "
+                                                                f"decoder map, gather read, one level, P {PC_P}, bf16 "
+                                                                f"gradient)", count="K2b gather")], launches))
+    return paths, dets
+
+
+def projects_trident(torch, m, dev, card, dets):
+    """TridentNet-R101's res4 stage (PC_TRIDENT, bf16 over float32, seeded,
+    FrozenBN calibrated) on a seeded res3 map of PC_TRIDENT_FRAMES 800^2
+    frames, on every branch and on branch 1; then ``merge_branch_detections``
+    on 4 frames x 3 branches x 100 detections, each branch the DensePose
+    path's detections jittered by a seeded draw (K4, counters reset just
+    before and read just after). Returns K4's row and the launches."""
+    tn = m.tridentnet
+    stage = tn.TridentStage(**PC_TRIDENT, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(201))
+    x = torch.randn((PC_TRIDENT_FRAMES, PC_TRIDENT_HW, PC_TRIDENT_HW, PC_TRIDENT["cin"]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(202))
+    calibrate_frozen_bn(torch, m, stage, x, run=stage)
+    ms = {}
+    with torch.no_grad():
+        for label, idx in (("every branch", None), ("branch 1", 1)):
+            for _ in range(2):  # the first call warms cuDNN
+                sync()
+                t0 = time.perf_counter()
+                y = stage(x, idx)
+                sync()
+                ms[label] = (time.perf_counter() - t0) * 1e3
+            ms[label + " shape"] = tuple(y.shape)
+            profile_call(torch, lambda: stage(x, idx), f"projects c: TridentNet-R101 res4, {label}")
+            if not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"projects c: TridentNet's stage on {label} is not finite")
+            if label == "every branch":
+                every = y[PC_TRIDENT_FRAMES:2 * PC_TRIDENT_FRAMES].float()
+        one_off = ((y.float() - every).abs().max() / every.abs().max()).item()
+    log(f"projects c: TridentNet-R101 res4 ({PC_TRIDENT['num_blocks']} blocks, bf16) on {PC_TRIDENT_FRAMES} frames' "
+        f"res3 {tuple(x.shape)} on {card}: {json.dumps({k: (round(v, 4) if isinstance(v, float) else v) for k, v in ms.items()})} "
+        f"ms; branch 1 alone against branch 1 of every branch: max difference {one_off:.3g} of scale (bf16; cuDNN's "
+        f"algorithms at batch {PC_TRIDENT_FRAMES} and {3 * PC_TRIDENT_FRAMES} may differ)")
+    del stage, x, y, every
+    gen = torch.Generator(device=dev).manual_seed(203)
+    b, r = dets["boxes"].shape[:2]
+    wh = (dets["boxes"][..., 2:] - dets["boxes"][..., :2]).repeat(1, 1, 2)
+    jitter = lambda: torch.randn((b, r, 4), generator=gen, device=dev) * 0.05 * wh  # noqa: E731
+    boxes = torch.cat([dets["boxes"] + jitter() for _ in range(3)])
+    scores = torch.cat([dets["scores"] * (0.9 + 0.2 * torch.rand((b, r), generator=gen, device=dev)) for _ in range(3)])
+    classes, valid = dets["classes"].repeat(3, 1), dets["valid"].float().repeat(3, 1)
+    k4 = Capture(m.nms, "nms_mask_sorted")
+    with k4:
+        reset_counts(m)
+        sync()
+        t0 = time.perf_counter()
+        mb, ms_, mc, mv = tn.merge_branch_detections(boxes, scores, classes, valid, 3, 0.5, r)
+        sync()
+        merge_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(m)
+    log(f"projects c: TridentNet's branch merge on {card}: {merge_ms:.4f} ms for {b} frames x 3 branches x {r} "
+        f"detections ({int(valid.sum())} valid) -> {tuple(mb.shape)}, {mv.sum(1).tolist()} kept; launches "
+        f"{json.dumps(launches)}")
+    if tuple(mb.shape) != (b, r, 4) or not bool(torch.isfinite(mb).all()) or launches["K4"] == 0:
+        raise RuntimeError("projects c: TridentNet's branch merge failed or did not launch K4")
+    nms_args = k4.calls[-1][0]
+    return [nms_row(torch, m, dev, nms_args, f"nms_mask_sorted (projects c: TridentNet's branch merge, "
+                                             f"{nms_args[1].shape[0]}x{nms_args[1].shape[1]})")], launches
+
+
+def backbone_step(torch, card, label, model, fpn, x, images):
+    """Two forwards (the first warms cuDNN), then two forward + backward
+    passes of <outputs, seeded cotangents> (their means) timed by CUDA
+    events: the first also grows the allocator's pool for the backward's
+    saved tensors, the second is the warm step; a third under
+    torch.profiler (``profile_call``: device time by kernel, busy share).
+    The backbone's gradients must be finite and nonzero in every parameter
+    but the PC_NULL_GRADS leaves, which stay below 1e-2 of the largest."""
+    with torch.no_grad():
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            feats = model(x)
+            outs = fpn({k: v.permute(0, 3, 1, 2) for k, v in feats.items()}) if fpn is not None else feats
+            sync()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+    shapes = {k: tuple(v.shape) for k, v in outs.items()}
+    del feats, outs
+    gen = torch.Generator(device=x.device).manual_seed(216)
+    cots = {k: torch.randn(sh, generator=gen, device=x.device) for k, sh in shapes.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(ev=None):
+        model.zero_grad(set_to_none=True)
+        if ev:
+            ev[0].record()
+        feats = model(x)
+        outs = fpn({k: v.permute(0, 3, 1, 2) for k, v in feats.items()}) if fpn is not None else feats
+        loss = sum((v.float() * cots[k]).mean() for k, v in outs.items())
+        if ev:
+            ev[1].record()
+        loss.backward()
+        if ev:
+            ev[2].record()
+        return loss
+
+    splits = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        loss = step(ev)
+        sync()
+        splits.append([round(ev[0].elapsed_time(ev[1]), 4), round(ev[1].elapsed_time(ev[2]), 4)])
+    profile_call(torch, step, f"projects c: {label}, a warm training step")
+    named = [(k, p.grad) for k, p in model.named_parameters()]
+    ok = all(g is not None and bool(torch.isfinite(g).all()) for _, g in named)
+    if not ok:
+        raise RuntimeError(f"projects c: {label}: a gradient is missing or not finite")
+    scale = max(g.abs().max().item() for _, g in named)
+    # the PC_NULL_GRADS leaves are zero in exact arithmetic: held below 1e-2 of the largest gradient, not to nonzero
+    # (bf16 keeps 8 bits, so the logits' gradient carries ~2e-3 of rounding; MViTv2 in bf16 on the CPU at 128^2
+    # reads 1.3e-4)
+    nulls = max((g.abs().max().item() / scale for k, g in named if k.endswith(PC_NULL_GRADS)), default=0.0)
+    live = [g for k, g in named if not k.endswith(PC_NULL_GRADS)]
+    nonzero = sum(int(bool(g.any())) for g in live)
+    log(f"projects c: {label} on {card}: forward {fwd_ms:.4f} ms ({images} images, no grad); training forward / "
+        f"backward {splits[1]} ms warm, {splits[0]} ms the first (CUDA events), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.4f} GB; outputs {shapes}; loss {loss.item():.6g}; gradients "
+        f"finite, nonzero in {nonzero} of {len(live)} parameters, {len(named) - len(live)} null-gradient leaves at "
+        f"{nulls:.3g} of the largest")
+    if not math.isfinite(loss.item()) or nonzero != len(live) or nulls > 1e-2:
+        raise RuntimeError(f"projects c: {label}: a gradient is zero, or a null-gradient leaf is not small")
+
+
+def projects_backbones(torch, m, dev, card):
+    """ViTDet-B (``ViTDetConfig()``: 768 wide, 12 deep, 12 heads, windows of
+    14, global blocks 2, 5, 8, 11; the position table 14^2 -> 64^2) at
+    PC_VIT_HW^2, batch PC_VIT_BATCH, into the port's FPN(256); MViTv2-B
+    (``MViTv2Config()``: 96 wide, depths 2, 3, 16, 3) at PC_MVIT_HW^2, batch
+    PC_MVIT_BATCH; both bf16 over float32, seeded, forward and two
+    training passes (``backbone_step``)."""
+    vd, mv = m.vitdet, m.mvitv2
+    vit = vd.ViTDetBackbone(vd.ViTDetConfig(), (PC_VIT_HW, PC_VIT_HW), dtype=torch.bfloat16, device=dev,
+                            generator=torch.Generator().manual_seed(211))
+    fpn = m.fpn.FPN({f"res{i}": vd.ViTDetConfig().out_channels for i in range(2, 6)}, 256)
+    m.layers.init_params(fpn, torch.Generator().manual_seed(212))
+    fpn.to(dev)
+    x = torch.randn((PC_VIT_BATCH, PC_VIT_HW, PC_VIT_HW, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(213))
+    backbone_step(torch, card, f"ViTDet-B + FPN(256) at {PC_VIT_HW}^2, batch {PC_VIT_BATCH} (bf16)", vit, fpn, x,
+                  PC_VIT_BATCH)
+    del vit, fpn, x
+    torch.cuda.empty_cache()
+    mvit = mv.MViTv2Backbone(mv.MViTv2Config(), (PC_MVIT_HW, PC_MVIT_HW), dtype=torch.bfloat16, device=dev,
+                             generator=torch.Generator().manual_seed(214))
+    x = torch.randn((PC_MVIT_BATCH, PC_MVIT_HW, PC_MVIT_HW, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(215))
+    backbone_step(torch, card, f"MViTv2-B at {PC_MVIT_HW}^2, batch {PC_MVIT_BATCH} (bf16)", mvit, None, x,
+                  PC_MVIT_BATCH)
+
+
+def projects_tower_and_swap(torch, m, dev, card):
+    """``BNConvTower`` at RetinaNet's head width (256 channels, 4 convs) on
+    seeded P3-P7 maps of an 800^2 batch of 4, both variants, a train-mode
+    call and an eval-mode one (bf16 over float32); ``swap_align2nat`` on
+    PC_SWAP_SHAPE float32 at lambda PC_SWAP_LAMBDA with its gradient, the
+    output held to the CPU's within 1e-5."""
+    rb, tmk = m.rethinking_bn, m.tensormask
+    gen = torch.Generator(device=dev).manual_seed(221)
+    feats = [torch.randn((HEADS_BATCH, s, s, 256), device=dev, generator=gen).to(torch.bfloat16) for s in PC_TOWER_HW]
+    for variant in ("cycle", "shared"):
+        tower = rb.BNConvTower(len(PC_TOWER_HW), 256, 256, 4, variant, dtype=torch.bfloat16, device=dev,
+                               generator=torch.Generator().manual_seed(222))
+        ms = {}
+        with torch.no_grad():
+            for mode in ("train", "eval"):
+                tower.train(mode == "train")
+                for _ in range(2):
+                    sync()
+                    t0 = time.perf_counter()
+                    outs = tower(feats)
+                    sync()
+                    ms[mode] = round((time.perf_counter() - t0) * 1e3, 4)
+                if not all(bool(torch.isfinite(o).all()) for o in outs):
+                    raise RuntimeError(f"projects c: BNConvTower {variant} in {mode} mode is not finite")
+        log(f"projects c: BNConvTower ({variant}, 4 x 256) on {HEADS_BATCH} frames' P3-P7 "
+            f"{[tuple(f.shape[1:3]) for f in feats]} on {card}: {json.dumps(ms)} ms (the train call moves each "
+            f"level's statistics; the eval call reads them); norm0's statistics {tuple(tower.norm0.mean.shape)}")
+    x = torch.randn(PC_SWAP_SHAPE, device=dev, generator=gen)
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        y = tmk.swap_align2nat(x, PC_SWAP_LAMBDA)
+        sync()
+        swap_ms = (time.perf_counter() - t0) * 1e3
+    err = (y.cpu() - tmk.swap_align2nat(x.cpu(), PC_SWAP_LAMBDA)).abs().max().item()
+    xg = x.clone().requires_grad_()
+    tmk.swap_align2nat(xg, PC_SWAP_LAMBDA).square().mean().backward()
+    log(f"projects c: swap_align2nat {PC_SWAP_SHAPE} at lambda {PC_SWAP_LAMBDA} on {card}: {swap_ms:.4f} ms -> "
+        f"{tuple(y.shape)}, max error against the CPU {err:.3g} (bar 1e-5); gradient finite "
+        f"{bool(torch.isfinite(xg.grad).all())}")
+    if err > 1e-5 or not bool(torch.isfinite(xg.grad).all()):
+        raise RuntimeError("projects c: swap_align2nat differs from the CPU or its gradient is not finite")
+
+
+def projects_c_phase(torch, m, dev, card):
+    """DensePose, TridentNet, ViTDet, MViTv2, TensorMask and Rethinking-BN on
+    the card: first their tiny paths against the CPU; then DensePose on
+    config_1's X101 detector (K2's gather read at P 28 on one level and on
+    four, K2b's in training), TridentNet-R101's res4 and branch merge (K4),
+    ViTDet-B and MViTv2-B, BNConvTower and swap_align2nat at full width.
+    Yields each kernel path's (rows, launches)."""
+    t0 = time.perf_counter()
+    check_projects_c_tiny_against_cpu(torch, m)
+    paths, dets = projects_densepose(torch, m, dev, card)
+    for path in paths:
+        yield path
+    del paths
+    torch.cuda.empty_cache()
+    yield projects_trident(torch, m, dev, card, dets)
+    del dets
+    torch.cuda.empty_cache()
+    projects_backbones(torch, m, dev, card)
+    torch.cuda.empty_cache()
+    projects_tower_and_swap(torch, m, dev, card)
+    log(f"projects c phase: {time.perf_counter() - t0:.1f} s")
+
+
 def compare(got, want, tol) -> tuple[float, float, bool]:
     """(max abs error, share of entries off, within the limit). ``tol``
     "int8": the JAX package's rule for its int8 kernels (every int8 entry
@@ -6419,6 +6967,9 @@ def load_port():
     from spacecraft_pose_estimation_tpu_torch.tools import benchmark, demo
     from spacecraft_pose_estimation_tpu_torch.utils import analysis, collect_env, memory, vis
     from spacecraft_pose_estimation_tpu_torch.projects import deeplab, panoptic_deeplab, point_rend, pointsup
+    from spacecraft_pose_estimation_tpu_torch.projects import (
+        densepose, mvitv2, rethinking_bn, tensormask, tridentnet, vitdet,
+    )
 
     m = SimpleNamespace(rcnn=rcnn, hrnet=hrnet, hrnet_int8=hrnet_int8, backbone_int8=backbone_int8, pnp=pnp,
                         geometry=geometry, pipeline=pipeline, serving=serving, warp=warp, roi_align=roi_align,
@@ -6440,7 +6991,9 @@ def load_port():
                         trainer=trainer, s2d=s2d, lazyconfig_train=lazyconfig_train, parallel=parallel,
                         multihost=multihost, benchmark=benchmark, demo=demo, analysis=analysis,
                         collect_env=collect_env, memory=memory, vis=vis, point_rend=point_rend, pointsup=pointsup,
-                        deeplab=deeplab, panoptic_deeplab=panoptic_deeplab)
+                        deeplab=deeplab, panoptic_deeplab=panoptic_deeplab, densepose=densepose,
+                        tridentnet=tridentnet, vitdet=vitdet, mvitv2=mvitv2, tensormask=tensormask,
+                        rethinking_bn=rethinking_bn)
     # kernel id -> (module, wrapper name, launch counter)
     m.kernels = {
         "K1": (warp, "crop_bilinear", warp.KERNEL), "K2": (roi_align, "roi_align_multilevel", roi_align.KERNEL),
@@ -6609,6 +7162,14 @@ def main() -> int:
     # inference; K2 and K2b in the gather read under PointSup), DeepLabV3+ R103 with PointRend's semantic head, and
     # Panoptic-DeepLab R52 with its post-processing
     for rows, launches in projects_phase(torch, m, dev, card):
+        report += kernel_report(rows, launches)
+        del rows
+    torch.cuda.empty_cache()
+
+    # the last projects: DensePose on config_1's X101 detector (K2's gather read at P 28 on the decoder's map and on
+    # P2-P5, K2b's in training), TridentNet-R101's res4 and its branch merge (K4), ViTDet-B and MViTv2-B at 1024^2,
+    # BNConvTower at RetinaNet's head width and swap_align2nat
+    for rows, launches in projects_c_phase(torch, m, dev, card):
         report += kernel_report(rows, launches)
         del rows
 

@@ -8,15 +8,22 @@ The port's module names mirror the Flax trees of ``HRNet``,
 ``roi_heads.box_head.fc1``, ``head.cls_conv0``, ``p6``,
 ``mask_head.mask_fcn1``, ``box_head0.fc1``, ``s3_b1.se.fc1``, ``atrous2``,
 ``seq0.bn``, ``coarse_head.reduce_s``, ``point_head.fc1``, ``res5_b2.conv2``,
-``decoder.fuse_res2_0``, ``center_head1`` ...), so the map is by name: conv
-kernels go from HWIO to OIHW, transposed-conv kernels (the modules named
-``deconv``, ``deconv0`` ...: the CMS heads', PoseResNet's and the mask
-head's; and the keypoint head's ``score_lowres``) are flipped in space and
-laid out (in, out, kh, kw), a raw 4-d ``kernel`` parameter (``DeformConv``'s)
-goes from HWIO to OIHW as ``weight`` like a conv's, dense kernels are
-transposed, and everything else (biases, BN scale/bias, the ``batch_stats``
-or frozen ``mean``/``var``, and the ``buffers`` collection: the implicit
-PointRend head's ``positional_encoding_gaussian_matrix``) is copied as it is.
+``decoder.fuse_res2_0``, ``center_head1``, ``densepose_head.gn1``,
+``block2.conv2``, ``block0.attn.qkv``, ``stage1_block0.attn.pool_q``,
+``norm0`` ...), so the map is by name: conv kernels go from HWIO to OIHW
+(depthwise ones, MViTv2's (3, 3, 1, C) pools, too), transposed-conv kernels
+(the modules named ``deconv``, ``deconv0`` ...: the CMS heads', PoseResNet's
+and the mask head's; the keypoint head's ``score_lowres``; DensePose's
+``ann_index_lowres``, ``index_uv_lowres``, ``u_lowres`` and ``v_lowres``;
+ViTDet's ``up_res3``, ``up_res2a`` and ``up_res2b``) are flipped in space and
+laid out (in, out, kh, kw), a raw 4-d ``kernel`` parameter (``DeformConv``'s,
+``TridentConv``'s) goes from HWIO to OIHW as ``weight`` like a conv's, dense
+kernels are transposed, and everything else (biases, BN, LayerNorm and
+GroupNorm scale/bias, the ``batch_stats`` or frozen ``mean``/``var``, the
+Rethinking-BN layer's per-domain (domains, C) ``batch_stats``, ViTDet's
+``pos_embed``, the ``rel_pos_h`` / ``rel_pos_w`` tables, and the ``buffers``
+collection: the implicit PointRend head's
+``positional_encoding_gaussian_matrix``) is copied as it is.
 
 :func:`quantized_to_torch` carries an int8 quantized tree
 (``quantize_hrnet`` or ``quantize_backbone`` output) over key for key: the
@@ -46,7 +53,7 @@ def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()) -> Iterator[tuple[tuple
             yield prefix + (str(key),), np.asarray(value)
 
 
-_DECONV = re.compile(r"deconv\d*|score_lowres")
+_DECONV = re.compile(r"deconv\d*|score_lowres|(ann_index|index_uv|u|v)_lowres|up_res(3|2a|2b)")
 
 
 def _is_deconv(modules: list[str]) -> bool:
@@ -64,7 +71,9 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     ``models.regnet.RegNet``, ``ops.deform_conv.DeformConv``,
     ``models.extra_layers.ASPP``, ``models.layers.ConvSeq`` and the
     ``projects/`` modules (``point_rend``'s heads, ``deeplab``'s trunk and
-    heads, ``panoptic_deeplab``'s heads);
+    heads, ``panoptic_deeplab``'s heads, ``densepose``'s heads and decoder,
+    ``tridentnet``'s stage, ``vitdet``'s and ``mvitv2``'s backbones,
+    ``rethinking_bn``'s tower);
     load the result with ``load_state_dict(..., strict=True)`` so that a
     name the two sides disagree on raises.
     """

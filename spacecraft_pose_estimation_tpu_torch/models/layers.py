@@ -20,6 +20,7 @@ from torch import nn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # Flax's momentum: running = 0.9 * running + 0.1 * batch
+FLAX_NORM_EPS = 1e-6  # Flax's nn.LayerNorm and nn.GroupNorm default epsilon (PyTorch's is 1e-5)
 
 
 class Conv(nn.Module):
@@ -141,6 +142,59 @@ class BatchNorm(nn.Module):
             self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
             self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
         return y.to(x.dtype)
+
+
+def _flax_stats(xf, dims):
+    """Flax's ``_compute_stats`` of float32 ``xf`` over ``dims``: the mean and
+    the fast variance max(0, E[x^2] - E[x]^2), kept as dims of size 1."""
+    mu = xf.mean(dims, keepdim=True)
+    return mu, torch.clamp((xf * xf).mean(dims, keepdim=True) - mu * mu, min=0.0)
+
+
+class LayerNorm(nn.Module):
+    """Flax's ``nn.LayerNorm`` over the last axis of a channels-last tensor:
+    ``scale`` and ``bias`` parameters, epsilon 1e-6, the statistics in
+    float32 with the fast variance E[x^2] - E[x]^2 (``use_fast_variance``),
+    the output in the input's dtype."""
+
+    def __init__(self, features: int, eps: float = FLAX_NORM_EPS):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        xf = x.float()
+        mu, var = _flax_stats(xf, -1)
+        return ((xf - mu) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Flax's ``nn.GroupNorm`` (``num_groups`` groups of consecutive
+    channels) on NCHW: ``scale`` and ``bias`` parameters, epsilon 1e-6, each
+    group's statistics over its channels and H, W in float32 with the fast
+    variance, the output in the input's dtype."""
+
+    def __init__(self, features: int, num_groups: int = 32, eps: float = FLAX_NORM_EPS):
+        super().__init__()
+        if features % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {features} channels")
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        n, c = x.shape[:2]
+        g = (self.num_groups, c // self.num_groups) + (1,) * (x.ndim - 2)
+        xg = x.float().reshape(n, *g[:2], *x.shape[2:])
+        mu, var = _flax_stats(xg, tuple(range(2, xg.ndim)))
+        y = (xg - mu) * (torch.rsqrt(var + self.eps) * self.scale.reshape(g)) + self.bias.reshape(g)
+        return y.reshape(x.shape).to(x.dtype)
+
+
+def gelu(x):
+    """Flax's ``nn.gelu`` (``approximate=True``): the tanh form."""
+    return F.gelu(x, approximate="tanh")
 
 
 class ConvBN(nn.Module):

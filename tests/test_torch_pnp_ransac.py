@@ -30,6 +30,8 @@ inliers, at least 3 of them (6 equations for 6 unknowns); how many frames
 that is, per case, is held to the count measured (``HELD_F32``).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -47,7 +49,8 @@ from spacecraft_pose_estimation_tpu_torch.models.hrnet import HRNET_TINY, HRNet
 from spacecraft_pose_estimation_tpu_torch.ops import pnp as tpnp
 
 from torch_port_util import few_threads  # noqa: F401 (the fixture)
-from torch_port_util import jax_gumbel, jax_hypotheses, n, port_hypotheses, random_variables, t, to_jax
+from torch_port_util import _frozen, _thawed, jax_gumbel, jax_hypotheses, n, port_hypotheses, random_variables, t, \
+    to_jax
 
 pytestmark = pytest.mark.usefixtures("few_threads")
 
@@ -89,11 +92,21 @@ def _scene(seed, case, j, b=4):
     return world, R, tr, px.astype(np.float32), conf, dist
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_ransac_fn(min_count, k_key, dist_key):
+    """The jitted JAX ``pnp_ransac`` over a batch, built once per camera and
+    ``min_count``: the cases of one shape share its compile. K and the
+    distortion are constants of the trace, as they were when each call
+    built its own."""
+    k_mat, dist = _thawed(k_key), _thawed(dist_key)
+    return jax.jit(jax.vmap(lambda w, p, c, k: jpnp.pnp_ransac(
+        w, p, jnp.asarray(k_mat), jnp.asarray(dist), c, k, num_hypotheses=H, sample_size=S,
+        reproj_threshold=THRESH, refine_iters=10, min_count=min_count)))
+
+
 def _jax_ransac(world, px, conf, dist, key, min_count, k_mat=K):
     b = px.shape[0]
-    return jax.tree_util.tree_map(np.asarray, jax.jit(jax.vmap(lambda w, p, c, k: jpnp.pnp_ransac(
-        w, p, jnp.asarray(k_mat), jnp.asarray(dist), c, k, num_hypotheses=H, sample_size=S,
-        reproj_threshold=THRESH, refine_iters=10, min_count=min_count)))(
+    return jax.tree_util.tree_map(np.asarray, _jax_ransac_fn(min_count, _frozen(k_mat), _frozen(dist))(
         jnp.asarray(np.broadcast_to(world, (b, *world.shape[-2:]))), jnp.asarray(px), jnp.asarray(conf),
         jax.random.split(key, b)))
 

@@ -442,3 +442,38 @@ def test_projects_modules_need_cuda_or_an_explicit_device():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert next(deeplab.DeepLabResNet(deeplab.DEEPLAB_TINY, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_no_jax_check_covers_the_last_projects_modules():
+    """DensePose, TridentNet, ViTDet, MViTv2, TensorMask and Rethinking-BN take
+    the point_rend resizes and ViTDet's rel-pos from the port's own modules:
+    the import check above reaches each of them."""
+    sources = {p.relative_to(PORT).as_posix() for p in _port_sources() if PORT in p.parents}
+    assert {f"projects/{name}.py" for name in ("densepose", "tridentnet", "vitdet", "mvitv2", "tensormask",
+                                               "rethinking_bn")} <= sources
+
+
+def test_last_projects_modules_need_cuda_or_an_explicit_device():
+    if torch.cuda.is_available():
+        return
+    from spacecraft_pose_estimation_tpu_torch.projects import densepose, mvitv2, rethinking_bn, tridentnet, vitdet
+
+    dp = densepose.DensePoseConfig(num_stacked_convs=1, conv_head_dim=32, num_patches=3, decoder_channels=8)
+    builds = (lambda: densepose.DensePoseHead(dp, 8), lambda: densepose.DensePoseDecoder(dp, 8),
+              lambda: densepose.DensePoseHead(densepose.DensePoseConfig(**{**dp.__dict__, "head": "deeplab"}), 8),
+              lambda: tridentnet.TridentStage(1, 8, 16, 4), lambda: vitdet.ViTDetBackbone(vitdet.VITDET_TINY, (64, 64)),
+              lambda: mvitv2.MViTv2Backbone(mvitv2.MVITV2_TINY, (64, 64)),
+              lambda: rethinking_bn.BNConvTower(2, 4, 8), lambda: rethinking_bn.CycleBatchNorm(2, 8))
+    for build in builds:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    for module in (densepose.DensePoseHead(dp, 8, device="cpu"), tridentnet.TridentStage(1, 8, 16, 4, device="cpu"),
+                   vitdet.ViTDetBackbone(vitdet.VITDET_TINY, (64, 64), device="cpu"),
+                   mvitv2.MViTv2Backbone(mvitv2.MVITV2_TINY, (64, 64), device="cpu"),
+                   rethinking_bn.BNConvTower(2, 4, 8, device="cpu")):
+        assert next(module.parameters()).device.type == "cpu"
+    # the layers inside them are built on the CPU, as models.layers' are, and placed by the module that holds them
+    for layer in (densepose.DensePoseChartPredictor(dp, 8), tridentnet.TridentConv(4, 4),
+                  tridentnet.TridentBottleneckBlock(8, 16, 4), vitdet.Attention(8, 2, True, (4, 4)),
+                  mvitv2.MultiScaleAttention(8, 8, 1, 1, 1, True, True, (4, 4))):
+        assert next(layer.parameters()).device.type == "cpu"

@@ -6,6 +6,8 @@ JAX package and its PyTorch port, which runs on the CPU.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -95,19 +97,29 @@ def jax_gumbel(key, b: int, h: int, num: int) -> np.ndarray:
     return np.asarray(jax.vmap(per_hyp)(jax.random.split(key, b)))
 
 
-def jax_hypotheses(world, px, conf, K, dist, key, num_hypotheses: int, sample_size: int = 6,
-                   threshold: float = 15.0, min_count: int = 15) -> dict:
-    """The hypotheses of the JAX ``pnp_ransac`` by its own steps
-    (ops/pnp.py:400-420): every point's reprojection error under each,
-    ``err`` (b, H, N); its inliers ``inl`` (b, H, N); the inlier counts
-    ``scores`` (b, H); the chosen hypothesis ``best`` (b,) and its inliers,
-    ``best_inl`` (b, N), the refinement's weights. ``world`` is (N, 3) or
-    (b, N, 3)."""
+def _frozen(a) -> tuple:
+    """A numpy array as a hashable key: its bytes, dtype and shape."""
+    a = np.asarray(a)
+    return a.tobytes(), a.dtype.str, a.shape
+
+
+def _thawed(key) -> np.ndarray:
+    data, dtype, shape = key
+    return np.frombuffer(data, np.dtype(dtype)).reshape(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_hypotheses_fn(k_key, dist_key, num_hypotheses: int, sample_size: int, threshold: float, min_count: int):
+    """The jitted per-frame hypotheses of ``jax_hypotheses``, built once per
+    camera and settings: the cases of a module that share a shape share its
+    compile. K and the distortion are constants of the trace, as they were
+    when each call built its own."""
     from spacecraft_pose_estimation_tpu.ops import pnp as jpnp
 
-    Kj, dj = jnp.asarray(K), jnp.asarray(dist)
+    K, dist = _thawed(k_key), _thawed(dist_key)
 
     def frame(w, p, c, k):
+        Kj, dj = jnp.asarray(K), jnp.asarray(dist)
         n_pts = p.shape[0]
         valid = jpnp.adaptive_confidence_mask(c, min_count=min_count)
         vf = valid.astype(jnp.float32)
@@ -125,9 +137,21 @@ def jax_hypotheses(world, px, conf, K, dist, key, num_hypotheses: int, sample_si
         best = jnp.argmax(scores)
         return dict(err=err, inl=inl, scores=scores, best=best, best_inl=inl[best])
 
+    return jax.jit(jax.vmap(frame))
+
+
+def jax_hypotheses(world, px, conf, K, dist, key, num_hypotheses: int, sample_size: int = 6,
+                   threshold: float = 15.0, min_count: int = 15) -> dict:
+    """The hypotheses of the JAX ``pnp_ransac`` by its own steps
+    (ops/pnp.py:400-420): every point's reprojection error under each,
+    ``err`` (b, H, N); its inliers ``inl`` (b, H, N); the inlier counts
+    ``scores`` (b, H); the chosen hypothesis ``best`` (b,) and its inliers,
+    ``best_inl`` (b, N), the refinement's weights. ``world`` is (N, 3) or
+    (b, N, 3)."""
+    fn = _jax_hypotheses_fn(_frozen(K), _frozen(dist), num_hypotheses, sample_size, threshold, min_count)
     b = px.shape[0]
     world = np.broadcast_to(world, (b, *np.shape(world)[-2:]))
-    out = jax.jit(jax.vmap(frame))(jnp.asarray(world), jnp.asarray(px), jnp.asarray(conf), jax.random.split(key, b))
+    out = fn(jnp.asarray(world), jnp.asarray(px), jnp.asarray(conf), jax.random.split(key, b))
     return {k: np.asarray(v) for k, v in out.items()}
 
 
