@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Where the time of the port's kernels goes, on one CUDA card: the int8 tensor-core kernels K5a, K5, K6
-and K7, the ROIAlign kernel (K2 on the FPN, K3 on one map), its backward K2b and the NMS K4.
+and K7, the ROIAlign kernel (K2 on the FPN, K3 on one map), its backward K2b, the NMS K4 and the crop K1.
 
     python3 chip_ablate.py [--before TREE] [KERNEL ...]
 
@@ -11,18 +11,21 @@ variant into the gitignored ``_build/ablate/``, edits one piece of a
 kernel out of each copy (the tensor-core conv body's epilogue, wgmma or
 copies into shared memory, K5's cluster barriers, the ROIAlign kernel's loads, its stores or all
 but its launch, K2b's grad_out loads, its sums, all but its footprint walk, its stores or all but its
-launches, K4's overlap phase, its walk or all but its launch), changes one of its sizes, or swaps in an
+launches, K4's overlap phase, its walk or all but its launch, K1's staging and x contraction (its
+stores alone), its stores, its x contraction or its copies into shared memory), changes one of its sizes, or swaps in an
 exact alternative (K2b's rows a warp and columns a block; the ROIAlign sampling ratio fixed at the served 2, K4's IoU
 decision by division, its walk not unrolled or not skipping empty
-quarters of a word), builds each copy's sources of the kernels the variant
+quarters of a word; K1's bytes turned into floats by I2F, its blocks' starts staggered, 128 threads a block,
+its tiles of 4 rows, of 64 columns, of 16 rows by 64), builds each copy's sources of the kernels the variant
 touches (one nvcc per source, in parallel), and times each variant's
 kernels at the serving shapes (HRNet-W32's four branch chains; R101 and
 HRNet conv sites; layer1 in 32-row strips and in two strips per image;
 three fuse-exchange outputs; K2 on 256 boxes over the four R101-FPN
 levels; K3 on 64 P2-sized boxes on one 192x192x256 bf16 map; K4 on the RPN's and the box head's problems, with as many valid
 boxes as the served ones and with most valid; K2b on tools/train_detector's config_1 call: 512 ROIs over
-the bf16 P2-P5 of 4 images at 800^2, C 256, a quarter of each image's clustered on its object) from CUDA
-graphs, turn by turn in one process. With ``--before TREE``, a checkout of the port as it was when K2b
+the bf16 P2-P5 of 4 images at 800^2, C 256, a quarter of each image's clustered on its object; K1 on
+each path's crop as chip_smoke.py's rows report it, from seeded frames and parameters of the same frame
+size, crop size, count and step: ``K1_SHAPES``) from CUDA graphs, turn by turn in one process. With ``--before TREE``, a checkout of the port as it was when K2b
 summed with float32 atomics (the commit before the owner-computes K2b), the kernel id ``K2b-atomic`` times
 that K2b too, split into its memset and cast alone, its atomic kernel alone, and the atomic kernel with
 each ROI's gradient sent to a private buffer of its own (no two ROIs add into one address), and ``K4-before``
@@ -32,11 +35,15 @@ and ``K2b-before`` time that tree's K2 and K2b on K2's call (the Pallas read win
 windowed one) and hold them bit for bit to this tree's (a change that adds a read keeps these), and
 ``K5a-before``, ``K5-before``, ``K6-before`` and ``K7-before`` likewise time that tree's int8 kernels on
 the int8 shapes below, held bit for bit to this tree's (``K5a-before`` through the C entry that K5a had
-before it took explicit padding and a clip bound: no ``lo``, padding k // 2). Only the
+before it took explicit padding and a clip bound: no ``lo``, padding k // 2). ``K1-before`` times that
+tree's K1 on every K1 shape, held bit for bit to this tree's, and once more with its loads cut out (its
+stores alone). With ``K1`` the script then splits the host's cost of one K1 call into its layers
+(``k1_host_split``: 2,000 calls of each under ``time.perf_counter_ns``, on the demo's crop), this tree's
+route beside a ``torch.library.custom_op`` route rebuilt here for comparison, and ``F.grid_sample``. Only the
 unedited source and the exact
 alternatives are held to the plain versions: the others compute wrong answers
 on purpose, and their times say what the removed piece costs. Prints the
-card, one JSON line per shape and a last line ``{"ok": true, ...}``;
+card, one JSON line per shape (and per host layer) and a last line ``{"ok": true, ...}``;
 without a CUDA device it exits 1.
 """
 
@@ -61,7 +68,7 @@ ATOMIC_NO_MEMSET_CAST = [("roi_align_multilevel_backward.cu", "  for (int l = 0;
 PRIVATE_W, PRIVATE_CELLS = 56, 48 * 56
 # variant -> (kernel ids it applies to, [(file, text, replacement)] applied to a copy of csrc/)
 VARIANTS = {
-    "as committed": (INT8 + ("K2", "K3", "K4", "K2b"), []),
+    "as committed": (INT8 + ("K2", "K3", "K4", "K2b", "K1"), []),
     "no epilogue": (INT8, [("int8_mma.cuh", "  store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);",
                             "  if (acc[0] == 0x7fffffff) store_tile<TN>(cw, rg, ld.p_base, ld.c_base, acc, smem, epi);")]),
     "no wgmma": (INT8, [("int8_mma.cuh",
@@ -149,11 +156,47 @@ VARIANTS = {
     "K2 and K2b before (exact)": (("K2-before", "K2b-before"), []),
     # --before's int8 kernels on the int8 shapes: bit-equal to this tree's
     "int8 before (exact)": (("K5a-before", "K5-before", "K6-before", "K7-before"), []),
+    # K1: its stores alone (no staging, no x contraction: the y pass reads whatever shared memory holds), no
+    # stores, no x contraction, no copies into shared memory, bytes turned into floats by the conversion unit, the
+    # blocks' starts staggered (the first three crops' blocks, or every block: do blocks that start together read
+    # and write in step?), 128 threads a block, other tiles; then --before's K1, whole and with its loads cut out
+    "K1 stores only": (("K1",), [("crop_bilinear.cu", "r < nrows; r += kWarps)", "r < 0; r += kWarps)"),
+                                 ("crop_bilinear.cu", "    if (x >= xa && x < xb) {", "    if (nx < 0) {")]),
+    "K1 no stores": (("K1",), [("crop_bilinear.cu", "float4 v) { *reinterpret_cast<float4*>(p) = v; }",
+                                "float4 v) { if (v.x == 12345.f) *reinterpret_cast<float4*>(p) = v; }"),
+                               ("crop_bilinear.cu", "float v) { *p = v; }", "float v) { if (v == 12345.f) *p = v; }")]),
+    "K1 no x contraction": (("K1",), [("crop_bilinear.cu", "    if (x >= xa && x < xb) {", "    if (nx < 0) {")]),
+    "K1 no staging copies": (("K1",), [("crop_bilinear.cu", "          cp_async16(dst, piece);", "          ;")]),
+    "K1 bytes to floats by I2F (exact)": (("K1",), [("crop_bilinear.cu",
+                                                     "  return __fsub_rn(__int_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | k)), 8388608.f);",
+                                                     "  return static_cast<float>((w >> (8 * k)) & 0xffu);")]),
+    "K1 first wave staggered 0-0.9 us (exact)": (("K1",), [("crop_bilinear.cu",
+        "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;",
+        "  if (blockIdx.z < 3) __nanosleep((blockIdx.y % 4) * 300);\n  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;")]),
+    "K1 first wave staggered 0-1.4 us (exact)": (("K1",), [("crop_bilinear.cu",
+        "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;",
+        "  if (blockIdx.z < 3) __nanosleep((blockIdx.y % 8) * 200);\n  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;")]),
+    "K1 every block staggered 0-0.6 us (exact)": (("K1",), [("crop_bilinear.cu",
+        "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;",
+        "  __nanosleep(((blockIdx.y * 5 + blockIdx.x) % 4) * 200);\n  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;")]),
+    "K1 128 threads (exact)": (("K1",), [("crop_bilinear.cu", "constexpr int kThreads = 256;",
+                                          "constexpr int kThreads = 128;")]),
+    "K1 tiles of 4 rows (exact)": (("K1",), [("crop_bilinear.cu", "constexpr int kTileRows = 8;",
+                                              "constexpr int kTileRows = 4;")]),
+    "K1 tiles of 64 columns (exact)": (("K1",), [("crop_bilinear.cu", "constexpr int kTileCols = 128;",
+                                                  "constexpr int kTileCols = 64;")]),
+    "K1 tiles of 16 rows by 64 (exact)": (("K1",), [("crop_bilinear.cu", "constexpr int kTileRows = 8;",
+                                                     "constexpr int kTileRows = 16;"),
+                                                    ("crop_bilinear.cu", "constexpr int kTileCols = 128;",
+                                                     "constexpr int kTileCols = 64;")]),
+    "K1 before (exact)": (("K1-before",), []),
+    "K1 before: stores only": (("K1-before",), [("crop_bilinear.cu", "  if (xs > -1.f && xs < static_cast<float>(W)",
+                                                 "  if (W < 0 && xs > -1.f && xs < static_cast<float>(W)")]),
 }
 # variants that must still agree with the plain versions: the committed sources and the other exact designs
 EXACT = ("as committed",) + tuple(name for name in VARIANTS if name.endswith("(exact)"))
 INT8_BEFORE = ("K5a-before", "K5-before", "K6-before", "K7-before")
-BEFORE = ("K2b-atomic", "K4-before", "K2-before", "K2b-before") + INT8_BEFORE  # kernel ids built from --before's
+BEFORE = ("K2b-atomic", "K4-before", "K2-before", "K2b-before", "K1-before") + INT8_BEFORE  # built from --before's
 SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_block_chain.cu", "basic_block_chain"),
            "K6": ("bottleneck_chain.cu", "bottleneck_chain"), "K7": ("up_exchange.cu", "up_exchange"),
            "K2": ("roi_align_multilevel.cu", "roi_align_multilevel"), "K3": ("roi_align_multilevel.cu", "roi_align_single"),
@@ -164,7 +207,8 @@ SOURCES = {"K5a": ("int8_conv_requant.cu", "int8_conv_requant"), "K5": ("basic_b
            "K2b-before": ("roi_align_multilevel_backward.cu", "roi_align_multilevel_backward"),
            "K5a-before": ("int8_conv_requant.cu", "int8_conv_requant"),
            "K5-before": ("basic_block_chain.cu", "basic_block_chain"),
-           "K6-before": ("bottleneck_chain.cu", "bottleneck_chain"), "K7-before": ("up_exchange.cu", "up_exchange")}
+           "K6-before": ("bottleneck_chain.cu", "bottleneck_chain"), "K7-before": ("up_exchange.cu", "up_exchange"),
+           "K1": ("crop_bilinear.cu", "crop_bilinear"), "K1-before": ("crop_bilinear.cu", "crop_bilinear")}
 # K5a's C entry before it took a clip bound and explicit padding: (x, wk, m, b, out, B, H, W, Cin, Ho, Wo, Cout,
 # k, stride, groups, relu, out_f32, stream)
 K5A_BEFORE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
@@ -175,6 +219,20 @@ CONVS = [  # (B, H, W, Cin, Cout, k, stride): R101 at the 768 letterbox, HRNet-W
     (4, 48, 48, 256, 1024, 1, 1), (4, 24, 24, 512, 2048, 1, 1), (16, 64, 64, 32, 64, 3, 2),
 ]
 LAYER1 = (16, 128, 128, 64, 64, 256, 4)  # (B, H, W, Cin0, Cm, Cout, blocks): HRNet-W32 layer1 at 512
+# K1 on each path's crop (PERF.md's K1 rows): (label, crops, frame (H, W), crop side, step in px a pixel, where the
+# crops lie: "inside" the frame or across its "edge"); the steps from the rows' bytes (tapped cells a crop), the
+# evaluation entry's from its logged crops (3.7-4.0), the CMS evaluation's a guess above 2
+K1_SHAPES = [
+    ("served", 16, (1200, 1920), 512, 1.39, "inside"),
+    ("evaluation entry, mostly off the frame", 8, (1200, 1920), 512, 3.8, "edge"),
+    ("train_landmarks validation", 16, (720, 1280), 512, 0.78, "inside"),
+    ("train_landmarks_da validation", 16, (1200, 1920), 768, 0.8, "inside"),
+    ("CMS evaluation, partly off the frame", 8, (1200, 1920), 768, 2.5, "edge"),
+    ("export_model's program", 8, (1200, 1920), 512, 1.33, "inside"),
+    ("event evaluation", 8, (260, 346), 512, 0.36, "inside"),
+    ("dvs pipeline validation, wider than the frame", 11, (720, 1280), 512, 2.0, "inside"),
+    ("tools.demo", 1, (1200, 1920), 512, 1.5, "inside"),
+]
 EXCHANGES = [  # (B, H, C, downs, [(f, C_j)]): W32 fuse outputs at 512
     (16, 128, 32, 0, [(2, 64), (4, 128)]),  # stage 3, output 0
     (16, 64, 64, 1, [(2, 128), (4, 256)]),  # stage 4, output 1
@@ -342,17 +400,148 @@ def k2b_workloads(torch, ra, keys, atomic):
     return out
 
 
+def k1_problem(torch, b, hw, side, step, where, seed):
+    """K1's arguments for one ``K1_SHAPES`` entry: seeded uint8 frames and (b, 4) parameters whose crops of
+    ``side``^2 sample every ``step`` px around centres inside the frame, or across its edge."""
+    gen = torch.Generator().manual_seed(seed)
+    h, w = hw
+    frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8).cuda()
+    u = lambda: torch.rand(b, generator=gen, dtype=torch.float64)
+    half = step * side / 2
+    if where == "edge":
+        cx, cy = u() * w, (u() < 0.5) * h + (u() - 0.5) * half
+    else:  # inside where the crop fits, else centred
+        cx, cy = (half + u() * max(w - 2 * half, 0.0) if 2 * half < w else torch.full((b,), w / 2.0),
+                  half + u() * max(h - 2 * half, 0.0) if 2 * half < h else torch.full((b,), h / 2.0))
+    params = torch.stack([torch.full((b,), step, dtype=torch.float64), cx - half,
+                          torch.full((b,), step, dtype=torch.float64), cy - half], -1).float().cuda()
+    return frames, params, (side, side)
+
+
+def k1_workloads(torch, warp, keys):
+    """K1 (and ``K1-before``, its answer this tree's kernel's) on every ``K1_SHAPES`` entry."""
+    out = []
+    for i, (label, b, hw, side, step, where) in enumerate(K1_SHAPES):
+        args = k1_problem(torch, b, hw, side, step, where, i)
+        text = f"K1 {label}: {b} crops of {side}^2 from {hw[1]}x{hw[0]}, step {step}"
+        call = functools.partial(warp.crop_bilinear, *args)
+        if "K1" in keys:
+            out.append((text, "K1", call, warp.crop_bilinear_plain(*args)))
+        if "K1-before" in keys:  # this tree's kernel, built as committed, gives the answer
+            out.append((text, "K1-before", call, call()))
+    return out
+
+
+def per_call_us(torch, fn, calls: int = 2000, warm: int = 200) -> float:
+    """Host microseconds of one ``fn()``: ``calls`` back-to-back calls under ``time.perf_counter_ns``, then a
+    synchronize (the launches queue up only where a call's host time is below its device time, which no
+    K1 layer's is)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / calls / 1e3
+
+
+def k1_host_split(torch, warp, cuda, rounds: int = 3) -> dict:
+    """The host's cost of one K1 call on the demo's crop (one 512^2 crop of a 1920x1200 frame at step 1.5),
+    layer by layer: this tree's route (``warp.crop_bilinear`` -> ``torch.ops.spe_port.crop_bilinear``, a
+    ``torch.library.Library`` operator -> ``_crop_bilinear_cuda`` -> ``Kernel.launch``), the operator as a
+    ``torch.library.custom_op`` instead, rebuilt here, whose CUDA implementation reads the stream through
+    ``torch.cuda.current_stream()``, each piece alone, and ``F.grid_sample`` on the same crop. Rounds in turn;
+    {layer: [us a call, one a round]}."""
+    import torch.nn.functional as F
+
+    frames, params, (ow, oh) = k1_problem(torch, 1, (1200, 1920), 512, 1.5, "inside", 99)
+    b, h, w, _ = frames.shape
+    out = torch.empty((b, oh, ow, 3), dtype=torch.float32, device="cuda")
+    warp.KERNEL._fn = None  # this tree's K1, built as committed
+    fn = warp.KERNEL._function()
+    fn_gil = getattr(ctypes.PyDLL(str(cuda._target(warp.KERNEL.source))), warp.KERNEL.name)
+    fn_gil.argtypes, fn_gil.restype = warp.KERNEL.argtypes, ctypes.c_int
+
+    def custom_checks(f, p):  # as the custom_op route had them: the device read through device.type
+        for name, t, dtype, dims in (("frames", f, torch.uint8, 4), ("params", p, torch.float32, 2)):
+            if t.device.type != "cuda" or t.dtype != dtype or t.dim() != dims or not t.is_contiguous():
+                raise ValueError(f"{name}: not a contiguous CUDA tensor of {dtype}")
+        bb, _, _, ch = f.shape
+        if ch != 3 or tuple(p.shape) != (bb, 4):
+            raise ValueError("frames and params disagree")
+
+    def checks():  # _crop_bilinear_cuda's: check_cuda_tensor on is_cuda, the shape test on torch.Size
+        cuda.check_cuda_tensor("frames", frames, torch.uint8, 4)
+        cuda.check_cuda_tensor("params", params, torch.float32, 2)
+        bb, _, _, ch = frames.shape
+        if ch != 3 or params.shape != (bb, 4):
+            raise ValueError("frames and params disagree")
+
+    def custom_cuda(frames: torch.Tensor, params: torch.Tensor, out_w: int, out_h: int) -> torch.Tensor:
+        custom_checks(frames, params)
+        bb, hh, ww, _ = frames.shape
+        o = torch.empty((bb, out_h, out_w, 3), dtype=torch.float32, device=frames.device)
+        err = fn(cuda.ptr(frames), cuda.ptr(params), cuda.ptr(o), bb, hh, ww, out_h, out_w,
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            raise RuntimeError(f"K1: CUDA error {err}")
+        return o
+
+    custom = torch.library.custom_op("spe_ablate::crop_bilinear_custom_op", custom_cuda, mutates_args=(), device_types="cuda",
+                                   schema="(Tensor frames, Tensor params, SymInt out_w, SymInt out_h) -> Tensor")
+    xs = params[:, 0:1] * torch.arange(ow, device="cuda") + params[:, 1:2]
+    ys = params[:, 2:3] * torch.arange(oh, device="cuda") + params[:, 3:4]
+    grid = torch.stack([((2 * xs + 1) / w - 1)[:, None, :].expand(-1, oh, -1),
+                        ((2 * ys + 1) / h - 1)[:, :, None].expand(-1, -1, ow)], dim=-1)
+    frames_f = frames.permute(0, 3, 1, 2).float()
+    fp, pp, op_ = frames.data_ptr(), params.data_ptr(), out.data_ptr()
+    raw = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    layers = {
+        "warp.crop_bilinear, the whole call (eager: past the dispatcher)": lambda: warp.crop_bilinear(
+            frames, params, (ow, oh)),
+        "torch.ops.spe_port.crop_bilinear.default (the Library operator: an exported program's call)":
+            lambda: warp.crop_bilinear_op(frames, params, ow, oh),
+        "_crop_bilinear_cuda alone": lambda: warp._crop_bilinear_cuda(frames, params, ow, oh),
+        "custom_op route: the whole call": lambda: custom(frames, params, ow, oh),
+        "custom_op route: its CUDA implementation alone": lambda: custom_cuda(frames, params, ow, oh),
+        "custom_op route: checks (the device read through device.type)": lambda: custom_checks(frames, params),
+        "checks (check_cuda_tensor on is_cuda)": checks,
+        "custom_op route: torch.empty of the output, device=": lambda: torch.empty((b, oh, ow, 3), dtype=torch.float32,
+                                                                          device=frames.device),
+        "new_empty of the output": lambda: frames.new_empty((b, oh, ow, 3), dtype=torch.float32),
+        "params.new_empty of the output (no dtype)": lambda: params.new_empty((b, oh, ow, 3)),
+        "custom_op route: torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "the raw stream (_cuda.Kernel.launch now)": lambda: torch._C._cuda_getCurrentRawStream(
+            torch._C._cuda_getDevice()),
+        "Kernel.launch (stream, ctypes call, count)": lambda: warp.KERNEL.launch(fp, pp, op_, b, h, w, oh, ow),
+        "the ctypes call alone (the launch included)": lambda: fn(fp, pp, op_, b, h, w, oh, ow, raw),
+        "the same call through ctypes.PyDLL (the GIL kept)": lambda: fn_gil(fp, pp, op_, b, h, w, oh, ow, raw),
+        "F.grid_sample, the yardstick": lambda: F.grid_sample(frames_f, grid, mode="bilinear", padding_mode="zeros",
+                                                              align_corners=False),
+    }
+    if not torch.equal(custom(frames, params, ow, oh), warp.crop_bilinear(frames, params, (ow, oh))):
+        raise RuntimeError("K1 host split: the custom_op route and this tree's give other crops")
+    split: dict = {}
+    for _ in range(rounds):
+        for name, call in layers.items():
+            split.setdefault(name, []).append(round(per_call_us(torch, call), 3))
+    return split
+
+
 def agrees(torch, key, got, want) -> bool:
     """A variant's answer against the plain version's, with chip_smoke.py's bars: exact; K2/K3 within 1e-5
-    of the output's scale; K2b within 2^-7 of its bf16 gradient's scale. --before's K2, K2b and int8
-    kernels against this tree's: bit for bit."""
-    if key in ("K2-before", "K2b-before") + INT8_BEFORE:
+    of the output's scale; K2b within 2^-7 of its bf16 gradient's scale. --before's K2, K2b, int8
+    kernels and K1 against this tree's: bit for bit. K1 within chip_smoke.py's 1e-3 grey."""
+    if key in ("K2-before", "K2b-before", "K1-before") + INT8_BEFORE:
         return all(map(torch.equal, got, want)) if isinstance(got, list) else torch.equal(got, want)
     if key.startswith("K2b"):
         scale = max(w.float().abs().max().item() for w in want)
         return max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want)) <= 2.0 ** -7 * scale
     if torch.equal(got, want):
         return True
+    if key == "K1":
+        return (got - want).abs().max().item() <= 1e-3
     return key in ("K2", "K3") and (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
@@ -438,7 +627,7 @@ def main() -> int:
         print("chip_ablate: no CUDA device is available", file=sys.stderr)
         return 1
     from spacecraft_pose_estimation_tpu_torch import _cuda
-    from spacecraft_pose_estimation_tpu_torch.ops import int8_blocks, int8_conv, nms, roi_align
+    from spacecraft_pose_estimation_tpu_torch.ops import int8_blocks, int8_conv, nms, roi_align, warp
 
     argv, before = sys.argv[1:], None
     if "--before" in argv:
@@ -462,14 +651,16 @@ def main() -> int:
                "K2b": roi_align.BACKWARD, "K4-before": nms.KERNEL,  # one wrapper: each variant points it at its K4
                "K2-before": roi_align.KERNEL, "K2b-before": roi_align.BACKWARD, "K5a-before": k5a_before,
                "K5-before": int8_blocks.CHAIN, "K6-before": int8_blocks.BOTTLENECK, "K7-before": int8_blocks.EXCHANGE,
-               "K2b-atomic": _cuda.Kernel(*SOURCES["K2b-atomic"][::-1], ATOMIC_ARGTYPES)}
+               "K2b-atomic": _cuda.Kernel(*SOURCES["K2b-atomic"][::-1], ATOMIC_ARGTYPES),
+               "K1": warp.KERNEL, "K1-before": warp.KERNEL}  # one wrapper: each variant points it at its K1
     times: dict = {}
     work = (workloads(torch, int8_conv, int8_blocks, set(keys) & set(INT8_BEFORE), k5a_before)
             if set(keys) & set(INT8 + INT8_BEFORE) else []) + \
         (pooler_nms_workloads(torch, roi_align, nms, "K4-before" in keys, "K2-before" in keys)
          if set(keys) & {"K2", "K3", "K4", "K4-before", "K2-before"} else []) + \
         (k2b_workloads(torch, roi_align, keys, kernels["K2b-atomic"] if "K2b-atomic" in keys else None)
-         if set(keys) & {"K2b", "K2b-atomic", "K2b-before"} else [])
+         if set(keys) & {"K2b", "K2b-atomic", "K2b-before"} else []) + \
+        (k1_workloads(torch, warp, keys) if set(keys) & {"K1", "K1-before"} else [])
     for _ in range(2):  # two turns through the variants, to show the spread
         for name, by_key in fns.items():
             for key, fn in by_key.items():
@@ -484,10 +675,13 @@ def main() -> int:
                     raise RuntimeError(f"{label}: {name!r} disagrees with the plain version")
                 if name == "as committed" and key == "K2b" and not all(map(torch.equal, got, call())):
                     raise RuntimeError(f"{label}: two calls of K2b differ")
-                calls = 50 if key in ("K2", "K3", "K4", "K4-before", "K2-before") else 10  # ~1 ms a replay, as chip_smoke's k
+                calls = 50 if key in ("K2", "K3", "K4", "K4-before", "K2-before", "K1", "K1-before") else 10  # ~1 ms a replay, as chip_smoke's k
                 times.setdefault(label, {}).setdefault(name, []).append(round(graph_ms(torch, call, calls), 5))
     for label, by_variant in times.items():
         print(json.dumps({"shape": label, "device_ms": by_variant}), flush=True)
+    if "K1" in keys:
+        for layer, us in k1_host_split(torch, warp, _cuda).items():
+            print(json.dumps({"k1_host_layer": layer, "us_a_call": us}), flush=True)
     print(json.dumps({"ok": True, "card": card}))
     return 0
 

@@ -775,6 +775,62 @@ def pooler_grad_limit(dtype, scale: float) -> float:
     return (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
 
 
+# K1's coverage cases: (label, B, (H, W), (OW, OH), (x step, y step), where the crops lie, byte offset of the
+# frames in their buffer; "frame 1 of 4": the batch sliced from a contiguous one at its second frame)
+CROP_CASES = (
+    ("tile tails, OW % 4 = 3", 1, FRAME_HW, (131, 37), (1.4, 1.4), "inside", 0),
+    ("16 crops, OW % 4 = 1, partly off the frame", 16, FRAME_HW, (517, 263), (1.45, 1.45), "edge", 0),
+    ("wholly off the frame", 4, FRAME_HW, (256, 256), (1.0, 1.0), "off", 0),
+    ("x8 upsampling", 2, FRAME_HW, (515, 130), (0.125, 0.125), "inside", 0),
+    ("x6 downsampling (staged in passes)", 2, FRAME_HW, (301, 190), (6.0, 6.0), "edge", 0),
+    ("steps 2.5 by 40 (passes; tapped rows)", 2, FRAME_HW, (200, 27), (2.5, 40.0), "edge", 0),
+    ("346x260 event frames (rows of 1,038 bytes)", 8, (260, 346), (512, 512), (0.36, 0.36), "edge", 0),
+    ("346x260 frames at an odd byte offset", 3, (260, 346), (255, 255), (0.8, 1.1), "edge", 1),
+    ("346x260 frame 1 of 4 (not 16-byte aligned)", 3, (260, 346), (512, 512), (0.5, 0.5), "edge", "frame 1 of 4"),
+)
+
+
+def check_crop_coverage(torch, m) -> None:
+    """K1 against its plain version within 1e-3 grey on the cases its tiling
+    finds delicate, each launch waited on (``kernel_sync``): output sides
+    that are not multiples of the tile and rows that are not 16-byte
+    aligned (OW % 4 != 0), B = 1 and 16, crops partly and wholly off the
+    frame, x8 upsampling, downsampling steps of 6 and 40 (the band staged in
+    passes, the tapped rows alone), 346x260 frames and frame batches that
+    start at an odd byte offset or at a sliced frame."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(6)
+    for label, b, (h, w), (ow, oh), (sx, sy), where, offset in CROP_CASES:
+        n = h * w * 3
+        if offset == "frame 1 of 4":
+            frames = torch.randint(0, 256, (b + 1, h, w, 3), generator=gen, dtype=torch.uint8).cuda()[1:]
+        else:
+            flat = torch.randint(0, 256, (b * n + offset,), generator=gen, dtype=torch.uint8).cuda()
+            frames = flat[offset:].view(b, h, w, 3)
+        u = lambda: torch.rand(b, generator=gen, dtype=torch.float64)
+        step_x, step_y = sx * (0.95 + 0.1 * u()), sy * (0.95 + 0.1 * u())
+        if where == "off":  # every sample left of or above the frame by more than a pixel
+            cx, cy = -(step_x * ow / 2) - 2 - 100 * u(), -(step_y * oh / 2) - 2 - 100 * u()
+        else:
+            lo_x, lo_y = (-0.25 * w, -0.25 * h) if where == "edge" else (0.0, 0.0)
+            cx, cy = lo_x + u() * (w - 2 * lo_x), lo_y + u() * (h - 2 * lo_y)
+        params = torch.stack([step_x, cx - step_x * ow / 2, step_y, cy - step_y * oh / 2], -1).float().cuda()
+        sync()
+        got = m.warp.crop_bilinear(frames, params, (ow, oh))
+        kernel_sync(f"K1 on the coverage case {label}")
+        want = m.warp.crop_bilinear_plain(frames, params, (ow, oh))
+        sync()
+        err = (got - want).abs().max().item()
+        log(f"K1 coverage, {label}: {b} x {h}x{w} -> {ow}x{oh} (frames at byte {frames.data_ptr() % 16} mod 16), "
+            f"max_abs_err {err:.3g} (limit 1e-3 grey), {int((want != 0).any(-1).sum())} of {b * oh * ow} "
+            f"samples nonzero")
+        if err > 1e-3 or got.shape != want.shape:
+            raise RuntimeError(f"K1 disagrees with its plain version on the coverage case {label}: {err}")
+        if where == "off" and bool(want.any()):
+            raise RuntimeError(f"K1 coverage: the case {label} samples the frame")
+    log(f"K1 coverage: {len(CROP_CASES)} cases in {time.perf_counter() - t0:.2f} s")
+
+
 def check_pooler_coverage(torch, m) -> None:
     """K2 and its backward against their plain versions on seeded boxes
     that the served proposals may not reach (random weights can put them
@@ -7039,6 +7095,7 @@ def main() -> int:
     build_s = _cuda.build_all()
     log("build (s): " + json.dumps({k: round(v, 2) for k, v in build_s.items()}))
     check_tensor_core_sass(_cuda)
+    check_crop_coverage(torch, m)
     check_pooler_coverage(torch, m)
     check_pooler_backward_tiles(torch, m)
     check_single_coverage(torch, m)

@@ -126,8 +126,11 @@ class Kernel:
         return self._fn
 
     def launch(self, *args) -> None:
+        """Call the launcher on the current device's current stream. The raw
+        stream handle is read directly, not through the ``torch.cuda.Stream``
+        object that ``torch.cuda.current_stream()`` builds on every call."""
         fn = self._function()
-        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
         if err != 0:
             msg = _load(self.source).spe_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
@@ -139,8 +142,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype, shape_len: int | None = None):
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``."""
-    if t.device.type != "cuda":
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``. (``is_cuda``
+    rather than ``device.type``: it builds no device object, on every launch.)"""
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.dtype not in dtypes:

@@ -8,7 +8,7 @@ to the window's coverage (:func:`clamp_scales_to_window`). So the port has
 one crop, kernel K1 (``csrc/crop_bilinear.cu``), which samples the frame
 directly; :func:`crop_bilinear_plain` is the same function in eager
 PyTorch, taken for CPU tensors. Both sit behind one registered operator,
-``torch.ops.spe_port.crop_bilinear`` (:func:`crop_bilinear_op`), so that
+``torch.ops.spe_port.crop_bilinear`` (:data:`crop_bilinear_op`), so that
 ``torch.export`` records the crop as one node (``tools/export_model.py``).
 
 Training crops at a random rotation, which is not separable: that is the
@@ -98,43 +98,63 @@ def crop_bilinear_plain(frames: Tensor, params: Tensor, out_size: tuple[int, int
     return (rows * wy[:, :, :, None, None]).sum(2)
 
 
-@torch.library.custom_op("spe_port::crop_bilinear", mutates_args=(), device_types="cpu")
-def crop_bilinear_op(frames: Tensor, params: Tensor, out_w: int, out_h: int) -> Tensor:
-    """K1 as a registered operator, ``torch.ops.spe_port.crop_bilinear``:
-    the plain version on CPU tensors, the kernel on CUDA ones (below), so
-    that ``torch.export`` records it as one node. A program exported with
-    it loads once this module is imported."""
+# K1's operator, defined through ``torch.library.Library`` rather than
+# ``torch.library.custom_op``: the same schema and one node under
+# ``torch.export``, without custom_op's Python autograd and aliasing layers
+# on every call (PERF.md: the host's cost of one K1 call).
+_LIB = torch.library.Library("spe_port", "DEF")
+_LIB.define("crop_bilinear(Tensor frames, Tensor params, SymInt out_w, SymInt out_h) -> Tensor")
+
+
+def _crop_bilinear_cpu(frames: Tensor, params: Tensor, out_w: int, out_h: int) -> Tensor:
+    """The CPU implementation of ``torch.ops.spe_port.crop_bilinear``: the plain version."""
     return crop_bilinear_plain(frames, params, (out_w, out_h))
 
 
-@crop_bilinear_op.register_kernel("cuda")
 def _crop_bilinear_cuda(frames: Tensor, params: Tensor, out_w: int, out_h: int) -> Tensor:
-    """Launch K1: the CUDA implementation of :func:`crop_bilinear_op`."""
+    """Launch K1: the CUDA implementation of ``torch.ops.spe_port.crop_bilinear``.
+    ``frames`` may start at any byte offset."""
     _cuda.check_cuda_tensor("frames", frames, torch.uint8, 4)
     _cuda.check_cuda_tensor("params", params, torch.float32, 2)
     b, h, w, ch = frames.shape
-    if ch != 3 or tuple(params.shape) != (b, 4):
+    if ch != 3 or params.shape != (b, 4):
         raise ValueError(f"frames {tuple(frames.shape)} / params {tuple(params.shape)} disagree")
-    out = torch.empty((b, out_h, out_w, 3), dtype=torch.float32, device=frames.device)
-    KERNEL.launch(_cuda.ptr(frames), _cuda.ptr(params), _cuda.ptr(out), b, h, w, out_h, out_w)
+    out = frames.new_empty((b, out_h, out_w, 3), dtype=torch.float32)
+    KERNEL.launch(frames.data_ptr(), params.data_ptr(), out.data_ptr(), b, h, w, out_h, out_w)
     return out
 
 
-@crop_bilinear_op.register_fake
 def _crop_bilinear_fake(frames: Tensor, params: Tensor, out_w: int, out_h: int) -> Tensor:
     return frames.new_empty((frames.shape[0], out_h, out_w, 3), dtype=torch.float32)
+
+
+_LIB.impl("crop_bilinear", _crop_bilinear_cpu, "CPU")
+_LIB.impl("crop_bilinear", _crop_bilinear_cuda, "CUDA")
+torch.library.register_fake("spe_port::crop_bilinear", _crop_bilinear_fake, lib=_LIB)
+# K1 as a registered operator, ``torch.ops.spe_port.crop_bilinear``: the
+# plain version on CPU tensors, the kernel on CUDA ones, so that
+# ``torch.export`` records it as one node. A program exported with it loads
+# once this module is imported.
+crop_bilinear_op = torch.ops.spe_port.crop_bilinear.default
 
 
 def crop_bilinear(frames: Tensor, params: Tensor, out_size: tuple[int, int]) -> Tensor:
     """Bilinear crop of (B, H, W, 3) uint8 frames to (B, OH, OW, 3) float32.
 
     ``params`` (B, 4) from :func:`crop_params`. CPU tensors take the plain
-    version; CUDA tensors launch K1 (through :func:`crop_bilinear_op`);
-    tensors on any other device raise.
+    version; CUDA tensors launch K1; tensors on any other device raise. An
+    eager call on plain CUDA tensors goes to the operator's CUDA
+    implementation directly, past the dispatcher; under tracing (fake or
+    functional tensors, a dispatch mode, ``torch.compile``) the call goes
+    through :data:`crop_bilinear_op`, so ``torch.export`` records it.
     """
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    if (frames.is_cuda and type(frames) is Tensor and not torch._C._len_torch_dispatch_stack()
+            and not torch.compiler.is_compiling()):
+        return _crop_bilinear_cuda(frames, params, out_w, out_h)
     if frames.device.type not in ("cpu", "cuda"):
         raise ValueError(f"frames: expected a CPU or CUDA tensor, got {frames.device}")
-    return crop_bilinear_op(frames, params, int(out_size[0]), int(out_size[1]))
+    return crop_bilinear_op(frames, params, out_w, out_h)
 
 
 def crop_and_resize(
